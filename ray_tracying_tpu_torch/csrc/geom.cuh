@@ -1,0 +1,187 @@
+// Per-geom intersection math shared by the CUDA kernels: the device twins
+// of kernels/closest_hit.py (geom_t, geom_step_n).
+//
+// Replaces the TPU device functions kernels/closest_hit.py::geom_t /
+// geom_step_n of the JAX package (sphere, cube and rect parts).
+//
+// One thread holds one ray; a geom-table row is read from the block's
+// shared-memory copy of the table, stored transposed (columns, G): every
+// thread of a warp reads the same address, a broadcast.  The order of
+// operations is that of the plain PyTorch version, term by term, so that
+// with FMA contraction off (--fmad=false) both give the same bits.
+//
+// The functions are plain C++: with a host compiler (no __CUDACC__) the
+// same source builds as CPU code, which lets the lane arithmetic be
+// emulated and held against the plain version without a GPU
+// (tests/test_torch_kernel_source.py).
+#pragma once
+
+#include <math.h>
+
+#ifdef __CUDACC__
+#define RTT_DEV __device__ __forceinline__
+#else
+#define RTT_DEV inline
+#endif
+
+namespace rtt {
+
+// Semantics constants (core/constants.py), each the f32 nearest to the
+// double literal, as PyTorch rounds a Python float.
+constexpr float kInf = INFINITY;
+constexpr float kEpsTMin = (float)1e-3;      // sphere / rect minimum t
+constexpr float kEpsParallel = (float)1e-6;  // slab / plane denominators
+
+constexpr int kKindSphere = 0;
+constexpr int kKindCube = 1;
+constexpr int kKindRect = 2;
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, dnorm;
+};
+
+RTT_DEV Ray make_ray(float ox, float oy, float oz, float dx, float dy, float dz) {
+  Ray r;
+  r.ox = ox; r.oy = oy; r.oz = oz;
+  r.dx = dx; r.dy = dy; r.dz = dz;
+  r.dnorm = sqrtf(dx * dx + dy * dy + dz * dz);
+  return r;
+}
+
+// Object-space ray of table row g: o_l = w2o * (o, 1), d_l = w2o * (d, 0).
+struct LocalRay {
+  float olx, oly, olz, dlx, dly, dlz;
+};
+
+RTT_DEV LocalRay to_local(const float* tab, int G, int g, const Ray& r) {
+  const float c0 = tab[0 * G + g], c1 = tab[1 * G + g], c2 = tab[2 * G + g], c3 = tab[3 * G + g];
+  const float c4 = tab[4 * G + g], c5 = tab[5 * G + g], c6 = tab[6 * G + g], c7 = tab[7 * G + g];
+  const float c8 = tab[8 * G + g], c9 = tab[9 * G + g], c10 = tab[10 * G + g], c11 = tab[11 * G + g];
+  LocalRay l;
+  l.olx = r.ox * c0 + r.oy * c1 + r.oz * c2 + c3;
+  l.oly = r.ox * c4 + r.oy * c5 + r.oz * c6 + c7;
+  l.olz = r.ox * c8 + r.oy * c9 + r.oz * c10 + c11;
+  l.dlx = r.dx * c0 + r.dy * c1 + r.dz * c2;
+  l.dly = r.dx * c4 + r.dy * c5 + r.dz * c6;
+  l.dlz = r.dx * c8 + r.dy * c9 + r.dz * c10;
+  return l;
+}
+
+// One slab axis of the unit cube: entry/exit parameters and the sign of
+// the entry face; returns true when the ray is parallel to the slab and
+// outside it.
+RTT_DEV bool slab_axis(float oo, float dd, float& ent, float& ext, float& sgn) {
+  const bool par = fabsf(dd) < kEpsParallel;
+  const float inv_d = 1.0f / (par ? 1.0f : dd);
+  const float s1 = (-0.5f - oo) * inv_d;
+  const float s2 = (0.5f - oo) * inv_d;
+  ent = par ? -kInf : fminf(s1, s2);
+  ext = par ? kInf : fmaxf(s1, s2);
+  sgn = (s1 < s2) ? -1.0f : 1.0f;
+  return par && ((oo < -0.5f) || (oo > 0.5f));
+}
+
+// Hit distance (Euclidean, +inf for a miss) of table row g of kind KIND.
+// WANT_N also yields the UNnormalized world-space normal (sphere: local
+// hit point, cube: entry face, rect: +z; mapped by w2o^T).
+template <int KIND, bool WANT_N>
+RTT_DEV float geom_t(const float* tab, int G, int g, const Ray& r,
+                     float& nwx, float& nwy, float& nwz) {
+  const LocalRay l = to_local(tab, G, g, r);
+  float t_geom;
+  float nlx = 0.0f, nly = 0.0f, nlz = 0.0f;
+  if constexpr (KIND == kKindSphere) {
+    // (Code/shapes.cpp:219-232)
+    const float a = l.dlx * l.dlx + l.dly * l.dly + l.dlz * l.dlz;
+    const float b = (l.olx * l.dlx + l.oly * l.dly + l.olz * l.dlz) * 2.0f;
+    const float cc = l.olx * l.olx + l.oly * l.oly + l.olz * l.olz - 1.0f;
+    const float disc = b * b - a * 4.0f * cc;
+    const float sq = (disc > 0.0f) ? sqrtf(disc) : 0.0f;
+    const float a_safe = (a > 0.0f) ? a : 1.0f;
+    const float inv_2a = 1.0f / (a_safe * 2.0f);
+    const float t1 = (-b - sq) * inv_2a;
+    const float t2 = (-b + sq) * inv_2a;
+    float t_loc = (t1 > kEpsTMin) ? t1 : ((t2 > kEpsTMin) ? t2 : kInf);
+    t_loc = ((disc >= 0.0f) && (a > 0.0f)) ? t_loc : kInf;
+    t_geom = t_loc * r.dnorm;
+    if constexpr (WANT_N) {
+      const float tl = (t_loc < kInf) ? t_loc : 0.0f;
+      nlx = l.olx + tl * l.dlx;
+      nly = l.oly + tl * l.dly;
+      nlz = l.olz + tl * l.dlz;
+    }
+  } else if constexpr (KIND == kKindCube) {
+    // Slab test with t > 0, no 1e-3 epsilon (Code/shapes.cpp:361-393).
+    float e0, e1, e2, x0, x1, x2, g0, g1, g2;
+    bool miss = slab_axis(l.olx, l.dlx, e0, x0, g0);
+    miss = slab_axis(l.oly, l.dly, e1, x1, g1) || miss;
+    miss = slab_axis(l.olz, l.dlz, e2, x2, g2) || miss;
+    const float t_near = fmaxf(fmaxf(fmaxf(-kInf, e0), e1), e2);
+    const float t_far = fminf(fminf(fminf(kInf, x0), x1), x2);
+    miss = miss || (t_near > t_far) || (t_far < 0.0f);
+    float t_cub = (t_near > 0.0f) ? t_near : t_far;
+    t_cub = (miss || (t_cub < 0.0f)) ? kInf : t_cub;
+    t_geom = t_cub * r.dnorm;
+    if constexpr (WANT_N) {
+      // Entry face: first axis whose slab entry is the max (strict >).
+      const bool win1 = e1 > e0;
+      const float axv = win1 ? e1 : e0;
+      const bool win2 = e2 > axv;
+      nlx = (win1 || win2) ? 0.0f : g0;
+      nly = win2 ? 0.0f : (win1 ? g1 : 0.0f);
+      nlz = win2 ? g2 : 0.0f;
+    }
+  } else {
+    // Unit square on z = 0 (Code/shapes.cpp:305-315).
+    const bool par_z = fabsf(l.dlz) < kEpsParallel;
+    const float t_r = -l.olz / (par_z ? 1.0f : l.dlz);
+    const float hx = l.olx + t_r * l.dlx;
+    const float hy = l.oly + t_r * l.dly;
+    const bool ok = !par_z && (t_r >= kEpsTMin) && (hx >= -0.5f) &&
+                    (hx <= 0.5f) && (hy >= -0.5f) && (hy <= 0.5f);
+    t_geom = (ok ? t_r : kInf) * r.dnorm;
+    if constexpr (WANT_N) nlz = 1.0f;
+  }
+  if constexpr (WANT_N) {
+    // n_w = w2o^T n_loc (Code/shapes.cpp:178-187); normalization deferred.
+    nwx = nlx * tab[0 * G + g] + nly * tab[4 * G + g] + nlz * tab[8 * G + g];
+    nwy = nlx * tab[1 * G + g] + nly * tab[5 * G + g] + nlz * tab[9 * G + g];
+    nwz = nlx * tab[2 * G + g] + nly * tab[6 * G + g] + nlz * tab[10 * G + g];
+  }
+  return t_geom;
+}
+
+// Running closest hit with the winner's table row and world normal.
+struct Best {
+  float t, nx, ny, nz;
+  int row;
+};
+
+// Closest hit over rows [start, end) of kind KIND, in table order, with
+// the strict-< first-wins tie-break (Code/acceleration.cpp:112,133).
+template <int KIND>
+RTT_DEV void closest_range(const float* tab, int G, int start, int end,
+                           const Ray& r, Best& best) {
+  for (int g = start; g < end; ++g) {
+    float nx, ny, nz;
+    const float t = geom_t<KIND, true>(tab, G, g, r, nx, ny, nz);
+    if (t < best.t) {
+      best.t = t; best.row = g;
+      best.nx = nx; best.ny = ny; best.nz = nz;
+    }
+  }
+}
+
+// Any hit over rows [start, end) of kind KIND: true at the first geom
+// with t <= maxt; the thread leaves the loop there.
+template <int KIND>
+RTT_DEV bool any_hit_range(const float* tab, int G, int start, int end,
+                           const Ray& r, float maxt) {
+  float nx, ny, nz;
+  for (int g = start; g < end; ++g) {
+    if (geom_t<KIND, false>(tab, G, g, r, nx, ny, nz) <= maxt) return true;
+  }
+  return false;
+}
+
+}  // namespace rtt

@@ -1,0 +1,121 @@
+"""Build the CUDA kernels at first use and load them with ctypes.
+
+`csrc/*.cu` are compiled by `nvcc` into ONE shared library with a plain C
+interface — no PyTorch headers, so a build takes seconds.  The library
+lands in `<package>/build/` under a name that carries the hash of the
+sources and flags: a changed source or flag builds a new file, an
+unchanged one is reused.  Nothing here runs at import: the first kernel
+launch calls `load()`.  A failed build raises with the compiler's output;
+there is no other path.
+
+The build runs with --fmad=false: no FMA contraction, which keeps the
+kernels' arithmetic equal to the plain PyTorch versions term by term (see
+csrc/wavefront.cu).  `load_variant(fmad=True)` builds the contracted
+variant beside it for the one measurement that compares the two
+(chip_smoke.py); nothing in the package calls it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # Print registers, shared memory and spills of every kernel.
+    "-Xptxas", "-v",
+)
+
+_lib = None
+# What the last build or reuse did: path, seconds, whether nvcc ran, and
+# nvcc's output (the -Xptxas -v resource report).
+last_build: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, in CUDA_HOME and in /usr/local/cuda):"
+        " the CUDA kernels cannot be built"
+    )
+
+
+def _sources():
+    names = sorted(os.listdir(CSRC_DIR))
+    cu = [os.path.join(CSRC_DIR, n) for n in names if n.endswith(".cu")]
+    hdr = [os.path.join(CSRC_DIR, n) for n in names if n.endswith(".cuh")]
+    return cu, hdr
+
+
+def build(fmad: bool = False) -> str:
+    """Compile csrc/*.cu if no library of the current sources and flags
+    exists yet; returns the library's path."""
+    cu, hdr = _sources()
+    flags = NVCC_FLAGS + (f"--fmad={'true' if fmad else 'false'}",)
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in cu + hdr:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    lib_path = os.path.join(BUILD_DIR, f"libwavefront-{h.hexdigest()[:16]}.so")
+    t0 = time.time()
+    log = ""
+    ran = not os.path.exists(lib_path)
+    if ran:
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *flags, "-o", tmp, *cu]
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
+            )
+        os.replace(tmp, lib_path)
+    last_build.update(
+        path=lib_path, seconds=time.time() - t0, compiled=ran, log=log,
+        flags=" ".join(flags),
+    )
+    return lib_path
+
+
+def load_variant(fmad: bool) -> ctypes.CDLL:
+    """Build and open the library with FMA contraction as asked.  Every
+    pointer and the stream are declared c_void_p: undeclared, ctypes would
+    pass them as 32-bit ints and cut the addresses."""
+    lib = ctypes.CDLL(build(fmad))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wave_level_launch.argtypes = [
+        p, p, p, p, p, p, p,                 # q fuzz table lights tex twh out
+        ctypes.c_longlong, i, i, i,          # R G n_cols n_lights
+        ctypes.POINTER(ctypes.c_int), i,     # ranges n_ranges
+        i, i,                                # glossy has_tex
+        i, i, i,                             # n_tex tex_h tex_w
+        ctypes.c_float, i, p,                # min_tp threads stream
+    ]
+    lib.wave_level_launch.restype = i
+    lib.wave_error_string.argtypes = [i]
+    lib.wave_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library (--fmad=false), built at the first call."""
+    global _lib
+    if _lib is None:
+        _lib = load_variant(fmad=False)
+    return _lib

@@ -1,0 +1,559 @@
+"""Fused wavefront level: one whole bounce level — closest hit, material
+record, Blinn-Phong, shadow visibility (any-hit loops with early exit),
+texture UV and texel, glossy continuation spawn — in ONE kernel launch.
+
+`wave_level` is the wrapper: for a CUDA tensor it launches the
+hand-written kernel of csrc/wavefront.cu (built at first use by
+kernels/_build.py) or raises; only for a CPU tensor does it take
+`wave_level_plain`, the plain PyTorch version of the same function, which
+is also what the kernel is held against on the card.
+
+Replaces the TPU kernel `kernels/wavefront.py::_wave_kernel` (with
+`_any_hit`, called through `wave_level_call`) of the JAX package.
+
+What bounds it on an H100: operations, not bytes.  Per live lane the level
+costs G slab/quadratic tests for the closest hit plus up to n_lights * G
+more for the shadow rays (about 80 f32 operations each), against 9 + F
+rows of 4 bytes read and 13 written.  At the flagship's 142 geoms that is
+some 10^4 operations per 100 bytes, two orders above the card's
+operations-per-byte balance in plain f32.  The design therefore spends
+nothing on memory tricks: one thread per lane with coalesced row-major
+accesses, the whole table broadcast from shared memory, per-thread early
+exit from the shadow loops, and dead lanes retired before any arithmetic.
+
+Dataflow (row-major (rows, R) f32; lane i of row r at r * R + i):
+
+  queue pack     rows 0..8   [ox oy oz dx dy dz time act tp]
+  level output   rows 0..8   next queue pack (same layout)
+                 rows 9..11  contribution (tp-weighted, visibility and
+                             texel applied): the level's radiance
+                 row  12     act_hit (stats)
+
+The next level reads the previous output tensor directly.  Glossy fuzz is
+sampled OUTSIDE the kernel and fed in as fuzz rows 0..2, so tests can feed
+the same draws to every implementation.
+
+Scope: `wave_supported` names what this level does not take yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ray_tracying_tpu_torch.core import constants as C
+from ray_tracying_tpu_torch.kernels import _build
+from ray_tracying_tpu_torch.kernels.closest_hit import (
+    KIND_CUBE,
+    KIND_RECT,
+    KIND_SPHERE,
+    RayBlock,
+    geom_step_n,
+    geom_t,
+)
+from ray_tracying_tpu_torch.kernels.geom_table import (
+    GEOM_COLS,
+    pack_geom_table_shaded,
+    pack_light_table,
+)
+from ray_tracying_tpu_torch.scene.types import Scene
+
+_INF = float("inf")
+_TINY = 1e-20
+
+Q_ROWS = 9
+C_BASE = 9    # contribution rows
+HIT_ROW = 12  # act_hit
+OUT_ROWS = 13
+
+WAVE_MAX_LIGHTS = 8
+# Threads per block; one thread per ray lane.
+WAVE_THREADS = 256
+# The block's copy of the shaded table and the light table live in dynamic
+# shared memory; above 48 KB the launcher opts in with
+# cudaFuncAttributeMaxDynamicSharedMemorySize, up to the 227 KB a block
+# can have on sm_90.  Larger scenes are refused by the wrapper.
+WAVE_MAX_SMEM_BYTES = 232448
+
+# Column offsets into the shaded table (kernels/geom_table.py).
+_M = GEOM_COLS  # first material column
+_SLOT_COL = GEOM_COLS + 14
+
+
+@dataclasses.dataclass(frozen=True)
+class WaveTables:
+    """Everything one level reads besides the rays: the operands packed by
+    `wave_tables`, on one device, plus the static facts of the scene."""
+
+    table: torch.Tensor            # (31|32, G) f32 shaded table, transposed
+    ranges: Tuple[Tuple[int, int, int], ...]  # (kind, start, end) per kind
+    lights: torch.Tensor           # (8, L) f32
+    tex: Optional[torch.Tensor]    # (T, H, W, 4) uint8 texels (rgb + pad)
+    twh: Optional[torch.Tensor]    # (2, T) f32 true (w, h) per slot
+    n_lights: int
+    glossy: bool
+    has_tex: bool
+
+
+def pack_tex_u8(scene: Scene):
+    """((T, H, W, 4) uint8 texel table, (2, T) f32 true-size table).
+
+    Texels are stored as the EXACT u8 values round(255 * atlas); the level
+    multiplies the fetched integer by the f32 constant 1/255, which
+    reproduces the reference's nearest-neighbor fetch
+    (Code/material.hpp:122-133).  The fourth byte pads a texel to one
+    aligned 32-bit load."""
+    t, h, w, _ = scene.tex_atlas.shape
+    rgb = torch.round(scene.tex_atlas * 255.0).to(torch.uint8)
+    tex = torch.zeros((t, h, w, 4), dtype=torch.uint8, device=rgb.device)
+    tex[..., :3] = rgb
+    return tex, scene.tex_wh.T.to(torch.float32).contiguous()
+
+
+def wave_supported(
+    scene: Scene, use_bvh: bool = False, differentiable: bool = False
+) -> bool:
+    """Gate of the fused level path.  Returns True for a scene the level
+    takes; raises NotImplementedError naming the first feature it does not
+    take yet.  There is no other path to fall to.  (light_samples plays no
+    part: only area lights consume it, and they are refused.)"""
+
+    def refuse(feature):
+        raise NotImplementedError(
+            f"the fused wavefront level does not support {feature} yet"
+        )
+
+    if use_bvh:
+        refuse("use_bvh (BVH traversal)")
+    if differentiable:
+        refuse("record mode (differentiable rendering)")
+    if scene.has_two_way:
+        refuse("two-way materials (reflect and refract on one hit)")
+    if scene.has_refraction:
+        refuse("refraction")
+    if scene.has_motion:
+        refuse("motion blur")
+    if scene.n_planes:
+        refuse("legacy planes")
+    if any(scene.lights.is_area):
+        refuse("area lights")
+    if scene.n_lights > WAVE_MAX_LIGHTS:
+        refuse(f"more than {WAVE_MAX_LIGHTS} lights")
+    if scene.has_textures and scene.has_spheres:
+        refuse("textured spheres (spherical UV)")
+    if scene.has_textures and scene.tex_atlas is None:
+        refuse("textures without an atlas")
+    return True
+
+
+def wave_tables(scene: Scene) -> WaveTables:
+    """Pack the operands of the level for `scene`, on the scene's device.
+
+    The shaded table is transposed to (31|32, G): a column of the record
+    of every geom is contiguous, so the winner-record reads of a warp
+    spread over shared-memory banks.  Kind segments are NOT padded to a
+    multiple of 8 as in the JAX package (that served a TPU loop unroll):
+    the table holds the real rows only."""
+    table, ranges = pack_geom_table_shaded(scene, with_tex=scene.has_textures)
+    tex = twh = None
+    if scene.has_textures:
+        tex, twh = pack_tex_u8(scene)
+    return WaveTables(
+        table=table.T.contiguous(),
+        ranges=ranges,
+        lights=pack_light_table(scene).contiguous(),
+        tex=tex,
+        twh=twh,
+        n_lights=scene.n_lights,
+        glossy=scene.has_glossy,
+        has_tex=scene.has_textures,
+    )
+
+
+def _check_level_args(out_prev, fuzz, tables: WaveTables):
+    if out_prev.dtype != torch.float32 or out_prev.dim() != 2:
+        raise TypeError("out_prev must be a 2-D float32 tensor")
+    if out_prev.shape[0] < Q_ROWS:
+        raise ValueError(f"out_prev needs at least {Q_ROWS} rows")
+    if not out_prev.is_contiguous():
+        raise ValueError("out_prev must be contiguous (row-major)")
+    if tables.glossy:
+        if fuzz is None or fuzz.dtype != torch.float32 or fuzz.dim() != 2:
+            raise TypeError("glossy scenes need a 2-D float32 fuzz tensor")
+        if fuzz.shape[0] < 3 or fuzz.shape[1] != out_prev.shape[1]:
+            raise ValueError("fuzz must be (>=3, R)")
+        if not fuzz.is_contiguous() or fuzz.device != out_prev.device:
+            raise ValueError("fuzz must be contiguous, on out_prev's device")
+    operands = [(tables.table, torch.float32), (tables.lights, torch.float32)]
+    if tables.has_tex:
+        operands += [(tables.tex, torch.uint8), (tables.twh, torch.float32)]
+    for t, dtype in operands:
+        if t.device != out_prev.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                "tables must be contiguous, of their dtype, on the rays' device"
+            )
+
+
+def wave_level_plain(
+    out_prev: torch.Tensor,
+    fuzz: Optional[torch.Tensor],
+    tables: WaveTables,
+    min_tp: float = 0.0,
+    stats: Optional[dict] = None,
+) -> torch.Tensor:
+    """One bounce level in plain PyTorch: the oracle of the CUDA kernel
+    and the path of CPU tensors.  Loops over the table rows with (R,)
+    tensors; never builds anything of size (R, G).
+
+    out_prev: the previous level's (rows >= 9, R) output (or the primary
+    bootstrap tensor); the queue is its rows 0..8.  fuzz: (>= 3, R)
+    unit-ball rows when the scene is glossy.  Returns (13, R).
+
+    Lanes that enter dead (act <= 0) leave with every row zero.
+
+    stats: optional dict that receives what this call's data needed, for
+    the roofline bound: live lanes, geom tests of the closest-hit loops,
+    shadow rays cast, and geom tests of the shadow loops counted up to and
+    including each ray's first blocker (what a loop with early exit
+    runs)."""
+    _check_level_args(out_prev, fuzz, tables)
+    r = out_prev.shape[1]
+    dev = out_prev.device
+    rows = tables.table.T.tolist()        # G rows of Python floats (exact f32)
+    lights = tables.lights.cpu().numpy()  # (8, L) np.float32
+    rb = RayBlock(out_prev)
+    act = out_prev[7]
+    tp = out_prev[8]
+    live = act > 0.0
+    zero = torch.zeros(r, dtype=torch.float32, device=dev)
+
+    # --- closest hit + winning normal and table row
+    # (Code/acceleration.cpp:103-118); rows in table order, strict <.
+    best = (
+        torch.full((r,), _INF, dtype=torch.float32, device=dev),
+        torch.full((r,), -1, dtype=torch.int64, device=dev),
+        zero, zero, zero,
+    )
+    for kind, start, end in tables.ranges:
+        for g in range(start, end):
+            best = geom_step_n(g, best, rows[g], rb, kind)
+    best_t, best_row, bnx, bny, bnz = best
+    finite = torch.isfinite(best_t)
+    hit_f = finite & live
+    act_hit = torch.where(hit_f, 1.0, 0.0)
+    w_miss = torch.where(live & ~finite, tp, zero)
+
+    ln = torch.sqrt(bnx * bnx + bny * bny + bnz * bnz)
+    inv_n = 1.0 / torch.clamp(ln, min=_TINY)
+    nx, ny, nz = bnx * inv_n, bny * inv_n, bnz * inv_n
+
+    # --- winner record: plain indexing by the winner's table row; lanes
+    # without a winner read an all-zero record.
+    won = best_row >= 0
+    rec = tables.table[:, torch.clamp(best_row, min=0)]
+    rec = torch.where(won[None, :], rec, torch.zeros_like(rec))
+    dr, dg, db = rec[_M + 0], rec[_M + 1], rec[_M + 2]
+    sr, sg, sb = rec[_M + 3], rec[_M + 4], rec[_M + 5]
+    ka, kd, ks = rec[_M + 6], rec[_M + 7], rec[_M + 8]
+    shin, rough, refl = rec[_M + 9], rec[_M + 10], rec[_M + 11]
+
+    # --- hit point & view (V = -d for unit d, Code/raytracer.cpp:197)
+    t_fin = torch.where(hit_f, best_t, zero)
+    px = rb.ox + t_fin * rb.dx
+    py = rb.oy + t_fin * rb.dy
+    pz = rb.oz + t_fin * rb.dz
+    vx, vy, vz = -rb.dx, -rb.dy, -rb.dz
+
+    # local weight max(0, 1 - refl - trans) (Code/raytracer.cpp:346-350);
+    # trans is identically 0 (refraction is refused by the gate).
+    w_local = torch.where(hit_f, tp * torch.clamp(1.0 - refl, min=0.0), zero)
+
+    # --- contribution accumulators: D is tinted by the texel, S
+    # (specular + background) is not (Code/raytracer.cpp:194).
+    amb = ka * w_local
+    d_r, d_g, d_b = dr * amb, dg * amb, db * amb
+    s_r = w_miss * C.BACKGROUND_RGB[0]
+    s_g = w_miss * C.BACKGROUND_RGB[1]
+    s_b = w_miss * C.BACKGROUND_RGB[2]
+
+    # --- per light: Blinn-Phong (Code/raytracer.cpp:244-262) times the
+    # visibility of one hard-shadow ray (:199-236).
+    sox = px + nx * C.EPS_NORMAL_OFFSET
+    soy = py + ny * C.EPS_NORMAL_OFFSET
+    soz = pz + nz * C.EPS_NORMAL_OFFSET
+    n_shadow = 0
+    n_shadow_tests = 0
+    for li in range(tables.n_lights):
+        lpx, lpy, lpz, lr, lg, lb, inten, _ = (
+            float(x) for x in lights[:, li]
+        )
+        # 10 * I in f32, as the kernel computes it
+        num = float(np.float32(C.ATTEN_NUM) * lights[6, li])
+        lvx, lvy, lvz = lpx - px, lpy - py, lpz - pz
+        d2 = lvx * lvx + lvy * lvy + lvz * lvz
+        dist = torch.sqrt(d2)
+        inv_d = 1.0 / torch.clamp(dist, min=_TINY)
+        lcx, lcy, lcz = lvx * inv_d, lvy * inv_d, lvz * inv_d
+        ndotl = torch.clamp(nx * lcx + ny * lcy + nz * lcz, min=0.0)
+        hx, hy, hz = lcx + vx, lcy + vy, lcz + vz
+        hn = torch.sqrt(hx * hx + hy * hy + hz * hz)
+        inv_h = 1.0 / torch.clamp(hn, min=_TINY)
+        ndoth = torch.clamp(
+            nx * hx * inv_h + ny * hy * inv_h + nz * hz * inv_h, min=0.0
+        )
+        # pow(0, s) == 0, guarded
+        spec_i = torch.where(
+            ndoth > 0.0,
+            torch.exp(shin * torch.log(torch.clamp(ndoth, min=1e-12))),
+            zero,
+        )
+        # a true division (float / tensor would multiply by a reciprocal)
+        atten = torch.full_like(dist, num) / (
+            C.ATTEN_C0 + dist * C.ATTEN_C1 + d2 * C.ATTEN_C2
+        )
+        scale = atten * w_local
+        dif = kd * ndotl * scale
+        spc = ks * spec_i * scale
+        pr, pg, pb = dr * lr * dif, dg * lg * dif, db * lb * dif
+        qr, qg, qb = sr * lr * spc, sg * lg * spc, sb * lb * spc
+        # zero-contribution lanes cast no shadow ray (result unchanged)
+        needs = (
+            (pr != 0.0) | (pg != 0.0) | (pb != 0.0)
+            | (qr != 0.0) | (qg != 0.0) | (qb != 0.0)
+        )
+        s_act = hit_f & needs
+        # any-hit: blocked iff some geom has t <= dist (visible iff
+        # min_t > light_dist, Code/raytracer.cpp:233-235)
+        srb = RayBlock(
+            torch.stack([sox, soy, soz, lcx, lcy, lcz, zero], dim=0)
+        )
+        blocked = ~s_act
+        for kind, start, end in tables.ranges:
+            for g in range(start, end):
+                if stats is not None:
+                    n_shadow_tests += int((~blocked).sum())
+                blocked = blocked | (geom_t(rows[g], srb, kind) <= dist)
+        vis = torch.where(blocked, 0.0, 1.0)
+        if stats is not None:
+            n_shadow += int(s_act.sum())
+        d_r = d_r + pr * vis
+        d_g = d_g + pg * vis
+        d_b = d_b + pb * vis
+        s_r = s_r + qr * vis
+        s_g = s_g + qg * vis
+        s_b = s_b + qb * vis
+
+    # --- texture: per-kind UV of the winner (Code/shapes.cpp:396-407 cube
+    # entry face, :318-321 rect), then the nearest texel with v flipped
+    # (Code/material.hpp:122-133).
+    if tables.has_tex:
+        w2o = [rec[k] for k in range(12)]
+        kindv = rec[15]
+        slotv = rec[_SLOT_COL]
+        olx = w2o[0] * rb.ox + w2o[1] * rb.oy + w2o[2] * rb.oz + w2o[3]
+        oly = w2o[4] * rb.ox + w2o[5] * rb.oy + w2o[6] * rb.oz + w2o[7]
+        olz = w2o[8] * rb.ox + w2o[9] * rb.oy + w2o[10] * rb.oz + w2o[11]
+        dlx = w2o[0] * rb.dx + w2o[1] * rb.dy + w2o[2] * rb.dz
+        dly = w2o[4] * rb.dx + w2o[5] * rb.dy + w2o[6] * rb.dz
+        dlz = w2o[8] * rb.dx + w2o[9] * rb.dy + w2o[10] * rb.dz
+        # best_t is Euclidean = t_loc * |d| (Code/shapes.cpp:251-253).
+        t_loc = t_fin / torch.clamp(rb.dnorm, min=_TINY)
+        plx = olx + t_loc * dlx
+        ply = oly + t_loc * dly
+        plz = olz + t_loc * dlz
+        u = zero
+        v = zero
+        kinds = {k for k, _, _ in tables.ranges}
+        if KIND_CUBE in kinds:
+            # Entry face: recompute the slab entries once per lane; ties
+            # break first-wins (strict >).
+            ents = []
+            sgns = []
+            for oo, ddc in ((olx, dlx), (oly, dly), (olz, dlz)):
+                par = torch.abs(ddc) < C.EPS_PARALLEL
+                d_safe = torch.where(par, 1.0, ddc)
+                s1 = (-0.5 - oo) / d_safe
+                s2 = (0.5 - oo) / d_safe
+                ents.append(torch.where(par, -_INF, torch.minimum(s1, s2)))
+                sgns.append(torch.where(s1 < s2, -1.0, 1.0))
+            win1 = ents[1] > ents[0]
+            axv = torch.where(win1, ents[1], ents[0])
+            win2 = ents[2] > axv
+            ax0 = ~win1 & ~win2
+            ax1 = win1 & ~win2
+            sgn = torch.where(
+                win2, sgns[2], torch.where(win1, sgns[1], sgns[0])
+            )
+            pos = sgn > 0.0
+            uc = plx + 0.5
+            vc = ply + 0.5
+            wc = plz + 0.5
+            u_c = torch.where(
+                ax0,
+                torch.where(pos, wc, 1.0 - wc),
+                torch.where(ax1, uc, torch.where(pos, uc, 1.0 - uc)),
+            )
+            v_c = torch.where(
+                ax0, vc, torch.where(ax1, torch.where(pos, wc, 1.0 - wc), vc)
+            )
+            sel = kindv == float(KIND_CUBE)
+            u = torch.where(sel, u_c, u)
+            v = torch.where(sel, v_c, v)
+        if KIND_RECT in kinds:
+            sel = kindv == float(KIND_RECT)
+            u = torch.where(sel, plx + 0.5, u)
+            v = torch.where(sel, ply + 0.5, v)
+        twh = tables.twh.tolist()
+        twid = zero
+        thgt = zero
+        for t in range(len(twh[0])):
+            sel_t = slotv == float(t)
+            twid = torch.where(sel_t, twh[0][t], twid)
+            thgt = torch.where(sel_t, twh[1][t], thgt)
+        xx = torch.minimum(
+            torch.clamp(torch.floor(u * (twid - 1.0)), min=0.0),
+            torch.clamp(twid - 1.0, min=0.0),
+        )
+        yy = torch.minimum(
+            torch.clamp(torch.floor((1.0 - v) * (thgt - 1.0)), min=0.0),
+            torch.clamp(thgt - 1.0, min=0.0),
+        )
+        has_t = hit_f & (slotv >= 0.0)
+        # lanes without a texel read texel (0, 0, 0) and drop it below
+        si = torch.where(has_t, slotv, zero).to(torch.int64)
+        xi = torch.where(has_t, xx, zero).to(torch.int64)
+        yi = torch.where(has_t, yy, zero).to(torch.int64)
+        texel = tables.tex[si, yi, xi].to(torch.float32)  # (R, 4)
+        inv255 = 1.0 / 255.0
+        tr = torch.where(has_t, texel[:, 0] * inv255, 1.0)
+        tg = torch.where(has_t, texel[:, 1] * inv255, 1.0)
+        tb = torch.where(has_t, texel[:, 2] * inv255, 1.0)
+        c_r = d_r * tr + s_r
+        c_g = d_g * tg + s_g
+        c_b = d_b * tb + s_b
+    else:
+        c_r = d_r + s_r
+        c_g = d_g + s_g
+        c_b = d_b + s_b
+
+    # --- reflection continuation (Code/raytracer.cpp:307-333)
+    ddn = rb.dx * nx + rb.dy * ny + rb.dz * nz
+    rdx = rb.dx - ddn * 2.0 * nx
+    rdy = rb.dy - ddn * 2.0 * ny
+    rdz = rb.dz - ddn * 2.0 * nz
+    if tables.glossy:
+        # normalize(R + roughness * unit_ball); rays perturbed below the
+        # surface are absorbed (raytracer.cpp:312-327).
+        gx = rdx + rough * fuzz[0]
+        gy = rdy + rough * fuzz[1]
+        gz = rdz + rough * fuzz[2]
+        gn = torch.sqrt(gx * gx + gy * gy + gz * gz)
+        inv_g = 1.0 / torch.clamp(gn, min=_TINY)
+        gx, gy, gz = gx * inv_g, gy * inv_g, gz * inv_g
+        below = (gx * nx + gy * ny + gz * nz) < 0.0
+        gx = torch.where(below, zero, gx)
+        gy = torch.where(below, zero, gy)
+        gz = torch.where(below, zero, gz)
+        isg = rough > 0.0
+        rdx = torch.where(isg, gx, rdx)
+        rdy = torch.where(isg, gy, rdy)
+        rdz = torch.where(isg, gz, rdz)
+    rd2 = rdx * rdx + rdy * rdy + rdz * rdz
+    ok = hit_f & (refl > 0.0) & (rd2 > C.EPS_GLOSSY_DIR2)
+    tp2 = tp * refl
+    if min_tp > 0.0:
+        ok = ok & (tp2 > min_tp)
+
+    out = torch.stack(
+        [
+            sox, soy, soz, rdx, rdy, rdz,
+            zero,  # secondary rays carry time 0 (Code/shapes.hpp:28)
+            torch.where(ok, 1.0, 0.0),
+            torch.where(ok, tp2, zero),
+            c_r, c_g, c_b,
+            act_hit,
+        ],
+        dim=0,
+    )
+    if stats is not None:
+        n_live = int(live.sum())
+        stats.update(
+            lanes=r,
+            live=n_live,
+            closest_tests=n_live * len(rows),
+            shadow_rays=n_shadow,
+            shadow_tests=n_shadow_tests,
+        )
+    return torch.where(live[None, :], out, torch.zeros_like(out))
+
+
+def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream (no synchronization)."""
+    n_cols, g = tables.table.shape
+    smem = 4 * (n_cols * g + 8 * max(tables.n_lights, 1))
+    if smem > WAVE_MAX_SMEM_BYTES:
+        raise NotImplementedError(
+            f"a shaded table of {g} geoms needs {smem} bytes of shared "
+            f"memory; a block has {WAVE_MAX_SMEM_BYTES}"
+        )
+    if len(tables.ranges) > 3:
+        raise NotImplementedError("more than three kind ranges")
+    for kind, _, _ in tables.ranges:
+        if kind not in (KIND_SPHERE, KIND_CUBE, KIND_RECT):
+            raise NotImplementedError(f"geom kind {kind} in the CUDA level")
+    lib = _build.load()
+    r = out_prev.shape[1]
+    out = torch.empty((OUT_ROWS, r), dtype=torch.float32, device=out_prev.device)
+    flat = [x for rng in tables.ranges for x in rng]
+    ranges = (ctypes.c_int * 9)(*(flat + [0] * (9 - len(flat))))
+    if tables.has_tex:
+        n_tex, tex_h, tex_w, _ = tables.tex.shape
+        tex_ptr, twh_ptr = tables.tex.data_ptr(), tables.twh.data_ptr()
+    else:
+        n_tex = tex_h = tex_w = 0
+        tex_ptr = twh_ptr = None
+    with torch.cuda.device(out_prev.device):
+        err = lib.wave_level_launch(
+            out_prev.data_ptr(),
+            fuzz.data_ptr() if tables.glossy else None,
+            tables.table.data_ptr(),
+            tables.lights.data_ptr(),
+            tex_ptr, twh_ptr,
+            out.data_ptr(),
+            r, g, n_cols, tables.n_lights,
+            ranges, len(tables.ranges),
+            int(tables.glossy), int(tables.has_tex),
+            n_tex, tex_h, tex_w,
+            float(min_tp), WAVE_THREADS,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"wave_level kernel launch failed: CUDA error {err} "
+            f"({lib.wave_error_string(err).decode()})"
+        )
+    wave_level.launches += 1
+    return out
+
+
+def wave_level(
+    out_prev: torch.Tensor,
+    fuzz: Optional[torch.Tensor],
+    tables: WaveTables,
+    min_tp: float = 0.0,
+) -> torch.Tensor:
+    """One bounce level (see `wave_level_plain` for the operands).  A CUDA
+    tensor goes through the hand-written kernel or raises; only a CPU
+    tensor takes the plain version.  `wave_level.launches` counts kernel
+    launches."""
+    if out_prev.is_cuda:
+        _check_level_args(out_prev, fuzz, tables)
+        return _launch(out_prev, fuzz, tables, min_tp)
+    return wave_level_plain(out_prev, fuzz, tables, min_tp)
+
+
+wave_level.launches = 0
