@@ -2,17 +2,21 @@
 
 A Whitted ray tracer with the capabilities of the reference C++ renderer
 (EricZhang12138/Ray_Tracying), loaded from the same scene.json schema.
-Plain tensor code is PyTorch; the hot loop, one fused bounce level per
-launch, is a CUDA C++ kernel written for Hopper (sm_90a), built with nvcc
-at first use and loaded with ctypes.  The package imports torch and numpy
-only.
+Plain tensor code is PyTorch; the hot loops — one fused bounce level per
+launch, and the brute-force closest-hit, fused-normal and shadow any-hit
+searches of the general path — are CUDA C++ kernels written for Hopper
+(sm_90a), built with nvcc at first use and loaded with ctypes.  The
+package imports torch and numpy only.
 
 Layout (the same names as the JAX package):
   - scene/   : scene.json -> frozen dataclasses of tensors
   - core/    : constants, vec math, transforms, sampling (torch.Generator)
   - kernels/ : table packing, the plain PyTorch versions of the kernels,
                their wrappers, and the build step; csrc/ holds the CUDA
-  - render/  : camera ray gen, wavefront integrator, tiled pipeline
+  - render/  : camera ray gen, intersect (two-pass closest hit), materials,
+               shade, wavefront integrator (fused and general paths), tiled
+               pipeline
+  - ops/     : the stable op-level API the renderer is built from
   - io/      : PPM P3 codec (byte-compatible with the reference)
 
 Entry points run on the card: `device=None` means "cuda" and raises

@@ -1,8 +1,9 @@
 // Per-geom intersection math shared by the CUDA kernels: the device twins
-// of kernels/closest_hit.py (geom_t, geom_step_n).
+// of kernels/closest_hit.py (geom_t, geom_step, geom_step_n).
 //
 // Replaces the TPU device functions kernels/closest_hit.py::geom_t /
-// geom_step_n of the JAX package (sphere, cube and rect parts).
+// geom_step / geom_step_n of the JAX package: sphere, cube, rect, the
+// legacy plane, and the motion-blur origin shift.
 //
 // One thread holds one ray; a geom-table row is read from the block's
 // shared-memory copy of the table, stored transposed (columns, G): every
@@ -31,36 +32,49 @@ namespace rtt {
 constexpr float kInf = INFINITY;
 constexpr float kEpsTMin = (float)1e-3;      // sphere / rect minimum t
 constexpr float kEpsParallel = (float)1e-6;  // slab / plane denominators
+constexpr float kEpsPlaneEdge = (float)-1e-6;  // point-in-triangle edge sign
 
 constexpr int kKindSphere = 0;
 constexpr int kKindCube = 1;
 constexpr int kKindRect = 2;
+constexpr int kKindPlane = 3;
 
 struct Ray {
-  float ox, oy, oz, dx, dy, dz, dnorm;
+  float ox, oy, oz, dx, dy, dz, tm, dnorm;
 };
 
-RTT_DEV Ray make_ray(float ox, float oy, float oz, float dx, float dy, float dz) {
+RTT_DEV Ray make_ray(float ox, float oy, float oz, float dx, float dy, float dz,
+                     float tm = 0.0f) {
   Ray r;
   r.ox = ox; r.oy = oy; r.oz = oz;
   r.dx = dx; r.dy = dy; r.dz = dz;
+  r.tm = tm;
   r.dnorm = sqrtf(dx * dx + dy * dy + dz * dz);
   return r;
 }
 
 // Object-space ray of table row g: o_l = w2o * (o, 1), d_l = w2o * (d, 0).
+// MOTION shifts the origin by -velocity * time first
+// (Code/shapes.cpp:201-210).
 struct LocalRay {
   float olx, oly, olz, dlx, dly, dlz;
 };
 
+template <bool MOTION = false>
 RTT_DEV LocalRay to_local(const float* tab, int G, int g, const Ray& r) {
+  float ox = r.ox, oy = r.oy, oz = r.oz;
+  if constexpr (MOTION) {
+    ox = r.ox - r.tm * tab[12 * G + g];
+    oy = r.oy - r.tm * tab[13 * G + g];
+    oz = r.oz - r.tm * tab[14 * G + g];
+  }
   const float c0 = tab[0 * G + g], c1 = tab[1 * G + g], c2 = tab[2 * G + g], c3 = tab[3 * G + g];
   const float c4 = tab[4 * G + g], c5 = tab[5 * G + g], c6 = tab[6 * G + g], c7 = tab[7 * G + g];
   const float c8 = tab[8 * G + g], c9 = tab[9 * G + g], c10 = tab[10 * G + g], c11 = tab[11 * G + g];
   LocalRay l;
-  l.olx = r.ox * c0 + r.oy * c1 + r.oz * c2 + c3;
-  l.oly = r.ox * c4 + r.oy * c5 + r.oz * c6 + c7;
-  l.olz = r.ox * c8 + r.oy * c9 + r.oz * c10 + c11;
+  l.olx = ox * c0 + oy * c1 + oz * c2 + c3;
+  l.oly = ox * c4 + oy * c5 + oz * c6 + c7;
+  l.olz = ox * c8 + oy * c9 + oz * c10 + c11;
   l.dlx = r.dx * c0 + r.dy * c1 + r.dz * c2;
   l.dly = r.dx * c4 + r.dy * c5 + r.dz * c6;
   l.dlz = r.dx * c8 + r.dy * c9 + r.dz * c10;
@@ -81,13 +95,65 @@ RTT_DEV bool slab_axis(float oo, float dd, float& ent, float& ext, float& sgn) {
   return par && ((oo < -0.5f) || (oo > 0.5f));
 }
 
-// Hit distance (Euclidean, +inf for a miss) of table row g of kind KIND.
-// WANT_N also yields the UNnormalized world-space normal (sphere: local
-// hit point, cube: entry face, rect: +z; mapped by w2o^T).
-template <int KIND, bool WANT_N>
+// One edge of the legacy plane's two-triangle test: the sign of
+// cross(p1 - p0, p - p0) . n against the reference's -1e-6 tolerance
+// (Code/shapes.cpp:24-40).
+RTT_DEV bool plane_edge(float x0, float y0, float z0, float x1, float y1, float z1,
+                        float px, float py, float pz, float nx, float ny, float nz) {
+  const float ux = x1 - x0, uy = y1 - y0, uz = z1 - z0;
+  const float wx = px - x0, wy = py - y0, wz = pz - z0;
+  const float cxv = wz * uy - wy * uz;
+  const float cyv = wx * uz - wz * ux;
+  const float czv = wy * ux - wx * uy;
+  return (cxv * nx + cyv * ny + czv * nz) >= kEpsPlaneEdge;
+}
+
+// Legacy quad, PARAMETRIC t (Code/shapes.cpp:444-483); the 12 matrix slots
+// of the row hold the 4 corners.  The normal is already in world space.
+template <bool WANT_N>
+RTT_DEV float plane_t(const float* tab, int G, int g, const Ray& r,
+                      float& nwx, float& nwy, float& nwz) {
+  const float ax = tab[0 * G + g], ay = tab[1 * G + g], az = tab[2 * G + g];
+  const float bx = tab[3 * G + g], by = tab[4 * G + g], bz = tab[5 * G + g];
+  const float cx = tab[6 * G + g], cy = tab[7 * G + g], cz = tab[8 * G + g];
+  const float ex = tab[9 * G + g], ey = tab[10 * G + g], ez = tab[11 * G + g];
+  const float e1x = bx - ax, e1y = by - ay, e1z = bz - az;
+  const float e2x = cx - ax, e2y = cy - ay, e2z = cz - az;
+  float nx = e1y * e2z - e1z * e2y;
+  float ny = e1z * e2x - e1x * e2z;
+  float nz = e1x * e2y - e1y * e2x;
+  const float n2 = nx * nx + ny * ny + nz * nz;
+  const float ln = (n2 > 0.0f) ? sqrtf(n2) : 0.0f;
+  const bool degen = ln < kEpsParallel;
+  const float ln_safe = degen ? 1.0f : ln;
+  nx = nx / ln_safe; ny = ny / ln_safe; nz = nz / ln_safe;
+  const float denom = r.dx * nx + r.dy * ny + r.dz * nz;
+  const bool par = fabsf(denom) < kEpsParallel;
+  const float t = ((ax - r.ox) * nx + (ay - r.oy) * ny + (az - r.oz) * nz) /
+                  (par ? 1.0f : denom);
+  const float px = r.ox + t * r.dx;
+  const float py = r.oy + t * r.dy;
+  const float pz = r.oz + t * r.dz;
+  const bool in_t1 = plane_edge(bx, by, bz, ex, ey, ez, px, py, pz, nx, ny, nz) &&
+                     plane_edge(ex, ey, ez, cx, cy, cz, px, py, pz, nx, ny, nz) &&
+                     plane_edge(cx, cy, cz, bx, by, bz, px, py, pz, nx, ny, nz);
+  const bool in_t2 = plane_edge(ax, ay, az, bx, by, bz, px, py, pz, nx, ny, nz) &&
+                     plane_edge(bx, by, bz, cx, cy, cz, px, py, pz, nx, ny, nz) &&
+                     plane_edge(cx, cy, cz, ax, ay, az, px, py, pz, nx, ny, nz);
+  const bool ok = !degen && !par && (t >= 0.0f) && (in_t1 || in_t2);
+  if constexpr (WANT_N) { nwx = nx; nwy = ny; nwz = nz; }
+  return ok ? t : kInf;
+}
+
+// Hit distance (+inf for a miss) of table row g of kind KIND: Euclidean
+// for the transformed prims, parametric for the plane.  WANT_N also yields
+// the UNnormalized world-space normal (sphere: local hit point, cube:
+// entry face, rect: +z, each mapped by w2o^T; plane: its face normal).
+template <int KIND, bool WANT_N, bool MOTION = false>
 RTT_DEV float geom_t(const float* tab, int G, int g, const Ray& r,
                      float& nwx, float& nwy, float& nwz) {
-  const LocalRay l = to_local(tab, G, g, r);
+  if constexpr (KIND == kKindPlane) return plane_t<WANT_N>(tab, G, g, r, nwx, nwy, nwz);
+  const LocalRay l = to_local<MOTION>(tab, G, g, r);
   float t_geom;
   float nlx = 0.0f, nly = 0.0f, nlz = 0.0f;
   if constexpr (KIND == kKindSphere) {
@@ -159,16 +225,27 @@ struct Best {
 
 // Closest hit over rows [start, end) of kind KIND, in table order, with
 // the strict-< first-wins tie-break (Code/acceleration.cpp:112,133).
-template <int KIND>
+template <int KIND, bool MOTION = false>
 RTT_DEV void closest_range(const float* tab, int G, int start, int end,
                            const Ray& r, Best& best) {
   for (int g = start; g < end; ++g) {
     float nx, ny, nz;
-    const float t = geom_t<KIND, true>(tab, G, g, r, nx, ny, nz);
+    const float t = geom_t<KIND, true, MOTION>(tab, G, g, r, nx, ny, nz);
     if (t < best.t) {
       best.t = t; best.row = g;
       best.nx = nx; best.ny = ny; best.nz = nz;
     }
+  }
+}
+
+// The same without the normal: (t, row) only.
+template <int KIND, bool MOTION = false>
+RTT_DEV void closest_range_t(const float* tab, int G, int start, int end,
+                             const Ray& r, float& best_t, int& best_row) {
+  float nx, ny, nz;
+  for (int g = start; g < end; ++g) {
+    const float t = geom_t<KIND, false, MOTION>(tab, G, g, r, nx, ny, nz);
+    if (t < best_t) { best_t = t; best_row = g; }
   }
 }
 

@@ -31,6 +31,8 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # One compilation per source file, all at once.
+    "--threads", "0",
     # Print registers, shared memory and spills of every kernel.
     "-Xptxas", "-v",
 )
@@ -108,6 +110,25 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
         ctypes.c_float, i, p,                # min_tp threads stream
     ]
     lib.wave_level_launch.restype = i
+    ranges = ctypes.POINTER(ctypes.c_int)
+    lib.brute_closest_launch.argtypes = [
+        p, p, p, p,                          # rays table t id
+        ctypes.c_longlong, i, ranges, i,     # R G ranges n_ranges
+        i, i, p,                             # motion threads stream
+    ]
+    lib.brute_closest_n_launch.argtypes = [
+        p, p, p, p, p,                       # rays table t id n
+        ctypes.c_longlong, i, ranges, i,
+        i, i, p,
+    ]
+    lib.occlusion_any_launch.argtypes = [
+        p, p, p, p,                          # rays maxt table blocked
+        ctypes.c_longlong, i, ranges, i,
+        i, p,                                # threads stream
+    ]
+    for fn in (lib.brute_closest_launch, lib.brute_closest_n_launch,
+               lib.occlusion_any_launch):
+        fn.restype = i
     lib.wave_error_string.argtypes = [i]
     lib.wave_error_string.restype = ctypes.c_char_p
     return lib

@@ -33,7 +33,8 @@ The next level reads the previous output tensor directly.  Glossy fuzz is
 sampled OUTSIDE the kernel and fed in as fuzz rows 0..2, so tests can feed
 the same draws to every implementation.
 
-Scope: `wave_supported` names what this level does not take yet.
+Scope: `wave_refusal` names what this level does not take; such scenes go
+down the integrator's general path.
 """
 
 from __future__ import annotations
@@ -114,39 +115,48 @@ def pack_tex_u8(scene: Scene):
     return tex, scene.tex_wh.T.to(torch.float32).contiguous()
 
 
+def wave_refusal(
+    scene: Scene, use_bvh: bool = False, differentiable: bool = False
+) -> Optional[str]:
+    """Gate of the fused level path, in the form that answers: None for a
+    scene (and options) the level takes, else the first feature it does
+    not take.  The integrator sends a refused scene down the general path;
+    use_bvh and differentiable are refused there too.  (light_samples plays
+    no part: only area lights consume it, and they are refused.)"""
+    if use_bvh:
+        return "use_bvh (BVH traversal)"
+    if differentiable:
+        return "record mode (differentiable rendering)"
+    if scene.has_two_way:
+        return "two-way materials (reflect and refract on one hit)"
+    if scene.has_refraction:
+        return "refraction"
+    if scene.has_motion:
+        return "motion blur"
+    if scene.n_planes:
+        return "legacy planes"
+    if any(scene.lights.is_area):
+        return "area lights"
+    if scene.n_lights > WAVE_MAX_LIGHTS:
+        return f"more than {WAVE_MAX_LIGHTS} lights"
+    if scene.has_textures and scene.has_spheres:
+        return "textured spheres (spherical UV)"
+    if scene.has_textures and scene.tex_atlas is None:
+        return "textures without an atlas"
+    return None
+
+
 def wave_supported(
     scene: Scene, use_bvh: bool = False, differentiable: bool = False
 ) -> bool:
-    """Gate of the fused level path.  Returns True for a scene the level
-    takes; raises NotImplementedError naming the first feature it does not
-    take yet.  There is no other path to fall to.  (light_samples plays no
-    part: only area lights consume it, and they are refused.)"""
-
-    def refuse(feature):
+    """The gate in the form that raises, for a caller that forces the
+    fused path: True for a scene the level takes, else NotImplementedError
+    naming the first feature `wave_refusal` refuses."""
+    feature = wave_refusal(scene, use_bvh, differentiable)
+    if feature is not None:
         raise NotImplementedError(
             f"the fused wavefront level does not support {feature} yet"
         )
-
-    if use_bvh:
-        refuse("use_bvh (BVH traversal)")
-    if differentiable:
-        refuse("record mode (differentiable rendering)")
-    if scene.has_two_way:
-        refuse("two-way materials (reflect and refract on one hit)")
-    if scene.has_refraction:
-        refuse("refraction")
-    if scene.has_motion:
-        refuse("motion blur")
-    if scene.n_planes:
-        refuse("legacy planes")
-    if any(scene.lights.is_area):
-        refuse("area lights")
-    if scene.n_lights > WAVE_MAX_LIGHTS:
-        refuse(f"more than {WAVE_MAX_LIGHTS} lights")
-    if scene.has_textures and scene.has_spheres:
-        refuse("textured spheres (spherical UV)")
-    if scene.has_textures and scene.tex_atlas is None:
-        refuse("textures without an atlas")
     return True
 
 

@@ -12,13 +12,14 @@ tensor on the device; one copy brings the finished image to the host.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ray_tracying_tpu_torch.core import constants as C
-from ray_tracying_tpu_torch.kernels.wavefront import wave_supported, wave_tables
+from ray_tracying_tpu_torch.kernels.wavefront import wave_refusal, wave_tables
 from ray_tracying_tpu_torch.render.camera import pixel_rays
 from ray_tracying_tpu_torch.render.integrator import trace_wavefront
 from ray_tracying_tpu_torch.scene.types import Camera, Scene
@@ -31,6 +32,9 @@ class RenderOptions:
     samples_sqrt: int = 4      # -s     (n x n stratified samples per pixel)
     light_samples: int = 1     # -light_sample
     use_bvh: bool = False      # -bvh   (identical hit set either way)
+    # Mirror+glass branching: capacity of the compacted ray queue as a
+    # multiple of the primary ray count.
+    queue_mult: int = 2
     # Rays per device pass: bounds the level tensors (13 f32 rows per ray).
     max_rays_per_pass: int = 1 << 23
     # Kill continuation rays at throughput <= this.  0.0 = exact reference
@@ -107,18 +111,19 @@ def _render_tile(
     generator: torch.Generator, tables=None,
 ):
     """Render a (rows, width) tile -> ((rows, width, 3) linear radiance,
-    TraceStats or None).  `scene` is already on its device."""
+    TraceStats when opts.stats, else the count of dropped continuations
+    as a 0-d tensor).  `scene` is already on its device."""
     spp = opts.samples_sqrt * opts.samples_sqrt if opts.samples_sqrt > 1 else 1
     o, d, times = tile_rays(
         scene.camera, y0, rows, width, opts.samples_sqrt, generator=generator
     )
-    out = trace_wavefront(
-        scene, o, d, times, opts.light_samples, generator=generator,
-        use_bvh=opts.use_bvh, min_throughput=opts.min_throughput,
-        return_stats=opts.stats, device=scene.device, tables=tables,
+    colors, aux = trace_wavefront(
+        scene, o, d, times, opts.light_samples, opts.queue_mult,
+        generator=generator, use_bvh=opts.use_bvh,
+        min_throughput=opts.min_throughput, return_stats=opts.stats,
+        return_dropped=not opts.stats, device=scene.device, tables=tables,
     )
-    colors, stats = out if opts.stats else (out, None)
-    return colors.reshape(rows, width, spp, 3).mean(dim=2), stats
+    return colors.reshape(rows, width, spp, 3).mean(dim=2), aux
 
 
 def _render_tiles(scene, opts, generator, device, post=None, out_dtype=torch.float32):
@@ -134,24 +139,40 @@ def _render_tiles(scene, opts, generator, device, post=None, out_dtype=torch.flo
     width, height = scene.camera.resolution
     spp = opts.samples_sqrt * opts.samples_sqrt if opts.samples_sqrt > 1 else 1
     rows = max(1, min(height, opts.max_rays_per_pass // max(1, width * spp)))
+    # The fused level's operands are packed once per frame; a scene the
+    # fused gate refuses goes down the integrator's general path.
     tables = None
-    if scene.n_geoms:
-        wave_supported(scene, opts.use_bvh)
+    if scene.n_geoms and wave_refusal(scene, opts.use_bvh) is None:
         tables = wave_tables(scene)
 
     image = torch.zeros((height, width, 3), dtype=out_dtype, device=dev)
     level_acc = None
+    drop_counts = []
     for y0 in range(0, height, rows):
         take = min(rows, height - y0)
-        tile, tstats = _render_tile(
+        tile, aux = _render_tile(
             scene, y0, take, width, opts, generator, tables
         )
         image[y0 : y0 + take] = tile if post is None else post(tile)
         if opts.stats:
-            rowsum = torch.stack(list(tstats)).cpu().numpy().astype(np.int64)
+            rowsum = torch.stack(list(aux)).cpu().numpy().astype(np.int64)
             level_acc = rowsum if level_acc is None else level_acc + rowsum
+        else:
+            drop_counts.append(aux)
     out = image.cpu().numpy()  # the one device -> host copy
     if not opts.stats:
+        # The reference never drops rays (Code/raytracer.cpp:280-351): a
+        # continuation lost to compaction overflow is surfaced, never
+        # silent.  The counts are read after every tile is enqueued.
+        dropped = int(torch.stack(drop_counts).sum()) if drop_counts else 0
+        if dropped:
+            warnings.warn(
+                f"render dropped {dropped} live continuation rays to "
+                "compacted-queue overflow; render with RenderOptions("
+                "stats=True) for per-level counts, or raise queue_mult",
+                RuntimeWarning,
+                stacklevel=3,
+            )
         return out
     levels = [
         {

@@ -374,14 +374,17 @@ GATE_CASES = {
 
 @pytest.mark.parametrize("feature", sorted(GATE_CASES))
 def test_gate_refuses_by_name(feature):
+    """The gate answers with the feature (`wave_refusal`), and raises with
+    it for a caller that forces the fused path."""
     scene = GATE_CASES[feature]()
+    assert feature in wf.wave_refusal(scene)
     with pytest.raises(NotImplementedError, match=feature):
         wf.wave_supported(scene)
     o, d, tm = cam_rays(n=8)
     with pytest.raises(NotImplementedError, match=feature):
         trace_wavefront(
             scene, *(torch.from_numpy(np.array(x)) for x in (o, d, tm)), 1,
-            device="cpu",
+            fused=True, device="cpu",
         )
 
 
@@ -391,7 +394,7 @@ def test_gate_refuses_by_name(feature):
 )
 def test_gate_refuses_options_by_name(kwargs, feature):
     st = carried(wave_scene())
-    assert wf.wave_supported(st)
+    assert wf.wave_supported(st) and wf.wave_refusal(st) is None
     with pytest.raises(NotImplementedError, match=feature):
         wf.wave_supported(st, **kwargs)
     o, d, tm = cam_rays(n=8)
@@ -403,8 +406,9 @@ def test_gate_refuses_options_by_name(kwargs, feature):
 
 
 def test_gate_refuses_committed_scenes_by_name():
-    """The committed demo scenes outside the slice each name their
-    feature; the flagship family passes."""
+    """The committed demo scenes outside the fused level's scope each name
+    their feature (and render down the general path); the flagship family
+    passes."""
     expect = {
         "bvh_det": None, "bvh_glossy": None, "det_mirrors": None,
         "glossy": None,
@@ -419,7 +423,9 @@ def test_gate_refuses_committed_scenes_by_name():
         )
         if feature is None:
             assert wf.wave_supported(st), name
+            assert wf.wave_refusal(st) is None
         else:
+            assert feature in wf.wave_refusal(st)
             with pytest.raises(NotImplementedError, match=feature):
                 wf.wave_supported(st)
 
