@@ -6,9 +6,12 @@ render (golden/ASCII/scene.json at 1920x1080 with 4x4 samples per pixel, 11
 bounce levels) down the fused level path and, forced with fused=False, down
 the general path (closest hit, pass 2, materials, shading with one shadow
 any-hit launch per light, spawn), and the general path's other branches on
-their own scenes (the two-way queue, area lights).  It builds the CUDA
+their own scenes (the two-way queue, area lights), and the acceleration
+path: a 20,001-geom procedural scene whose table does not fit a block's
+shared memory (chunk kernels) and a 2,049-geom one rendered with and
+without `use_bvh` (BVH traversal), both at 1920x1080.  It builds the CUDA
 kernels from the sources of this checkout, holds each kernel against its
-plain PyTorch version on the card, checks eleven images against the
+plain PyTorch version on the card, checks twelve images against the
 reference renderer's goldens, and prints one JSON line per phase.  Any
 failure exits non-zero; nothing is caught.
 
@@ -43,6 +46,18 @@ PEAK_BYTES_PER_S = 3.35e12
 # legacy plane (kind 3) has no transform, and its per-row normal is scalar
 # work that is not counted.
 FLOPS_PER_TEST = {0: 33 + 38, 1: 33 + 45, 2: 33 + 15, 3: 133}
+# The acceleration path's sizes: a procedural scene over the shared-memory
+# cap and one under it, at the flagship's resolution; the plain versions
+# run on every 64th ray of a full-width tile.
+ACCEL_SIZES = dict(spheres=20000, cubes=2048, res=(1920, 1080), stride=64, strip_rows=32)
+
+# f32 operations of one bare AABB slab test, which is all the function
+# needs: per axis two subtractions, two scalings by 1 / d, min, max and the
+# two running bounds (8), then the three final compares and one multiply.
+# The slack with which the kernels grow a box (csrc/geom.cuh::box_hit) is
+# their own guard and no part of the bound; the needed box tests are counted
+# against the exact boxes.
+FLOPS_PER_BOX_TEST = 28
 # f32 operations of the shading of one hit lane, besides its geom tests
 # (normalize, per light Blinn-Phong + attenuation, UV, texel, spawn).
 FLOPS_PER_HIT_LANE = 300
@@ -120,10 +135,10 @@ def compare_level(a, b, tainted=None):
     ), new_tainted
 
 
-def load_demo(rt, name):
+def load_demo(rt, name, device="cuda"):
     return rt.load_scene(
         os.path.join(REPO, "scenes", f"{name}.json"),
-        textures_dir=os.path.join(REPO, "golden", "Textures"),
+        textures_dir=os.path.join(REPO, "golden", "Textures"), device=device,
     )
 
 
@@ -132,17 +147,19 @@ def golden_diff(rt, img, golden):
     return np.abs(img.astype(np.float32) - gold.astype(np.float32))
 
 
-def golden_check(rt, name, golden, samples_sqrt, contract, seed, light_samples=1):
+def golden_check(rt, name, golden, samples_sqrt, contract, seed, light_samples=1,
+                 use_bvh=False, device="cuda"):
     """Render scenes/<name>.json through the pipeline's own routing and
     hold it against the reference renderer's golden."""
     from ray_tracying_tpu_torch.kernels.wavefront import wave_refusal
 
-    scene = load_demo(rt, name)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scene = load_demo(rt, name, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
     img = rt.render_to_srgb_u8(
         scene,
-        rt.RenderOptions(samples_sqrt=samples_sqrt, light_samples=light_samples),
-        gen,
+        rt.RenderOptions(samples_sqrt=samples_sqrt, light_samples=light_samples,
+                         use_bvh=use_bvh),
+        gen, device=device,
     )
     diff = golden_diff(rt, img, golden)
     if contract == "deterministic":
@@ -154,8 +171,8 @@ def golden_check(rt, name, golden, samples_sqrt, contract, seed, light_samples=1
         res = dict(mean_diff=float(diff.mean()), p99=float(np.percentile(diff, 99)))
         ok = res["mean_diff"] < 1.0 and res["p99"] <= 8
     say("golden", scene=name, golden=golden, samples_sqrt=samples_sqrt,
-        light_samples=light_samples, contract=contract,
-        path="general" if wave_refusal(scene) else "fused", ok=ok, **res)
+        light_samples=light_samples, contract=contract, use_bvh=use_bvh,
+        path="general" if wave_refusal(scene, use_bvh) else "fused", ok=ok, **res)
     if not ok:
         fail(f"{name} is outside the {contract} contract against {golden}")
 
@@ -285,6 +302,528 @@ def general_frame(rt, scene, opts, tile_rows, gen):
     return image.cpu().numpy(), int(torch.stack(dropped).sum())
 
 
+def accel_kernels(CH, CS, BT, scene):
+    """The six kernels of the acceleration path on `scene` (which carries
+    chunks and a BVH), each as (kernel call, plain call): both take the
+    (8, R) rays, or ((8, R) shadow rays, maxt) for the any-hit, and the
+    plain call also a dict for its counts of needed tests."""
+    g = scene.n_geoms
+    chunks = (scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms, g)
+    bvh = (scene.bvh_geoms, scene.bvh_nodes_box, scene.bvh_nodes_topo,
+           scene.bvh_nodes_graze)
+    ltab = CH.pack_geom_table(scene).contiguous()
+    mo = scene.has_motion
+
+    def chunked_plain(r, need):
+        need.update(live=int((r[7] > 0).sum()), box_tests=0)
+        need["tests"] = need["live"] * g
+        return CH.brute_closest_chunked_plain(r, ltab, mo)
+
+    def bvh_n_plain(r, need):
+        # The traversal's needed tests are those of bvh_closest.
+        return BT.bvh_closest_n_plain(r, *bvh, mo)
+
+    return {
+        "brute_closest_chunked": (
+            lambda r: CH.brute_closest_chunked(r, ltab, mo), chunked_plain),
+        "chunk_closest": (
+            lambda r: CS.chunk_closest(r, *chunks, mo),
+            lambda r, need: CS.chunk_closest_plain(r, *chunks, mo, stats=need)),
+        "chunk_closest_n": (
+            lambda r: CS.chunk_closest_n(r, *chunks, mo),
+            lambda r, need: CS.chunk_closest_n_plain(r, *chunks, mo, stats=need)),
+        "chunk_occlusion": (
+            lambda rm: CS.chunk_occlusion(rm[0], rm[1], *chunks),
+            lambda rm, need: CS.chunk_occlusion_plain(rm[0], rm[1], *chunks, stats=need)),
+        "bvh_closest": (
+            lambda r: BT.bvh_closest(r, *bvh, mo),
+            lambda r, need: BT.bvh_closest_plain(r, *bvh, mo, stats=need)),
+        "bvh_closest_n": (lambda r: BT.bvh_closest_n(r, *bvh, mo), bvh_n_plain),
+    }
+
+
+def accel_vs_plain(kernels, case, rays, shadow, names=None):
+    """Each kernel against its plain version on the same tensors on the
+    card: every output bit-equal (torch.equal on t, id, normal rows,
+    blocked).  Returns {name: result dict with the plain version's ms and
+    its counts of needed tests}."""
+    out = {}
+    for name, (fn, plain) in kernels.items():
+        if names is not None and name not in names:
+            continue
+        arg = shadow if name == "chunk_occlusion" else rays
+        lanes = arg[0].shape[1] if name == "chunk_occlusion" else arg.shape[1]
+        a = fn(arg)
+        a = a if isinstance(a, tuple) else (a,)
+        need = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        b = plain(arg, need)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        b = b if isinstance(b, tuple) else (b,)
+        equal = [bool(torch.equal(x, y)) for x, y in zip(a, b)]
+        if name == "chunk_occlusion":
+            err = float((a[0] != b[0]).sum() > 0)
+            found = dict(blocked=int(b[0].sum()),
+                         disagreeing_lanes=int((a[0] != b[0]).sum()))
+        else:
+            fin = torch.isfinite(b[0])
+            err = max(float((x[..., fin] - y[..., fin]).abs().max()) if fin.any() else 0.0
+                      for x, y in zip(a[::2], b[::2]))   # t [, normal]
+            found = dict(hits=int((b[1] >= 0).sum()),
+                         other_winner_lanes=int((a[1] != b[1]).sum()))
+        out[name] = dict(case=case, kernel=name, lanes=lanes, bitwise_equal=all(equal),
+                         max_abs_err=err, plain_ms=plain_ms, needed=need, **found)
+        say("accel_vs_plain", **out[name])
+        if not all(equal):
+            fail(f"{name} and its plain version disagree on {case}")
+        del a, b
+    if "bvh_closest" in out and "bvh_closest_n" in out:
+        out["bvh_closest_n"]["needed"] = out["bvh_closest"]["needed"]
+    return out
+
+
+def same_hit_set(case, a, b, name_a, name_b):
+    """Two kernels on the same rays: equal t everywhere; ids may differ
+    only where two geoms tie exactly (each kernel names the first of its
+    own table order)."""
+    other = int((a[1] != b[1]).sum())
+    ok = bool(torch.equal(a[0], b[0]))
+    say("accel_vs_plain", case=case, kernels=[name_a, name_b], lanes=a[0].shape[0],
+        t_bitwise_equal=ok, other_id_lanes=other)
+    if not ok:
+        fail(f"{name_a} and {name_b} report different distances on {case}")
+
+
+def accel_bound(n, live, need, sample_live, per_test, g, rows_in, bytes_out, extra_bytes):
+    """Least time of one launch at this width.  Bytes: the act row of every
+    lane, `rows_in` more rows of the live lanes, the outputs, the table and
+    its boxes once.  Operations: the geom and box tests a per-ray cull or
+    traversal cannot avoid, counted by the plain version on a strided
+    sample of these rays (`need`, over `sample_live` live lanes) and scaled
+    to this launch's live lanes."""
+    scale = live / max(sample_live, 1)
+    tests, box_tests = need["tests"] * scale, need.get("box_tests", 0) * scale
+    n_bytes = 4 * n + 4 * rows_in * live + bytes_out * n + 4 * 17 * g + extra_bytes
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = (per_test * tests + FLOPS_PER_BOX_TEST * box_tests) / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_ms=bytes_ms, operations_ms=ops_ms, needed_bytes=n_bytes,
+                needed_tests=tests, needed_box_tests=box_tests,
+                tests_per_live_lane=tests / max(live, 1))
+
+
+def accel_at_width(kernels, checked, scene, case, rays, shadow, names):
+    """ms by CUDA events of each named kernel at full width, beside its
+    bound; `checked` holds the plain version's time and counts on the
+    strided sample of the same rays."""
+    g = scene.n_geoms
+    counts = torch.bincount(scene.chunk_geoms[:g, 15].round().long(), minlength=4).tolist()
+    per_test = sum(FLOPS_PER_TEST[k] * c for k, c in enumerate(counts)) / g
+    box_bytes = {"chunk": scene.chunk_boxes.numel() * 4,
+                 "bvh": scene.bvh_nodes_box.numel() * 4 + scene.bvh_nodes_topo.numel() * 4,
+                 "brute": 0}
+    out = {}
+    for name in names:
+        fn = kernels[name][0]
+        arg = shadow if name == "chunk_occlusion" else rays
+        r = arg[0] if name == "chunk_occlusion" else arg
+        n, live = r.shape[1], int((r[7] > 0).sum())
+        fn(arg)
+        ms = cuda_ms(lambda: fn(arg), 2)
+        need = checked[name]["needed"]
+        out[name] = dict(
+            case=case, kernel=name, lanes=n, live=live, geoms=g, ms=ms,
+            plain_ms=checked[name]["plain_ms"], plain_lanes=checked[name]["lanes"],
+            max_abs_err=checked[name]["max_abs_err"],
+            **accel_bound(n, live, need, need["live"], per_test, g,
+                          7, {"chunk_occlusion": 1, "chunk_closest_n": 20,
+                           "bvh_closest_n": 20}.get(name, 8),
+                          box_bytes[name.split("_")[0]]))
+        say("accel_at_width", **out[name])
+    return out
+
+
+def level1_rays(G, I, CH, scene, o, d, tm):
+    """The rays the general path spawns from the level-0 hits of (o, d,
+    tm): the incoherent wavefront of level 1, as (o, d, time, active)."""
+    from ray_tracying_tpu_torch.render.materials import gather_materials
+
+    n = o.shape[0]
+    act = torch.ones(n, dtype=torch.bool, device=o.device)
+    hit = I.closest_hit(scene, o, d, tm, act, differentiable=False)
+    mrec = gather_materials(scene, hit.geom_id)
+    q0 = G._Queue(o, d, tm, torch.ones(n, device=o.device),
+                  torch.arange(n, device=o.device), act)
+    q1 = G._spawn_one_way(scene, q0, hit, mrec, hit.valid, None, 0.0)
+    return q1.o.contiguous(), q1.d.contiguous(), q1.time, q1.active
+
+
+def with_texture(scene, donor):
+    """`scene` with the texture atlas of `donor` (a scene loaded with
+    textures from golden/Textures) and texture 0 on every third material
+    and on the last (the floor's): a large scene whose closest hit takes
+    the (t, id) search and then pass 2."""
+    import dataclasses
+
+    m = scene.materials.tex_id.shape[0]
+    ids = torch.arange(m, device=scene.device)
+    tex_id = torch.where((ids % 3 == 0) | (ids == m - 1), 0, -1).to(torch.int32)
+    return dataclasses.replace(
+        scene, tex_atlas=donor.tex_atlas, tex_wh=donor.tex_wh, has_textures=True,
+        materials=dataclasses.replace(scene.materials, tex_id=tex_id),
+    )
+
+
+def accel_frame(rt, scene, opts, seed, dev):
+    """One frame through render_to_srgb_u8: (image, seconds)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img = rt.render_to_srgb_u8(scene, opts, gen, device=dev)
+    torch.cuda.synchronize()
+    return img, time.time() - t0
+
+
+
+def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
+    """Phases accel_vs_plain, accel_at_width and accel_path: the five
+    kernels of the acceleration path (and the normal-carrying traversal)
+    against their plain versions, at the main path's width, and on the
+    path itself.  sizes: geoms of the two procedural scenes, resolution,
+    stride of the sample the plain versions run on, rows of the strip the
+    chunkless trace runs on.  Returns the kernels' entries for the
+    `kernels` line."""
+    from ray_tracying_tpu_torch.kernels import closest_hit as CH
+    from ray_tracying_tpu_torch.kernels import wavefront as W
+    from ray_tracying_tpu_torch.render import integrator as G
+    from ray_tracying_tpu_torch.render import intersect as I
+    from ray_tracying_tpu_torch.render.integrator import trace_wavefront
+    from ray_tracying_tpu_torch.render.pipeline import tile_rays
+
+    res_w, res_h = sizes["res"]
+    # ---- phase 9: the acceleration kernels against their plain versions.
+    # (a) the scene with every kind, a moving sphere and a plane, chunks of
+    # 4, a ragged width and a random act mask; also against the brute
+    # kernels, which this scene fits.
+    from ray_tracying_tpu_torch import models
+    from ray_tracying_tpu_torch.accel import lbvh
+    from ray_tracying_tpu_torch.kernels import bvh_traverse as BT
+    from ray_tracying_tpu_torch.kernels import chunk_stream as CS
+
+    gen = torch.Generator(device=dev).manual_seed(77)
+    kinds_acc = lbvh.with_bvh(lbvh.with_chunks(kinds, 4))
+    if kinds_acc.chunk_boxes.shape[0] != 2 or kinds_acc.bvh_nodes_topo.shape[0] != 3:
+        fail("the all-kinds scene did not get 2 chunks and a 3-node tree")
+    k_o = torch.randn((k_n, 3), generator=gen, device=dev) * 1.5
+    k_d = torch.randn((k_n, 3), generator=gen, device=dev)
+    k_d = k_d / k_d.norm(dim=1, keepdim=True)
+    k_act = torch.rand(k_n, generator=gen, device=dev) < 0.7
+    k_rays = CH.pack_rays(k_o, k_d, torch.rand(k_n, generator=gen, device=dev), k_act)
+    k_shadow = (CH.pack_rays(k_o, k_d, torch.zeros(k_n, device=dev), k_act),
+                torch.rand(k_n, generator=gen, device=dev) * 20.0 + 0.5)
+    k_kernels = accel_kernels(CH, CS, BT, kinds_acc)
+    k_case = "every kind, moving sphere, chunks of 4, random times and act mask"
+    accel_vs_plain(k_kernels, k_case, k_rays, k_shadow)
+    k_brute = CH.brute_closest(k_rays, k_table, k_ranges, True)
+    for name in ("brute_closest_chunked", "chunk_closest", "bvh_closest"):
+        same_hit_set(k_case, k_kernels[name][0](k_rays), k_brute, name, "brute_closest")
+    k_blocked = CH.occlusion_any(*k_shadow, k_table, k_ranges)
+    if not torch.equal(k_kernels["chunk_occlusion"][0](k_shadow), k_blocked):
+        fail("chunk_occlusion and occlusion_any disagree on the all-kinds scene")
+    del k_o, k_d, k_rays, k_shadow, k_brute, k_blocked
+
+    # (b) the two large scenes at the main path's width: their structures
+    # (host build, timed), the level-0 rays of the one full-width tile of a
+    # 2x2-spp frame, the level-1 rays spawned from them, the level-0 shadow
+    # rays of light 0 as the path casts them; each kernel against its plain
+    # version on a strided sample of each set.
+    acc = {}
+    for sname, kw in (("sphere_field", dict(n=sizes["spheres"])),
+                      ("cube_city", dict(n=sizes["cubes"]))):
+        t0 = time.time()
+        bare = models.get(sname, res=sizes["res"], device=dev, **kw)
+        t_load = time.time() - t0
+        t0 = time.time()
+        with_c = lbvh.with_chunks(bare)
+        t_chunks = time.time() - t0
+        t0 = time.time()
+        full = lbvh.with_bvh(with_c)
+        t_bvh = time.time() - t0
+        big = full.n_geoms > CH.BRUTE_SMEM_MAX_GEOMS
+        say("accel_build", scene=sname, geoms=full.n_geoms, over_the_cap=big,
+            cap_geoms=CH.BRUTE_SMEM_MAX_GEOMS, load_seconds=t_load,
+            with_chunks_seconds=t_chunks, with_bvh_seconds=t_bvh,
+            chunks=full.chunk_boxes.shape[0], chunk=lbvh.CHUNK,
+            bvh_nodes=full.bvh_nodes_topo.shape[0],
+            bvh_depth=lbvh.tree_depth(full.bvh_nodes_topo.cpu().numpy()),
+            widest_chunk_slack=float(full.chunk_graze.max()),
+            chunks_with_slack=int((full.chunk_graze > 0).sum()),
+            fused_gate=W.wave_refusal(full))
+        acc[sname] = dict(bare=bare, full=full)
+    if not (acc["sphere_field"]["full"].n_geoms > CH.BRUTE_SMEM_MAX_GEOMS
+            >= acc["cube_city"]["full"].n_geoms):
+        fail("the two scenes do not straddle the shared-memory cap")
+
+    at_width = {}
+    for sname in ("sphere_field", "cube_city"):
+        full = acc[sname]["full"]
+        big = full.n_geoms > CH.BRUTE_SMEM_MAX_GEOMS
+        gen = torch.Generator(device=dev).manual_seed(21)
+        w_, h_ = full.camera.resolution
+        o, d, tm = tile_rays(full.camera, 0, h_, w_, 2, generator=gen)
+        n_acc = o.shape[0]
+        rays0 = CH.pack_rays(o, d, tm)
+        cast = []
+        if big:
+            real = I.occluded_tid_chunks
+
+            def recording(scene_, so, sd, maxt, active=None):
+                cast.append((CH.pack_rays(so, sd, torch.zeros_like(maxt), active),
+                             maxt.contiguous()))
+                return real(scene_, so, sd, maxt, active)
+
+            I.occluded_tid_chunks = recording
+            trace_wavefront(full, o, d, tm, generator=gen, fused=False, max_depth=0,
+                            device=dev)
+            I.occluded_tid_chunks = real
+            if len(cast) != full.n_lights:  # one level, one launch a light
+                fail("one level of the path did not cast one any-hit launch per light")
+        o1, d1, tm1, act1 = level1_rays(G, I, CH, full, o, d, tm)
+        rays1 = CH.pack_rays(o1, d1, tm1, act1)
+        kernels = accel_kernels(CH, CS, BT, full)
+        names = (["brute_closest_chunked", "chunk_closest", "chunk_closest_n",
+                  "chunk_occlusion", "bvh_closest", "bvh_closest_n"] if big
+                 else ["bvh_closest", "bvh_closest_n"])
+        idx = torch.arange(0, n_acc, sizes["stride"], device=dev)
+        for level, rays_l in (("level 0", rays0), ("level 1", rays1)):
+            case = f"{sname}, {level} rays of the full-width tile"
+            shadow = cast[0] if big and level == "level 0" else None
+            names_l = [x for x in names if x != "chunk_occlusion" or shadow is not None]
+            sub = rays_l[:, idx].contiguous()
+            sub_shadow = None if shadow is None else (
+                shadow[0][:, idx].contiguous(), shadow[1][idx].contiguous())
+            checked = accel_vs_plain(kernels, case + ", a strided sample", sub,
+                                     sub_shadow, names_l)
+            at_width[(sname, level)] = accel_at_width(
+                kernels, checked, full, case, rays_l, shadow, names_l)
+            # One hit set at full width, kernel against kernel: a cull or a
+            # traversal that lost a hit to a box that is not conservative
+            # in f32 would show here.
+            if big:
+                ref = kernels["brute_closest_chunked"][0](rays_l)
+                ref_name = "brute_closest_chunked"
+                others = ("chunk_closest", "bvh_closest")
+            else:
+                table_s, ranges_s = CH.scene_table(full)
+                ref = CH.brute_closest(rays_l, table_s, ranges_s, full.has_motion)
+                ref_name = "brute_closest"
+                others = ("bvh_closest",)
+                ms = cuda_ms(lambda: CH.brute_closest(
+                    rays_l, table_s, ranges_s, full.has_motion), 2)
+                say("accel_at_width", case=case, kernel="brute_closest",
+                    lanes=n_acc, live=int((rays_l[7] > 0).sum()), geoms=full.n_geoms, ms=ms)
+            for name in others:
+                same_hit_set(case, kernels[name][0](rays_l), ref, name, ref_name)
+            del ref
+        # The coherence sort on the incoherent level-1 wavefront, at the
+        # level of the entry that takes it (ray packing included).
+        for entry, fn in (("closest_hit_tid_chunks", CS.closest_hit_tid_chunks),
+                          ("closest_hit_tid_bvh", BT.closest_hit_tid_bvh)):
+            if entry.endswith("chunks") and not big:
+                continue
+            plain_t = fn(full, o1, d1, tm1, act1)
+            sorted_t = fn(full, o1, d1, tm1, act1, sort_rays=True)
+            same = all(torch.equal(x, y) for x, y in zip(plain_t, sorted_t))
+            say("accel_at_width", case=f"{sname}, level 1 rays of the full-width tile",
+                entry=entry, lanes=n_acc, live=int(act1.sum()),
+                unsorted_ms=cuda_ms(lambda: fn(full, o1, d1, tm1, act1), 2),
+                sort_rays_ms=cuda_ms(lambda: fn(full, o1, d1, tm1, act1, sort_rays=True), 2),
+                slot_for_slot_equal=same)
+            if not same:
+                fail(f"{entry} with sort_rays is not slot for slot the unsorted call")
+            del plain_t, sorted_t
+        del o, d, tm, o1, d1, tm1, act1, rays0, rays1, cast, kernels
+        torch.cuda.empty_cache()
+
+    # ---- phase 10: this slice's path at full width, through
+    # models.get -> render_to_srgb_u8, counts set to 0 just before.
+    counted = dict(
+        wave_level=W.wave_level, brute_closest=CH.brute_closest,
+        brute_closest_n=CH.brute_closest_n, occlusion_any=CH.occlusion_any,
+        brute_closest_chunked=CH.brute_closest_chunked,
+        chunk_closest=CS.chunk_closest, chunk_closest_n=CS.chunk_closest_n,
+        chunk_occlusion=CS.chunk_occlusion, bvh_closest=BT.bvh_closest,
+        bvh_closest_n=BT.bvh_closest_n,
+    )
+
+    def reset_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in counted.items() if fn.launches}
+
+    # The large scene once more with a texture from golden/Textures: its
+    # closest hit is the (t, id) chunk sweep and then pass 2 by indexed
+    # loads over 20,001 geoms, on every lane of the frame.
+    acc["sphere_field_textured"] = dict(bare=with_texture(
+        acc["sphere_field"]["bare"], models.get("texture", device=dev)))
+    accel_launches = {}
+    frames = {}
+    for label, sname, use_bvh in (("sphere_field", "sphere_field", False),
+                                  ("sphere_field_textured", "sphere_field_textured", False),
+                                  ("cube_city_bvh", "cube_city", True),
+                                  ("cube_city_brute", "cube_city", False)):
+        bare = acc[sname]["bare"]
+        opts_l = rt.RenderOptions(samples_sqrt=2, use_bvh=use_bvh)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        img_w, warm_s = accel_frame(rt, bare, opts_l, 5, dev)
+        img_t, timed_s = accel_frame(rt, bare, opts_l, 5, dev)
+        _, st = rt.render_image(
+            bare, rt.RenderOptions(samples_sqrt=1, use_bvh=use_bvh, stats=True), device=dev)
+        got = read_counts()
+        for k, v in got.items():
+            accel_launches[k] = accel_launches.get(k, 0) + v
+        n_rays = res_w * res_h * 4
+        frames[label] = img_t
+        say("accel_path", scene=sname, geoms=bare.n_geoms, use_bvh=use_bvh,
+            textured=bare.has_textures,
+            width=res_w, height=res_h, spp=4, levels=n_levels, primary_rays=n_rays,
+            warmup_seconds=warm_s, timed_seconds=timed_s,
+            primary_rays_per_s=n_rays / timed_s, kernel_launches=got,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            two_frames_bytes_equal=bool(np.array_equal(img_w, img_t)),
+            dropped_at_1spp=st["total_dropped"],
+            live_at_1spp=[lv["live"] for lv in st["levels"]])
+        # Two frames at 4 spp and one at 1 spp, one tile each.
+        per = n_levels * 3
+        if sname == "sphere_field":
+            expect = dict(chunk_closest_n=per, chunk_occlusion=per * bare.n_lights)
+        elif sname == "sphere_field_textured":
+            expect = dict(chunk_closest=per, chunk_occlusion=per * bare.n_lights)
+        elif use_bvh:
+            expect = dict(bvh_closest_n=per, occlusion_any=per * bare.n_lights)
+        else:
+            expect = dict(brute_closest_n=per, occlusion_any=per * bare.n_lights)
+        if got != expect:
+            fail(f"{label} launched {got}, expected {expect}")
+        if st["total_dropped"]:
+            fail(f"{label} dropped continuations")
+        if not np.array_equal(img_w, img_t):
+            fail(f"two renders of {label} differ")
+        if img_t.shape != (res_h, res_w, 3) or img_t.min() == img_t.max():
+            fail(f"the {label} frame is empty or misshapen")
+    city_equal = bool(np.array_equal(frames["cube_city_bvh"], frames["cube_city_brute"]))
+    say("accel_path", scene="cube_city", use_bvh_on_and_off_bytes_equal=city_equal,
+        values_that_differ=int((frames["cube_city_bvh"] != frames["cube_city_brute"]).sum()))
+    if not city_equal:
+        fail("cube_city with and without use_bvh differ")
+    if np.array_equal(frames["sphere_field"], frames["sphere_field_textured"]):
+        fail("the texture left the sphere_field frame as it was")
+    del frames
+
+    # bvh_det (textured: the (t, id) traversal, then pass 2) with use_bvh
+    # against the reference's golden, itself rendered with -bvh.
+    reset_counts()
+    golden_check(rt, "bvh_det", "bvh_det_s1.ppm", 1, "deterministic", 0, use_bvh=True,
+                 device=dev)
+    got = read_counts()
+    if got != dict(bvh_closest=n_levels, occlusion_any=n_levels * 2):
+        fail(f"bvh_det with use_bvh launched {got}")
+    accel_launches["bvh_closest"] = accel_launches.get("bvh_closest", 0) + got.get("bvh_closest", 0)
+
+    # A scene over the cap that carries no chunks, traced through the ops
+    # entry point: every search is the chunked brute kernel (closest hits,
+    # and shadow rays by their closest-hit distance).  Held against the
+    # chunk path on the same few image rows.
+    reset_counts()
+    bare, full = acc["sphere_field"]["bare"], acc["sphere_field"]["full"]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    o, d, tm = tile_rays(bare.camera, (res_h * 3) // 5, sizes["strip_rows"], res_w, 2, generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rad_chunked = trace_wavefront(bare, o, d, tm, generator=gen, fused=False, device=dev)
+    torch.cuda.synchronize()
+    chunked_s = time.time() - t0
+    got = read_counts()
+    rad_chunks = trace_wavefront(full, o, d, tm, generator=gen, fused=False, device=dev)
+    # The chunkless path rebuilds normals in pass 2, the chunk path carries
+    # them out of the kernel: last-bit differences that up to ten mirror
+    # bounces off spheres amplify, so the bar is loose and the share of
+    # lanes beyond it is bounded and printed.
+    off = ((rad_chunked - rad_chunks).abs() > 1e-3 + 1e-3 * rad_chunks.abs()).any(dim=1)
+    say("accel_path", scene="sphere_field without chunks", entry="trace_wavefront",
+        lanes=o.shape[0], seconds=chunked_s, kernel_launches=got, rtol=1e-3, atol=1e-3,
+        lanes_out_of_tolerance=int(off.sum()), max_share=1e-2,
+        max_abs_diff=float((rad_chunked - rad_chunks).abs().max()))
+    if got != dict(brute_closest_chunked=n_levels * (1 + bare.n_lights)):
+        fail(f"the chunkless large scene launched {got}")
+    if float(off.float().mean()) > 1e-2:
+        fail("the chunked brute path and the chunk path disagree")
+    accel_launches["brute_closest_chunked"] = got.get("brute_closest_chunked", 0)
+
+    # The (t, id) chunk sweep is also what `min_hit_t` takes over the cap:
+    # through the ops entry point, on the same rows, beside the
+    # normal-carrying sweep.
+    from ray_tracying_tpu_torch import ops
+
+    reset_counts()
+    t_min = ops.min_hit_t(full, o, d, tm)
+    hit = ops.closest_hit(full, o, d, tm, differentiable=False)
+    got = read_counts()
+    say("accel_path", scene="sphere_field", entry="ops.min_hit_t, ops.closest_hit",
+        lanes=o.shape[0], kernel_launches=got,
+        t_bitwise_equal=bool(torch.equal(t_min, hit.t)), hits=int(hit.valid.sum()))
+    if got != dict(chunk_closest=1, chunk_closest_n=1):
+        fail(f"min_hit_t and closest_hit over the cap launched {got}")
+    if not torch.equal(t_min, hit.t):
+        fail("min_hit_t and closest_hit report different distances over the cap")
+    # Counted apart: the `kernels` line carries the launches of the frames.
+    del o, d, tm, rad_chunked, rad_chunks, off, t_min, hit
+
+    accel_entries = []
+    for name, source, line, scene_key in (
+        ("brute_closest_chunked", "closest_hit.cu", "closest_hit.py:460", "sphere_field"),
+        ("bvh_closest", "bvh_traverse.cu", "bvh_traverse.py:56", "cube_city"),
+        ("bvh_closest_n", "bvh_traverse.cu", "bvh_traverse.py:56", "cube_city"),
+        ("chunk_closest", "chunk_stream.cu", "chunk_stream.py:81", "sphere_field"),
+        ("chunk_closest_n", "chunk_stream.cu", "chunk_stream.py:108", "sphere_field"),
+        ("chunk_occlusion", "chunk_stream.cu", "chunk_stream.py:152", "sphere_field"),
+    ):
+        row = at_width[(scene_key, "level 0")][name]
+        accel_entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"ray_tracying_tpu_torch/csrc/{source}",
+            "replaces": f"ray_tracying_tpu/kernels/{line}",
+            "launches": accel_launches.get(name, 0),
+            "launches_from": (
+                "trace_wavefront on a strip of sphere_field without chunks: no frame of "
+                "render_to_srgb_u8 reaches it, the pipeline attaches chunks over the cap"
+                if name == "brute_closest_chunked"
+                else "the full-width frames of accel_path and the bvh_det golden"),
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "lanes": row["lanes"],
+            "plain_lanes": row["plain_lanes"],
+            "shape_note": f"level-0 rays of the one full-width tile of {scene_key} "
+                          f"at {res_w}x{res_h}, 2x2 spp; plain_ms and the needed tests behind "
+                          f"bound_ms are of every {sizes['stride']}th of these rays",
+        })
+        if not accel_entries[-1]["launches"]:
+            fail(f"the acceleration path never launched {name}")
+
+    return accel_entries
+
+
 def main():
     t_start = time.time()
     # ---- phase 1: device
@@ -316,8 +855,9 @@ def main():
     _build.load()
     ptxas = [ln.strip() for ln in _build.last_build["log"].splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
-    if sum("entry function" in ln for ln in ptxas) != 4 and _build.last_build["compiled"]:
-        fail("the build did not report four kernels")
+    # wave_level, three brute kernels, four chunk sweeps, two traversals
+    if sum("entry function" in ln for ln in ptxas) != 10 and _build.last_build["compiled"]:
+        fail("the build did not report ten kernels")
     say("build", seconds=round(_build.last_build["seconds"], 2),
         compiled=_build.last_build["compiled"], flags=_build.last_build["flags"],
         library=os.path.relpath(_build.last_build["path"], REPO), ptxas=ptxas)
@@ -683,6 +1223,13 @@ def main():
         fail("the general-path flagship frame is outside the stochastic "
              "contract against its golden")
 
+
+    # ---- phases 9 and 10: the acceleration path
+    del o, d, tm, fuzz, levels, boot, g_img, img
+    torch.cuda.empty_cache()
+    accel_entries = accel_phases(rt, dev, ACCEL_SIZES, kinds, k_table, k_ranges, k_n,
+                                 n_levels)
+
     brute_entries = []
     for name, line, count in (
         ("brute_closest", 367, general_launches["brute_closest"]),
@@ -728,7 +1275,7 @@ def main():
         "deep_plain_ms": r1["plain_ms"],
         "deep_bound_ms": r1["bound_ms"],
         "deep_bound_by": r1["bound_by"],
-    }] + brute_entries}), flush=True)
+    }] + brute_entries + accel_entries}), flush=True)
 
     say("done", seconds=round(time.time() - t_start, 1))
     print(smi, flush=True)

@@ -3,14 +3,17 @@
 A Whitted ray tracer with the capabilities of the reference C++ renderer
 (EricZhang12138/Ray_Tracying), loaded from the same scene.json schema.
 Plain tensor code is PyTorch; the hot loops — one fused bounce level per
-launch, and the brute-force closest-hit, fused-normal and shadow any-hit
-searches of the general path — are CUDA C++ kernels written for Hopper
-(sm_90a), built with nvcc at first use and loaded with ctypes.  The
-package imports torch and numpy only.
+launch, the brute-force closest-hit, fused-normal and shadow any-hit
+searches of the general path, the BVH traversal of `use_bvh`, and the
+chunk sweeps of scenes whose geom table does not fit a block's shared
+memory — are CUDA C++ kernels written for Hopper (sm_90a), built with
+nvcc at first use and loaded with ctypes.  The package imports torch and
+numpy only.
 
 Layout (the same names as the JAX package):
   - scene/   : scene.json -> frozen dataclasses of tensors
   - core/    : constants, vec math, transforms, sampling (torch.Generator)
+  - accel/   : LBVH and Morton-ordered chunks, built on the host in numpy
   - kernels/ : table packing, the plain PyTorch versions of the kernels,
                their wrappers, and the build step; csrc/ holds the CUDA
   - render/  : camera ray gen, intersect (two-pass closest hit), materials,
@@ -18,6 +21,7 @@ Layout (the same names as the JAX package):
                pipeline
   - ops/     : the stable op-level API the renderer is built from
   - io/      : PPM P3 codec (byte-compatible with the reference)
+  - models/  : the named demo scenes and the procedural large ones
 
 Entry points run on the card: `device=None` means "cuda" and raises
 without one; pass `device="cpu"` to run the plain versions on the host.

@@ -1,5 +1,6 @@
 // Brute-force closest hit, closest hit with the winner's normal, and shadow
-// any-hit over the kind-sorted geom table, for sm_90a.
+// any-hit over the kind-sorted geom table, for sm_90a; and the chunked
+// brute closest hit over a load-order table of any size.
 //
 // Replaces the TPU kernels kernels/closest_hit.py::_brute_kernel,
 // _brute_n_kernel and _occlusion_kernel of the JAX package; their plain
@@ -20,6 +21,12 @@
 // build serves every scene: ranges and the motion flag are runtime
 // arguments, uniform over the grid.
 //
+// brute_closest_chunked replaces kernels/closest_hit.py::
+// _brute_chunked_kernel of the JAX package (plain version:
+// brute_closest_chunked_plain): the table does not fit shared memory, so
+// it is swept in chunks (sweep.cuh, without the cull: every live thread
+// runs every chunk); rows stay in load order and are of mixed kinds.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC (kernels/_build.py).
 // No fast-math: misses are true +inf, divisions and square roots are IEEE.
@@ -28,6 +35,7 @@
 #include <stdint.h>
 
 #include "geom.cuh"
+#include "sweep.cuh"
 
 namespace rtt {
 
@@ -240,6 +248,15 @@ extern "C" int occlusion_any_launch(
       rays, maxt, table, nullptr, nullptr, nullptr, blocked, R, G, ranges,
       n_ranges, 0);
   return rtt::launch_brute(rtt::occlusion_any_kernel, p, n_ranges, threads, stream);
+}
+
+extern "C" int brute_closest_chunked_launch(
+    const float* rays, const float* table, float* t, int* id,
+    long long R, int G, int chunk, int motion, int threads, void* stream) {
+  const rtt::SweepParams p = rtt::make_sweep_params(
+      rays, nullptr, nullptr, nullptr, table, t, id, nullptr, nullptr, R, G, chunk, motion);
+  return rtt::launch_sweep(rtt::sweep_kernel<rtt::kSweepClosest, false>, p,
+                           threads, stream);
 }
 
 #endif  // __CUDACC__

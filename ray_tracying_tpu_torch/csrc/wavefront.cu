@@ -41,7 +41,7 @@ constexpr float kBackground = (float)0.1;
 constexpr float kAttenNum = 10.0f, kAttenC0 = 25.0f, kAttenC1 = 10.0f, kAttenC2 = 150.0f;
 constexpr float kInv255 = (float)(1.0 / 255.0);
 
-constexpr int kGeomCols = 17;           // first material column
+// kGeomCols (geom.cuh) is also the first material column of a shaded row.
 constexpr int kSlotCol = kGeomCols + 14;
 constexpr int kOutRows = 13;
 constexpr int kMaxRanges = 3;

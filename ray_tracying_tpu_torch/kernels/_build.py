@@ -126,8 +126,34 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
         ctypes.c_longlong, i, ranges, i,
         i, p,                                # threads stream
     ]
+    sizes = [ctypes.c_longlong, i, i]        # R G chunk
+    lib.brute_closest_chunked_launch.argtypes = [
+        p, p, p, p, *sizes, i, i, p,         # rays table t id | motion threads stream
+    ]
+    lib.chunk_closest_launch.argtypes = [
+        p, p, p, p, p, p, *sizes, i, i, p,   # rays boxes graze table t id
+    ]
+    lib.chunk_closest_n_launch.argtypes = [
+        p, p, p, p, p, p, p, *sizes, i, i, p,  # rays boxes graze table t id n
+    ]
+    lib.chunk_occlusion_launch.argtypes = [
+        p, p, p, p, p, p, *sizes, i, p,      # rays maxt boxes graze table blocked | threads stream
+    ]
+    lib.bvh_closest_launch.argtypes = [
+        p, p, p, p, p, p, p,                 # rays table boxes topo graze t id
+        ctypes.c_longlong, i, i,             # R G M
+        i, i, p,                             # motion threads stream
+    ]
+    lib.bvh_closest_n_launch.argtypes = [
+        p, p, p, p, p, p, p, p,              # rays table boxes topo graze t id n
+        ctypes.c_longlong, i, i,
+        i, i, p,
+    ]
     for fn in (lib.brute_closest_launch, lib.brute_closest_n_launch,
-               lib.occlusion_any_launch):
+               lib.bvh_closest_n_launch,
+               lib.occlusion_any_launch, lib.brute_closest_chunked_launch,
+               lib.chunk_closest_launch, lib.chunk_closest_n_launch,
+               lib.chunk_occlusion_launch, lib.bvh_closest_launch):
         fn.restype = i
     lib.wave_error_string.argtypes = [i]
     lib.wave_error_string.restype = ctypes.c_char_p

@@ -24,11 +24,20 @@ table staged in shared memory and read as broadcasts, one kind-specialized
 loop per range, and a dead lane retired before any test; the any-hit loop
 leaves at each thread's first blocker.
 
-`brute_closest`, `brute_closest_n` and `occlusion_any` take the packed
-operands: for CUDA tensors they launch the kernel (built at first use by
-kernels/_build.py) or raise; only CPU tensors go through the `_plain`
-versions.  `closest_hit_tid`, `closest_hit_tid_n` and `occluded_tid` pack
-a scene and a ray batch and call them.
+A fourth kernel, `brute_closest_chunked` (csrc/closest_hit.cu over
+csrc/sweep.cuh), replaces `_brute_chunked_kernel`: the same closest hit for
+a table that does not fit a block's shared memory.  The table stays in load
+order, rows of mixed kinds (the kind is read from column 15), and a block
+stages `GEOM_CHUNK` rows at a time while each thread keeps its (best t,
+row) in registers across the sweep.  Bound: operations, as above; the
+table is re-read from L2 once per block.
+
+`brute_closest`, `brute_closest_n`, `occlusion_any` and
+`brute_closest_chunked` take the packed operands: for CUDA tensors they
+launch the kernel (built at first use by kernels/_build.py) or raise; only
+CPU tensors go through the `_plain` versions.  `closest_hit_tid`,
+`closest_hit_tid_n` and `occluded_tid` pack a scene and a ray batch and
+call them.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from ray_tracying_tpu_torch.kernels import _build
 from ray_tracying_tpu_torch.kernels.geom_table import (
     GEOM_COLS,
     KIND_PLANE,
+    pack_geom_table,
     pack_geom_table_sorted,
 )
 from ray_tracying_tpu_torch.scene.types import Scene
@@ -55,9 +65,14 @@ KIND_SPHERE, KIND_CUBE, KIND_RECT = 0, 1, 2
 # Threads per block; one thread per ray.
 BRUTE_THREADS = 256
 # The block's copy of the (17, G) table lives in dynamic shared memory, up
-# to the 227 KB a block can have on sm_90: about 3,400 geoms.  Larger
-# scenes are refused by name.
+# to the 227 KB a block can have on sm_90: 3,418 geoms.  A larger scene
+# takes the chunked kernels (`brute_closest_chunked` here, or the culled
+# sweeps of kernels/chunk_stream.py when the scene carries chunks).
 BRUTE_MAX_SMEM_BYTES = 232448
+BRUTE_SMEM_MAX_GEOMS = BRUTE_MAX_SMEM_BYTES // (4 * GEOM_COLS)
+# Rows a block of the chunked brute kernel stages at a time: 34 KB, so that
+# several blocks share an SM.
+GEOM_CHUNK = 512
 MAX_RANGES = 4
 
 
@@ -306,15 +321,38 @@ def scene_table(scene: Scene):
     return table.T.detach().contiguous(), ranges
 
 
-def _check_args(rays, table, ranges, maxt=None):
+def check_rays(rays, maxt=None, **tables):
+    """Raise on what no kernel takes: rays that are not a contiguous
+    (8, R) f32 tensor, a `maxt` that is not (R,) f32 beside them, or a
+    named table that is not contiguous on the rays' device."""
     if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 8:
         raise TypeError("rays must be an (8, R) float32 tensor")
+    if not rays.is_contiguous():
+        raise ValueError("rays must be contiguous (row-major)")
+    for name, tab in tables.items():
+        if not tab.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (row-major)")
+        if tab.device != rays.device:
+            raise ValueError(f"{name} must be on the rays' device")
+    if maxt is not None:
+        if maxt.dtype != torch.float32 or maxt.shape != (rays.shape[1],):
+            raise TypeError("maxt must be an (R,) float32 tensor")
+        if not maxt.is_contiguous() or maxt.device != rays.device:
+            raise ValueError("maxt must be contiguous, on the rays' device")
+
+
+def check_rows_table(table, g=None):
+    """A row-major (rows, 17) f32 geom table with at least `g` rows."""
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] != GEOM_COLS:
+        raise TypeError(f"table must be a (G, {GEOM_COLS}) float32 tensor")
+    if g is not None and not 0 < g <= table.shape[0]:
+        raise ValueError(f"{g} geoms in a table of {table.shape[0]} rows")
+
+
+def _check_args(rays, table, ranges, maxt=None):
     if table.dtype != torch.float32 or table.dim() != 2 or table.shape[0] != GEOM_COLS:
         raise TypeError(f"table must be a ({GEOM_COLS}, G) float32 tensor")
-    if not rays.is_contiguous() or not table.is_contiguous():
-        raise ValueError("rays and table must be contiguous (row-major)")
-    if table.device != rays.device:
-        raise ValueError("table must be on the rays' device")
+    check_rays(rays, maxt, table=table)
     if not 0 < len(ranges) <= MAX_RANGES:
         raise ValueError(f"between 1 and {MAX_RANGES} kind ranges")
     for kind, start, end in ranges:
@@ -322,11 +360,6 @@ def _check_args(rays, table, ranges, maxt=None):
             raise ValueError(f"unknown geom kind {kind}")
         if not 0 <= start <= end <= table.shape[1]:
             raise ValueError("a kind range leaves the table")
-    if maxt is not None:
-        if maxt.dtype != torch.float32 or maxt.shape != (rays.shape[1],):
-            raise TypeError("maxt must be an (R,) float32 tensor")
-        if not maxt.is_contiguous() or maxt.device != rays.device:
-            raise ValueError("maxt must be contiguous, on the rays' device")
 
 
 # ---------------------------------------------------------------------------
@@ -415,18 +448,66 @@ def occlusion_plain(rays, maxt, table, ranges, stats: Optional[dict] = None):
     return blocked & live
 
 
+def mixed_rows(table, g: int):
+    """The first g rows of a row-major (rows, 17) table as Python floats,
+    each with its kind code (column 15) and geom id (column 16)."""
+    rows = table[:g].tolist()
+    return [(row, int(round(row[15])), int(round(row[16]))) for row in rows]
+
+
+def mixed_closest_plain(rays, table, g: int, motion: bool = False,
+                        want_n: bool = False):
+    """Closest hit over the first g rows of a row-major (rows, 17) table
+    whose rows are of mixed kinds, in any order: (t, id) or, with want_n,
+    (t, id, unit normal (3, R)).  Rows are swept in table order with a
+    strict <, so of equal hits the lowest row wins: the result every
+    chunked, culled or traversed kernel over the same table must equal,
+    whatever order it visits the rows in.  Only spheres carry velocity, so
+    `motion` shifts the origin for sphere rows alone."""
+    check_rays(rays, table=table)
+    check_rows_table(table, g)
+    r = rays.shape[1]
+    rb = RayBlock(rays)
+    zero = torch.zeros(r, dtype=torch.float32, device=rays.device)
+    best = (
+        torch.full((r,), _INF, dtype=torch.float32, device=rays.device),
+        torch.full((r,), -1, dtype=torch.int32, device=rays.device),
+    )
+    if want_n:
+        best += (zero, zero, zero)
+    step = geom_step_n if want_n else geom_step
+    for row, kind, gid in mixed_rows(table, g):
+        best = step(gid, best, row, rb, kind, motion and kind == KIND_SPHERE)
+    live = rays[7] > 0.0
+    t = torch.where(live, best[0], _INF)
+    pid = torch.where(live, best[1], -1)
+    if not want_n:
+        return t, pid
+    bnx, bny, bnz = best[2:]
+    ln = torch.sqrt(bnx * bnx + bny * bny + bnz * bnz)
+    ln = torch.where(ln > 0.0, ln, 1.0)
+    n = torch.stack([bnx / ln, bny / ln, bnz / ln], dim=0)
+    return t, pid, torch.where(live[None, :], n, 0.0)
+
+
+def brute_closest_chunked_plain(rays, table, motion: bool = False):
+    """Closest hit over a load-order (G, 17) table of any size: (t, id);
+    see `mixed_closest_plain`."""
+    return mixed_closest_plain(rays, table, table.shape[0], motion)
+
+
 # ---------------------------------------------------------------------------
 # Launchers
 # ---------------------------------------------------------------------------
 
 def _launch_args(rays, table, ranges):
     g = table.shape[1]
-    smem = 4 * GEOM_COLS * g
-    if smem > BRUTE_MAX_SMEM_BYTES:
+    if g > BRUTE_SMEM_MAX_GEOMS:
         raise NotImplementedError(
-            f"a geom table of {g} geoms needs {smem} bytes of shared memory; "
-            f"a block has {BRUTE_MAX_SMEM_BYTES} (the chunked and BVH "
-            "kernels for larger scenes are not ported yet)"
+            f"a geom table of {g} geoms does not fit the {BRUTE_MAX_SMEM_BYTES} "
+            f"bytes of shared memory a block has ({BRUTE_SMEM_MAX_GEOMS} geoms): "
+            "a scene of that size takes brute_closest_chunked or the chunk "
+            "kernels of kernels/chunk_stream.py"
         )
     flat = [x for rng in ranges for x in rng]
     flat += [0] * (3 * MAX_RANGES - len(flat))
@@ -513,9 +594,66 @@ def occlusion_any(rays, maxt, table, ranges):
     return occlusion_plain(rays, maxt, table, ranges)
 
 
+def brute_closest_chunked(rays, table, motion: bool = False):
+    """(t, id) of the closest hit over a load-order (G, 17) table that
+    need not fit shared memory; see `brute_closest_chunked_plain`."""
+    if not rays.is_cuda:
+        return brute_closest_chunked_plain(rays, table, motion)
+    check_rays(rays, table=table)
+    check_rows_table(table, table.shape[0])
+    out = launch_sweep(
+        "brute_closest_chunked", rays, None, None, None, table, table.shape[0],
+        GEOM_CHUNK, motion,
+    )
+    brute_closest_chunked.launches += 1
+    return out
+
+
+def launch_sweep(name, rays, maxt, boxes, graze, table, g, chunk, motion):
+    """Launch one of the chunk sweeps of csrc/sweep.cuh on the current
+    stream: `name`_launch(rays, [maxt,] [boxes, graze,] table, outputs...,
+    R, G, chunk, [motion,] threads, stream).  boxes, graze: the chunks'
+    AABBs and their slacks, or None for the sweep without a cull.  Returns
+    the outputs; the caller counts the launch."""
+    if not 0 < chunk <= BRUTE_SMEM_MAX_GEOMS:
+        raise ValueError(
+            f"a chunk of {chunk} geoms does not fit a block's shared memory "
+            f"({BRUTE_SMEM_MAX_GEOMS} geoms)"
+        )
+    lib = _build.load()
+    r = rays.shape[1]
+    dev = rays.device
+    any_hit = maxt is not None
+    want_n = name.endswith("_n")
+    if any_hit:
+        outs = [torch.empty((r,), dtype=torch.bool, device=dev)]
+    else:
+        outs = [torch.empty((r,), dtype=torch.float32, device=dev),
+                torch.empty((r,), dtype=torch.int32, device=dev)]
+        if want_n:
+            outs.append(torch.empty((3, r), dtype=torch.float32, device=dev))
+    args = [rays.data_ptr()]
+    if any_hit:
+        args.append(maxt.data_ptr())
+    if boxes is not None:
+        args += [boxes.data_ptr(), graze.data_ptr()]
+    args.append(table.data_ptr())
+    args += [x.data_ptr() for x in outs]
+    args += [r, g, chunk]
+    if not any_hit:
+        args.append(int(bool(motion)))
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"{name}_launch")(
+            *args, BRUTE_THREADS, torch.cuda.current_stream().cuda_stream
+        )
+    _raise_on(err, lib, name)
+    return outs[0] if any_hit else tuple(outs)
+
+
 brute_closest.launches = 0
 brute_closest_n.launches = 0
 occlusion_any.launches = 0
+brute_closest_chunked.launches = 0
 
 
 def closest_hit_tid(scene: Scene, o, d, time, active=None):
@@ -524,8 +662,14 @@ def closest_hit_tid(scene: Scene, o, d, time, active=None):
     o, d: (R, 3); time: (R,).  active: optional (R,) bool; inactive rays
     report a miss and cost no test.  Returns t (R,) with +inf for a miss
     and id (R,) int32 (the reference's load-order geom id) with -1."""
+    rays = pack_rays(o, d, time, active)
+    if scene.n_geoms > BRUTE_SMEM_MAX_GEOMS:
+        # The table does not fit shared memory: stream it in chunks, rows
+        # in load order and of mixed kinds.
+        table = pack_geom_table(scene).detach().contiguous()
+        return brute_closest_chunked(rays, table, scene.has_motion)
     table, ranges = scene_table(scene)
-    return brute_closest(pack_rays(o, d, time, active), table, ranges, scene.has_motion)
+    return brute_closest(rays, table, ranges, scene.has_motion)
 
 
 def closest_hit_tid_n(scene: Scene, o, d, time, active=None):

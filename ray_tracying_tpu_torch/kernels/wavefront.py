@@ -58,6 +58,7 @@ from ray_tracying_tpu_torch.kernels.closest_hit import (
 )
 from ray_tracying_tpu_torch.kernels.geom_table import (
     GEOM_COLS,
+    SHADED_COLS,
     pack_geom_table_shaded,
     pack_light_table,
 )
@@ -115,18 +116,33 @@ def pack_tex_u8(scene: Scene):
     return tex, scene.tex_wh.T.to(torch.float32).contiguous()
 
 
+def wave_smem_bytes(n_geoms: int, n_cols: int, n_lights: int) -> int:
+    """Dynamic shared memory of one block of the level: its copy of the
+    shaded table and of the light table."""
+    return 4 * (n_cols * n_geoms + 8 * max(n_lights, 1))
+
+
 def wave_refusal(
     scene: Scene, use_bvh: bool = False, differentiable: bool = False
 ) -> Optional[str]:
     """Gate of the fused level path, in the form that answers: None for a
     scene (and options) the level takes, else the first feature it does
-    not take.  The integrator sends a refused scene down the general path;
-    use_bvh and differentiable are refused there too.  (light_samples plays
-    no part: only area lights consume it, and they are refused.)"""
+    not take.  The integrator sends a refused scene down the general path,
+    which takes use_bvh; differentiable is refused there too.
+    (light_samples plays no part: only area lights consume it, and they are
+    refused.)"""
     if use_bvh:
         return "use_bvh (BVH traversal)"
     if differentiable:
         return "record mode (differentiable rendering)"
+    smem = wave_smem_bytes(
+        scene.n_geoms, SHADED_COLS + int(scene.has_textures), scene.n_lights
+    )
+    if smem > WAVE_MAX_SMEM_BYTES:
+        return (
+            f"a shaded table of {scene.n_geoms} geoms ({smem} bytes of shared "
+            f"memory; a block has {WAVE_MAX_SMEM_BYTES})"
+        )
     if scene.has_two_way:
         return "two-way materials (reflect and refract on one hit)"
     if scene.has_refraction:
@@ -504,7 +520,7 @@ def wave_level_plain(
 def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (no synchronization)."""
     n_cols, g = tables.table.shape
-    smem = 4 * (n_cols * g + 8 * max(tables.n_lights, 1))
+    smem = wave_smem_bytes(g, n_cols, tables.n_lights)
     if smem > WAVE_MAX_SMEM_BYTES:
         raise NotImplementedError(
             f"a shaded table of {g} geoms needs {smem} bytes of shared "

@@ -1,16 +1,17 @@
 """Stable op-level API: the batched primitives the renderer is built from.
 
-Each op takes tensors on one device: on the card the closest-hit, any-hit
-and fused-level searches run the hand-written CUDA kernels, on the CPU
-their plain PyTorch versions.  Hit DECISIONS are piecewise-constant and
-carry no gradient; hit ATTRIBUTES (pass 2 of `closest_hit`) and shading
-are plain differentiable tensor code.  This is the surface to target when
-composing a custom integrator instead of render/pipeline's Whitted one.
+Each op takes tensors on one device: on the card the closest-hit, any-hit,
+BVH-traversal, chunk-sweep and fused-level searches run the hand-written
+CUDA kernels, on the CPU their plain PyTorch versions.  Hit DECISIONS are
+piecewise-constant and carry no gradient; hit ATTRIBUTES (pass 2 of
+`closest_hit`) and shading are plain differentiable tensor code.  This is
+the surface to target when composing a custom integrator instead of
+render/pipeline's Whitted one.
 
-The names are the JAX package's, less `build_lbvh` and `with_bvh`: the
-LBVH build comes with the acceleration kernels, which are not ported yet.
+The names are the JAX package's.
 """
 
+from ray_tracying_tpu_torch.accel.lbvh import build_lbvh, with_bvh
 from ray_tracying_tpu_torch.core.sampling import (
     uniform_in_unit_disk,
     uniform_in_unit_sphere,
@@ -40,6 +41,7 @@ __all__ = [
     "apply_normal",
     "apply_point",
     "apply_vector",
+    "build_lbvh",
     "build_trs",
     "closest_hit",
     "dot",
@@ -54,4 +56,5 @@ __all__ = [
     "trace_wavefront",
     "uniform_in_unit_disk",
     "uniform_in_unit_sphere",
+    "with_bvh",
 ]

@@ -45,8 +45,9 @@ Level semantics (identical in all paths, all cited):
 
 Not ported: queue shrinking between levels of the fused path (the image is
 the same without it; dead levels just cost more), the JAX package's
-`segments` gating (measured slower there and off by default), BVH
-traversal, differentiable rendering.
+`segments` gating (measured slower there and off by default),
+differentiable rendering.  `use_bvh` belongs to the general path: it sends
+a scene off the fused path, whose level searches its own table.
 """
 
 from __future__ import annotations
@@ -290,6 +291,7 @@ def _spawn_one_way(scene, q, hit, mrec, act, fuzz, min_tp):
 def _trace_general(
     scene: Scene, o, d, times, generator, fuzz, light_jitter, light_samples,
     queue_mult, do_compact, min_tp, max_depth, return_stats, return_dropped,
+    use_bvh=False,
 ):
     """General path: closest hit -> materials -> shade -> spawn, level by
     level, in-slot or compacted (module docstring).  No host read inside
@@ -320,12 +322,14 @@ def _trace_general(
     levels = (max_depth + 1) if spawn else 1
     rows = []
     for depth in range(levels):
-        hit = closest_hit(scene, q.o, q.d, q.time, q.active, differentiable=False)
+        hit = closest_hit(
+            scene, q.o, q.d, q.time, q.active, use_bvh, differentiable=False
+        )
         act = q.active & hit.valid
         missed = q.active & ~hit.valid
         mrec = gather_materials(scene, hit.geom_id)
         local = shade(
-            scene, hit, q.o, generator, light_samples, mrec, act,
+            scene, hit, q.o, generator, light_samples, mrec, act, use_bvh,
             jitter=None if light_jitter is None else light_jitter[depth],
         )
         local_w = torch.clamp(1.0 - mrec.reflectivity - mrec.transparency, min=0.0)
@@ -441,8 +445,13 @@ def trace_wavefront(
     implementation, `wave_level` unless a check wants `wave_level_plain`
     on the same device.
 
-    use_bvh and differentiable raise NotImplementedError on both paths:
-    BVH traversal and record mode are not ported yet."""
+    use_bvh: closest hits of the general path go through the LBVH
+    traversal kernel when the scene carries a BVH (accel.lbvh.with_bvh)
+    and fits the brute kernels' cap; the same hit set.  It sends the scene
+    off the fused path; with fused=True it raises by name.
+
+    differentiable raises NotImplementedError on both paths: record mode is
+    not ported yet."""
     dev = torch.device("cuda" if device is None else device)
     origins = origins.to(dev, torch.float32)
     directions = directions.to(dev, torch.float32)
@@ -463,15 +472,19 @@ def trace_wavefront(
             return_levels,
         )
 
-    if use_bvh or differentiable or fused is True:
-        # Options refused by name on both paths; a forced fused path also
-        # raises for the scene features it does not take.
+    if differentiable or fused is True:
+        # Record mode is refused by name on both paths; a forced fused
+        # path also raises for what it does not take.
         wave_supported(scene, use_bvh, differentiable)
     if fused is True and compact == "always":
         raise ValueError("compact='always' belongs to the general path, not to fused=True")
     spawn = scene.has_reflection or scene.has_refraction
 
-    if fused is not False and compact != "always" and wave_refusal(scene) is None:
+    if (
+        fused is not False
+        and compact != "always"
+        and wave_refusal(scene, use_bvh) is None
+    ):
         if tables is None:
             tables = wave_tables(scene.to(dev))
         if tables.glossy and fuzz is None and generator is None:
@@ -495,5 +508,5 @@ def trace_wavefront(
     return _trace_general(
         scene.to(dev), origins, directions, times, generator, fuzz,
         light_jitter, light_samples, queue_mult, do_compact, min_throughput,
-        max_depth, return_stats, return_dropped,
+        max_depth, return_stats, return_dropped, use_bvh,
     )

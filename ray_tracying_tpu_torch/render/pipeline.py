@@ -18,7 +18,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ray_tracying_tpu_torch.accel.lbvh import with_bvh, with_chunks
 from ray_tracying_tpu_torch.core import constants as C
+from ray_tracying_tpu_torch.kernels import closest_hit as _CH
 from ray_tracying_tpu_torch.kernels.wavefront import wave_refusal, wave_tables
 from ray_tracying_tpu_torch.render.camera import pixel_rays
 from ray_tracying_tpu_torch.render.integrator import trace_wavefront
@@ -132,6 +134,14 @@ def _render_tiles(scene, opts, generator, device, post=None, out_dtype=torch.flo
     host).  Returns the image as numpy, or (image, stats dict) when
     opts.stats."""
     dev = torch.device("cuda" if device is None else device)
+    # Acceleration structures are built on the host, once per frame.  A
+    # scene whose table does not fit a block's shared memory always gets
+    # the chunk structures, so that no path falls back to a full-table
+    # sweep.
+    if opts.use_bvh and scene.bvh_geoms is None:
+        scene = with_bvh(scene)
+    if scene.n_geoms > _CH.BRUTE_SMEM_MAX_GEOMS:
+        scene = with_chunks(scene)
     scene = scene.to(dev)
     if generator is None:
         generator = torch.Generator(device=dev)

@@ -16,7 +16,14 @@ import torch
 from ray_tracying_tpu_torch.scene import types as T
 
 
+# Fields of the port's Scene that the JAX package's has not: derived here
+# from the arrays that came across.
+_PORT_ONLY = ("bvh_nodes_graze", "chunk_graze")
+
+
 def _get(tree, name):
+    if name in _PORT_ONLY:
+        return None
     return tree[name] if isinstance(tree, dict) else getattr(tree, name)
 
 
@@ -44,14 +51,29 @@ def _build(cls, tree, device, nested=()):
 
 def scene_from_numpy(tree, device=None) -> T.Scene:
     """Port `Scene` from a numpy-leaved scene tree (attribute object or
-    dict) with the JAX package's field names and static facts.  Fields the
-    port does not carry (the BVH and chunk-stream structures) are
-    ignored.  device: None = "cuda" (raises without a card), as
-    `load_scene`."""
-    return _build(
-        T.Scene, tree, torch.device("cuda" if device is None else device),
+    dict) with the JAX package's field names and static facts; the BVH and
+    chunk-stream arrays, where the tree holds them, come across too, and
+    get what the port keeps beside them: each box's slack, and the check
+    that the tree fits the traversal kernel's stack.
+    device: None = "cuda" (raises without a card), as `load_scene`."""
+    from ray_tracying_tpu_torch.accel import lbvh
+
+    dev = torch.device("cuda" if device is None else device)
+    scene = _build(
+        T.Scene, tree, dev,
         nested=dict(
             camera=T.Camera, lights=T.Lights, prims=T.Primitives,
             planes=T.Planes, materials=T.Materials,
         ),
     )
+    extra = {}
+    if scene.bvh_geoms is not None:
+        topo = np.asarray(_get(tree, "bvh_nodes_topo"))
+        lbvh.check_depth(topo)
+        extra["bvh_nodes_graze"] = torch.from_numpy(
+            lbvh.node_graze(np.asarray(_get(tree, "bvh_geoms")), topo)).to(dev)
+    if scene.chunk_geoms is not None:
+        table = np.asarray(_get(tree, "chunk_geoms"))
+        chunk = table.shape[0] // np.asarray(_get(tree, "chunk_boxes")).shape[0]
+        extra["chunk_graze"] = torch.from_numpy(lbvh.chunk_graze(table, chunk)).to(dev)
+    return dataclasses.replace(scene, **extra) if extra else scene

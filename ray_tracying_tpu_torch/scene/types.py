@@ -117,6 +117,20 @@ class Scene:
     tex_atlas: Optional[torch.Tensor] = None   # (T, H, W, 3) float32 in [0,1]
     tex_wh: Optional[torch.Tensor] = None      # (T, 2) int32 true (w, h)
 
+    # Optional acceleration structures (accel/lbvh.py): the LBVH's flat
+    # node arrays with its Morton-ordered geom table, and the Morton-ordered
+    # chunk table with one AABB per chunk for scenes whose table does not
+    # fit a block's shared memory.  The boxes are exact; `*_graze` is the
+    # slack the f32 box test gives each of them (accel/lbvh.py::node_graze,
+    # chunk_graze), kept beside them so that no launch recomputes it.
+    bvh_nodes_box: Optional[torch.Tensor] = None   # (M, 6) f32 [min | max]
+    bvh_nodes_topo: Optional[torch.Tensor] = None  # (M, 4) int32 [left, right, first, count]
+    bvh_geoms: Optional[torch.Tensor] = None       # (G, 17) f32, Morton order
+    chunk_geoms: Optional[torch.Tensor] = None     # (NC * chunk, 17) f32, Morton order
+    chunk_boxes: Optional[torch.Tensor] = None     # (NC, 6) f32
+    bvh_nodes_graze: Optional[torch.Tensor] = None  # (M,) f32
+    chunk_graze: Optional[torch.Tensor] = None      # (NC,) f32
+
     # --- static facts ---
     n_prims: int = 0
     n_planes: int = 0

@@ -25,6 +25,7 @@ import ray_tracying_tpu_torch as rt
 from ray_tracying_tpu.core.sampling import uniform_in_unit_sphere as sphere_jax
 from ray_tracying_tpu.render.integrator import trace_wavefront as trace_jax
 from ray_tracying_tpu_torch.render import integrator as G
+from ray_tracying_tpu_torch.accel.lbvh import with_bvh
 from ray_tracying_tpu_torch.render.integrator import trace_wavefront
 from ray_tracying_tpu_torch.render.pipeline import tile_rays
 from ray_tracying_tpu_torch.scene.convert import scene_from_numpy
@@ -398,8 +399,23 @@ def test_accumulate_by_dest_sums_every_slot(max_run):
     ({"use_bvh": True}, "use_bvh"), ({"differentiable": True}, "record mode"),
 ])
 def test_general_path_refuses_options_by_name(kwargs, feature):
+    """Record mode is refused by name on the general path; use_bvh is
+    refused by name only where the fused path is forced."""
+    scene = both_ways_scene()
+    if "use_bvh" in kwargs:
+        kwargs = dict(kwargs, fused=True)
     with pytest.raises(NotImplementedError, match=feature):
-        trace_dirs(both_ways_scene(), [[0, 1, 0]], **kwargs)
+        trace_dirs(scene, [[0, 1, 0]], **kwargs)
+
+
+def test_general_path_takes_use_bvh():
+    """use_bvh is the general path's own option: it traces the same
+    radiance, with a BVH attached or not."""
+    scene = both_ways_scene()
+    dirs = [[0, 1, 0], [0.3, 1, 0.1]]
+    plain = trace_dirs(scene, dirs)
+    assert torch.equal(trace_dirs(scene, dirs, use_bvh=True), plain)
+    assert torch.equal(trace_dirs(with_bvh(scene), dirs, use_bvh=True), plain)
 
 
 def test_general_path_needs_draws_or_a_generator():

@@ -360,12 +360,30 @@ def test_closest_hit_paths_agree_inside_the_port():
 
 
 def test_use_bvh_is_refused_by_name():
+    """Only the fused level refuses use_bvh, by name."""
+    from ray_tracying_tpu_torch.kernels import wavefront as wf
+
     _, st = both("blockers")
-    o, d, tm, _, maxt = rays(8, seed=0)
-    with pytest.raises(NotImplementedError, match="use_bvh"):
-        I.closest_hit(st, *tt(o, d, tm), use_bvh=True)
-    with pytest.raises(NotImplementedError, match="use_bvh"):
-        I.min_hit_t(st, *tt(o, d, tm), use_bvh=True)
+    assert "use_bvh" in wf.wave_refusal(st, use_bvh=True)
+    without = wf.wave_refusal(st, use_bvh=False)
+    assert without is None or "use_bvh" not in without
+
+
+def test_use_bvh_is_taken_by_the_search():
+    """closest_hit and min_hit_t take use_bvh: without a BVH on the scene
+    the brute kernels answer, with one the traversal does, and the hits are
+    the same."""
+    from ray_tracying_tpu_torch.accel.lbvh import with_bvh
+
+    _, st = both("blockers")
+    o, d, tm, _, maxt = rays(64, seed=0)
+    ref = I.closest_hit(st, *tt(o, d, tm))
+    ref_t = I.min_hit_t(st, *tt(o, d, tm))
+    for scene in (st, with_bvh(st)):
+        hit = I.closest_hit(scene, *tt(o, d, tm), use_bvh=True)
+        assert torch.equal(hit.geom_id, ref.geom_id) and torch.equal(hit.t, ref.t)
+        assert torch.equal(I.min_hit_t(scene, *tt(o, d, tm), use_bvh=True), ref_t)
+    assert int(ref.valid.sum()) > 0
 
 
 # ------------------------------------------------------------------ (c)

@@ -1,15 +1,19 @@
-"""The arithmetic of csrc/wavefront.cu and csrc/closest_hit.cu, checked
-without a GPU.
+"""The arithmetic of csrc/wavefront.cu, csrc/closest_hit.cu, csrc/sweep.cuh
+(chunk_stream.cu and the chunked brute kernel) and csrc/bvh_traverse.cu,
+checked without a GPU.
 
 The CUDA sources keep their per-lane functions (`rtt::wave_lane`,
-`rtt::closest_lane`, `rtt::occlusion_lane`) free of CUDA constructs, so a
-host C++ compiler builds them.  Here g++ compiles that
+`rtt::closest_lane`, `rtt::occlusion_lane`, `rtt::sweep_lane`,
+`rtt::bvh_lane`) free of CUDA constructs, so a host C++ compiler builds
+them.  Here g++ compiles that
 function behind a ten-line loop over lanes, with FMA contraction off as in
 the nvcc build, and every level of a trace goes through it and through
 `wave_level_plain` on the same rays and fuzz rows.  This holds the two
 sources to the same arithmetic (the closest-hit and any-hit lane functions
 likewise go through seeded rays beside `brute_closest_plain`,
-`brute_closest_n_plain` and `occlusion_plain`); it says nothing of the launch, the
+`brute_closest_n_plain` and `occlusion_plain`, and the chunk sweep and the
+BVH traversal beside the plain row-order sweeps of kernels/chunk_stream.py
+and kernels/bvh_traverse.py); it says nothing of the launch, the
 shared-memory copy or the device's math library, which chip_smoke.py
 checks on the card.
 
@@ -314,3 +318,348 @@ def test_occlusion_lane_equals_plain(host_brute, name):
     assert int((host != plain).sum()) <= 1
     assert 0 < int(plain.sum()) < rays.shape[1]
     assert not host[rays[7] <= 0].any()
+
+
+# ---------------------------------------------------------------------------
+# csrc/sweep.cuh (chunk_stream.cu, the chunked brute of closest_hit.cu) and
+# csrc/bvh_traverse.cu: the chunk sweep with its per-ray cull, the per-ray
+# traversal, and the dispatch on a row's own kind
+# ---------------------------------------------------------------------------
+
+ACCEL_HOST_LOOP = """
+#include "chunk_stream.cu"
+#include "bvh_traverse.cu"
+template <int MODE, bool CULL>
+static void sweep_all(const rtt::SweepParams& p) {
+  for (long long i = 0; i < p.R; ++i) rtt::sweep_lane<MODE, CULL>(p, (size_t)i);
+}
+// mode: 0 closest, 1 closest + normal, 2 any-hit; boxes == null: no cull.
+extern "C" void sweep_host(
+    int mode, const float* rays, const float* maxt, const float* boxes,
+    const float* graze, const float* table, float* t, int* id, float* n,
+    uint8_t* blocked, long long R, int G, int chunk, int motion) {
+  const rtt::SweepParams p = rtt::make_sweep_params(
+      rays, maxt, boxes, graze, table, t, id, n, blocked, R, G, chunk, motion);
+  if (mode == 0 && boxes) sweep_all<rtt::kSweepClosest, true>(p);
+  else if (mode == 0) sweep_all<rtt::kSweepClosest, false>(p);
+  else if (mode == 1) sweep_all<rtt::kSweepClosestN, true>(p);
+  else sweep_all<rtt::kSweepAnyHit, true>(p);
+}
+extern "C" void bvh_host(
+    const float* rays, const float* table, const float* boxes, const int* topo,
+    const float* graze, float* t, int* id, float* n, long long R, int G, int M,
+    int motion) {
+  const rtt::BvhParams p = rtt::make_bvh_params(
+      rays, table, boxes, topo, graze, t, id, n, R, G, M, motion);
+  for (long long i = 0; i < R; ++i) {
+    if (n) rtt::bvh_lane<true>(p, (size_t)i);
+    else rtt::bvh_lane<false>(p, (size_t)i);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_accel(tmp_path_factory):
+    """The g++ build of the chunk sweep's and the traversal's lane
+    functions, behind the signatures of the chunk, chunked-brute and BVH
+    wrappers."""
+    d = tmp_path_factory.mktemp("accel_host")
+    src, out = str(d / "accel_host.cpp"), str(d / "libaccel_host.so")
+    with open(src, "w") as f:
+        f.write(ACCEL_HOST_LOOP)
+    subprocess.run(
+        ["g++", "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-I", CSRC,
+         "-shared", "-fPIC", "-o", out, src],
+        check=True,
+    )
+    lib = ctypes.CDLL(out)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sweep_host.argtypes = [i, p, p, p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i]
+    lib.bvh_host.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i]
+    lib.sweep_host.restype = lib.bvh_host.restype = None
+
+    def outputs(r, want_n):
+        return (torch.empty(r), torch.empty(r, dtype=torch.int32),
+                torch.empty((3, r)) if want_n else None)
+
+    def sweep(mode, rays, maxt, boxes, graze, table, g, chunk, motion):
+        r = rays.shape[1]
+        t, pid, n = outputs(r, mode == 1)
+        blocked = torch.empty(r, dtype=torch.bool)
+        lib.sweep_host(
+            mode, rays.data_ptr(), None if maxt is None else maxt.data_ptr(),
+            None if boxes is None else boxes.data_ptr(),
+            None if boxes is None else graze.data_ptr(), table.data_ptr(),
+            t.data_ptr(), pid.data_ptr(), n.data_ptr() if mode == 1 else None,
+            blocked.data_ptr(), r, g, chunk, int(motion),
+        )
+        return blocked if mode == 2 else (t, pid, n) if mode == 1 else (t, pid)
+
+    def bvh(rays, table, boxes, topo, graze, motion, want_n):
+        r = rays.shape[1]
+        t, pid, n = outputs(r, want_n)
+        lib.bvh_host(
+            rays.data_ptr(), table.data_ptr(), boxes.data_ptr(), topo.data_ptr(),
+            graze.data_ptr(), t.data_ptr(), pid.data_ptr(), n.data_ptr() if want_n else None,
+            r, table.shape[0], boxes.shape[0], int(motion),
+        )
+        return (t, pid, n) if want_n else (t, pid)
+
+    return sweep, bvh
+
+
+def accel_case(name):
+    """(scene with chunks of 4 and a BVH, (8, R) rays, maxt): the scene
+    with every kind and a moving sphere, or a small zoo scene seen from its
+    camera and from inside (rays that start among the geoms)."""
+    from ray_tracying_tpu_torch import models
+    from ray_tracying_tpu_torch.accel import lbvh
+
+    if name == "all_kinds":
+        scene, rays, maxt = brute_case("all_kinds")
+    else:
+        scene = models.get(name, n=45, res=(40, 24), device="cpu")
+        rng = np.random.default_rng(5)
+        o, d, _ = tile_rays(scene.camera, 0, 24, 40, 1)
+        n = o.shape[0]
+        inside = torch.from_numpy(
+            rng.uniform([-3, 0, 0], [3, 8, 1.5], (n, 3)).astype(np.float32))
+        rnd = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+        o = torch.cat([o, inside])[: 2 * n - 3]
+        d = torch.cat([d, rnd / rnd.norm(dim=1, keepdim=True)])[: 2 * n - 3]
+        n = o.shape[0]
+        rays = CH.pack_rays(
+            o, d, torch.from_numpy(rng.random(n).astype(np.float32)),
+            torch.from_numpy(rng.random(n) < 0.8))
+        maxt = torch.from_numpy(rng.uniform(0.5, 25.0, n).astype(np.float32))
+    return lbvh.with_bvh(lbvh.with_chunks(scene, 4)), rays, maxt
+
+
+def assert_same_hits(host, plain, rays):
+    assert torch.equal(host[1], plain[1])                       # ids
+    hit = plain[1] >= 0
+    assert 0 < int(hit.sum()) < rays.shape[1]
+    assert torch.equal(torch.isinf(host[0]), torch.isinf(plain[0]))
+    np.testing.assert_allclose(host[0][hit].numpy(), plain[0][hit].numpy(), rtol=RTOL, atol=ATOL)
+    dead = rays[7] <= 0
+    assert (host[1][dead] == -1).all() and torch.isinf(host[0][dead]).all()
+    if len(plain) == 3:
+        np.testing.assert_allclose(host[2].numpy(), plain[2].numpy(), rtol=RTOL, atol=ATOL)
+        assert not host[2][:, ~hit].any()
+
+
+ACCEL_SCENES = ["all_kinds", "sphere_field", "cube_city"]
+
+
+@pytest.mark.parametrize("name", ACCEL_SCENES)
+@pytest.mark.parametrize("kernel", ["chunk_closest", "chunk_closest_n", "brute_closest_chunked"])
+def test_sweep_lane_equals_plain(host_accel, name, kernel):
+    """The chunk sweep (cull per ray, rows of mixed kinds, the last chunk
+    ragged) against the plain row-order sweep of the same table."""
+    from ray_tracying_tpu_torch.kernels import chunk_stream as CS
+
+    sweep, _ = host_accel
+    scene, rays, _ = accel_case(name)
+    g, motion = scene.n_geoms, scene.has_motion
+    assert g % 4  # the last chunk is ragged
+    if kernel == "brute_closest_chunked":
+        table = CH.pack_geom_table(scene).contiguous()
+        plain = CH.brute_closest_chunked_plain(rays, table, motion)
+        host = sweep(0, rays, None, None, None, table, g, 3, motion)
+    else:
+        boxes, graze, table = scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms
+        want_n = kernel.endswith("_n")
+        plain = getattr(CS, kernel + "_plain")(rays, boxes, graze, table, g, motion)
+        host = sweep(int(want_n), rays, None, boxes, graze, table, g, 4, motion)
+    assert_same_hits(host, plain, rays)
+    # one hit set whatever the route: the kind-sorted brute kernel's
+    ref = CH.brute_closest_plain(rays, *CH.scene_table(scene), motion)
+    assert torch.equal(plain[0], ref[0]) and torch.equal(plain[1], ref[1])
+
+
+@pytest.mark.parametrize("name", ACCEL_SCENES)
+def test_sweep_any_hit_lane_equals_plain(host_accel, name):
+    from ray_tracying_tpu_torch.kernels import chunk_stream as CS
+
+    sweep, _ = host_accel
+    scene, rays, maxt = accel_case(name)
+    rays[6] = 0.0  # shadow rays carry time 0
+    ops = (scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms, scene.n_geoms)
+    plain = CS.chunk_occlusion_plain(rays, maxt, *ops)
+    host = sweep(2, rays, maxt, *ops, 4, False)
+    # a hit within one rounding of maxt may fall on either side
+    assert int((host != plain).sum()) <= 1
+    assert 0 < int(plain.sum()) < rays.shape[1]
+    assert not host[rays[7] <= 0].any()
+
+
+@pytest.mark.parametrize("name", ACCEL_SCENES)
+@pytest.mark.parametrize("want_n", [False, True], ids=["t_id", "t_id_normal"])
+def test_bvh_lane_equals_plain(host_accel, name, want_n):
+    """The per-ray traversal (own stack, own near child, pruning by best
+    t) against the plain row-order sweep of the Morton-ordered table."""
+    from ray_tracying_tpu_torch.kernels import bvh_traverse as BT
+
+    _, bvh = host_accel
+    scene, rays, _ = accel_case(name)
+    ops = (scene.bvh_geoms, scene.bvh_nodes_box, scene.bvh_nodes_topo,
+           scene.bvh_nodes_graze)
+    plain = (BT.bvh_closest_n_plain if want_n else BT.bvh_closest_plain)(
+        rays, *ops, scene.has_motion)
+    host = bvh(rays, *ops, scene.has_motion, want_n)
+    assert_same_hits(host, plain, rays)
+    assert scene.bvh_nodes_topo.shape[0] > 1  # a real tree, not one leaf
+
+
+def silhouette_rays(rng, n, centre, radius):
+    """n rays from the origin to a ring around a sphere's silhouette, from
+    0.9 to 1.3 radii off its centre: ((8, n) rays, the ring's radii)."""
+    ang = rng.uniform(0, 2 * np.pi, n)
+    rad = radius * rng.uniform(0.9, 1.3, n)
+    target = np.asarray(centre) + np.stack(
+        [rad * np.cos(ang), np.zeros(n), rad * np.sin(ang)], axis=1)
+    d = torch.from_numpy((target / np.linalg.norm(target, axis=1, keepdims=True)).astype(np.float32))
+    return CH.pack_rays(torch.zeros((n, 3)), d, torch.zeros(n)), rad
+
+
+def camera_dict(**geoms):
+    return {
+        "cameras": [{"location": [0, 0, 0], "gaze_vector": [0, 1, 0],
+                     "up_vector": [0, 0, 1], "focal_length": 20.0,
+                     "sensor_width": 36, "sensor_height": 24}],
+        "render": {"resolution_x": 8, "resolution_y": 6}, **geoms,
+    }
+
+
+def leaf_of(scene, geom_id):
+    """(node, table row) of the BVH leaf that holds load-order geom `geom_id`."""
+    row = int((scene.bvh_geoms[:, 16].round() == geom_id).nonzero()[0, 0])
+    topo = scene.bvh_nodes_topo.tolist()
+    return next(i for i, (l, _, f, c) in enumerate(topo) if l < 0 and f <= row < f + c), row
+
+
+def test_box_slack_keeps_the_fuzzy_grazing_hits_of_far_spheres(host_accel, monkeypatch):
+    """At a distance of hundreds of radii the sphere test's discriminant
+    cancels, and rays that pass just outside a sphere still test as grazing
+    hits; an exact box would cull some of them.  The culling kernels grow
+    each box by its own slack scaled with distance squared
+    (csrc/geom.cuh::box_hit), so the traversal and the chunk sweep still
+    equal the plain sweep; without the slack the same box test loses
+    hits."""
+    from ray_tracying_tpu_torch.accel import lbvh
+    from ray_tracying_tpu_torch.kernels import chunk_stream as CS
+
+    sweep, bvh = host_accel
+    rng = np.random.default_rng(4)
+    centers = [[0.0, 150.0, 0.0]] + rng.uniform([-40, 100, -20], [40, 160, 20], (8, 3)).tolist()
+    scene = rt.load_scene_dict(
+        camera_dict(spheres=[{"location": c, "radius": 0.12} for c in centers]), device="cpu")
+    scene = lbvh.with_bvh(lbvh.with_chunks(scene, 4))
+    n = 60000
+    rays, rad = silhouette_rays(rng, n, centers[0], 0.12)
+    g = scene.n_geoms
+    plain = CH.mixed_closest_plain(rays, scene.bvh_geoms, g, False)
+    hit = plain[1] == 0
+    beyond = hit & torch.from_numpy(rad > 0.12 * 1.02)
+    assert int(beyond.sum()) > 100          # the fuzzy hits exist
+    host = bvh(rays, scene.bvh_geoms, scene.bvh_nodes_box, scene.bvh_nodes_topo,
+               scene.bvh_nodes_graze, False, False)
+    assert torch.equal(host[1], plain[1]) and torch.equal(host[0], plain[0])
+    host = sweep(0, rays, None, scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms,
+                 g, 4, False)
+    assert torch.equal(host[1], plain[1]) and torch.equal(host[0], plain[0])
+    # The same box test without the slack would cull some of those hits.
+    leaf, _ = leaf_of(scene, 0)
+    box = scene.bvh_nodes_box[leaf].tolist()
+    rb = CH.RayBlock(rays)
+    inf = torch.full((n,), float("inf"))
+    assert bool(CS.box_hit(rb, box, inf, float(scene.bvh_nodes_graze[leaf]))[hit].all())
+    assert not bool(CS.box_hit(rb, box, inf, None)[hit].all())
+
+
+def test_one_tiny_far_sphere_widens_only_its_own_boxes(host_accel):
+    """One sphere of radius 0.001 at 150 units among large cubes and
+    spheres: its fuzzy grazing hits need a wide slack (1.2e-7 * 9000 *
+    distance^2, about 24 units there), and every box that holds it gets
+    that; no other box does.  So no hit is lost, through the traversal and
+    through the chunk sweep, and a ray still runs a fraction of the table:
+    with the scene-wide largest slack on every box the cull would keep
+    nearly every box in front of every ray."""
+    from ray_tracying_tpu_torch.accel import lbvh
+    from ray_tracying_tpu_torch.kernels import bvh_traverse as BT
+    from ray_tracying_tpu_torch.kernels import chunk_stream as CS
+
+    sweep, bvh = host_accel
+    rng = np.random.default_rng(6)
+    tiny = [3.0, 150.0, 2.0]
+    pos = rng.uniform([-60, 20, -30], [60, 140, 30], (120, 3))
+    scene = rt.load_scene_dict(camera_dict(
+        spheres=[{"location": tiny, "radius": 0.001}]
+        + [{"location": p.tolist(), "radius": 2.0} for p in pos[:60]],
+        cubes=[{"translation": p.tolist(), "rotation": [0.0, 0.0, 0.0],
+                "scale": [3.0, 3.0, 3.0]} for p in pos[60:]],
+    ), device="cpu")
+    scene = lbvh.with_bvh(lbvh.with_chunks(scene, 4))
+    g = scene.n_geoms
+    n = 20000
+    ring, rad = silhouette_rays(rng, n, tiny, 0.001)
+    d = rng.uniform([-60, 20, -30], [60, 140, 30], (n, 3))   # into the geoms' volume
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32))
+    rays = torch.cat([ring, CH.pack_rays(torch.zeros((n, 3)), d, torch.zeros(n))], dim=1).contiguous()
+    bvh_ops = (scene.bvh_geoms, scene.bvh_nodes_box, scene.bvh_nodes_topo,
+               scene.bvh_nodes_graze)
+    need = {}
+    plain = BT.bvh_closest_plain(rays, *bvh_ops, False, stats=need)
+    # the tiny sphere is seen, beyond its true silhouette too, and other
+    # geoms are hit as well
+    on_tiny = plain[1][:n] == 0
+    assert int((on_tiny & torch.from_numpy(rad > 0.001 * 1.02)).sum()) > 100
+    assert int((plain[1][n:] > 0).sum()) > n // 40
+    host = bvh(rays, *bvh_ops, False, False)
+    assert torch.equal(host[1], plain[1]) and torch.equal(host[0], plain[0])
+    host = sweep(0, rays, None, scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms,
+                 g, 4, False)
+    assert torch.equal(host[1], plain[1]) and torch.equal(host[0], plain[0])
+
+    # How many boxes a ray is let into, of the random rays: with each box's
+    # own slack, with the largest slack on every box, and with exact boxes
+    # (the count the plain version reports as unavoidable).
+    rb = CH.RayBlock(rays[:, n:].contiguous())
+    t = plain[0][n:]
+    boxes = scene.bvh_nodes_box.tolist()
+    own = scene.bvh_nodes_graze.tolist()
+    worst = max(own)
+    leaf, _ = leaf_of(scene, 0)
+    assert own[leaf] == worst and sum(x == worst for x in own) <= lbvh.tree_depth(
+        scene.bvh_nodes_topo.numpy()) + 1
+
+    def entered(graze_of):
+        return sum(int(CS.box_hit(rb, box, t, graze_of(i)).sum())
+                   for i, box in enumerate(boxes))
+
+    n_own, n_worst, n_exact = entered(lambda i: own[i]), entered(lambda i: worst), \
+        entered(lambda i: None)
+    # the slack costs at most the few boxes on the tiny sphere's path, a
+    # fifth of what the largest slack on every box would cost
+    assert n_exact <= n_own <= n_exact + n * sum(x == worst for x in own)
+    assert n_worst - n_exact > 5 * (n_own - n_exact) > 0
+
+
+def test_graze_coef_is_nine_over_the_smallest_radius():
+    """Each sphere row asks 1.2e-7 * 9 / r; a chunk's slack is that of its
+    smallest sphere; a table without spheres asks none."""
+    from ray_tracying_tpu_torch.accel import lbvh
+
+    scene, _, _ = accel_case("sphere_field")
+    g = scene.n_geoms
+    rows = lbvh.row_graze(scene.chunk_geoms.numpy())
+    assert rows.dtype == np.float32 and rows.shape == (scene.chunk_geoms.shape[0],)
+    sphere = scene.chunk_geoms[:g, 15].round().numpy() == 0
+    radii = 1.0 / scene.chunk_geoms[:g, 0].numpy()[sphere]
+    np.testing.assert_allclose(rows[:g][sphere], lbvh.GRAZE_SLACK * 9.0 / radii, rtol=1e-5)
+    assert not rows[:g][~sphere].any() and not rows[g:].any()
+    np.testing.assert_array_equal(
+        scene.chunk_graze.numpy(), rows.reshape(-1, 4).max(axis=1))
+    cubes, _, _ = accel_case("cube_city")
+    assert not cubes.chunk_graze.any() and not cubes.bvh_nodes_graze.any()

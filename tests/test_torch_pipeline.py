@@ -258,3 +258,126 @@ def test_build_needs_nvcc_and_says_so(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load()
     assert not os.path.exists(os.path.join(REPO, "no_such_dir"))
+
+
+# ---------------------------------------------------------------------------
+# The acceleration path through the pipeline
+# ---------------------------------------------------------------------------
+
+def _count_calls(monkeypatch, names):
+    """Count the calls render/intersect.py makes to each named kernel
+    entry, leaving them in place."""
+    from ray_tracying_tpu_torch.render import intersect as I
+
+    seen = {n: 0 for n in names}
+    for n in names:
+        real = getattr(I, n)
+
+        def counted(*a, _n=n, _f=real, **k):
+            seen[_n] += 1
+            return _f(*a, **k)
+
+        monkeypatch.setattr(I, n, counted)
+    return seen
+
+
+ACCEL_ENTRIES = (
+    "closest_hit_tid", "closest_hit_tid_n", "occluded_tid", "closest_hit_tid_bvh",
+    "closest_hit_tid_n_bvh", "closest_hit_tid_chunks", "closest_hit_tid_n_chunks",
+    "occluded_tid_chunks",
+)
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("cube_city", {"n": 24}), ("sphere_field", {"n": 40}),
+])
+def test_accelerated_renders_are_byte_equal_and_match_jax(monkeypatch, name, kwargs):
+    """A small zoo scene at 1 spp on the CPU, down the general path (the
+    fused gate's size constant set below the scene): brute kernels, then
+    use_bvh (the traversal for closest hits, the brute any-hit for shadow
+    rays), then with the cap set below the scene (chunk kernels for
+    everything).  The three images are byte-equal, the reference's contract
+    for -bvh, and within the deterministic contract of the JAX package's
+    render of the same scene."""
+    from ray_tracying_tpu import models as models_jax
+    from ray_tracying_tpu_torch import models
+    from ray_tracying_tpu_torch.accel import lbvh
+    from ray_tracying_tpu_torch.kernels import closest_hit as ch
+    from ray_tracying_tpu_torch.kernels import wavefront as wf
+    from ray_tracying_tpu_torch.render import pipeline
+
+    scene = models.get(name, res=(64, 36), device="cpu", **kwargs)
+    monkeypatch.setattr(wf, "WAVE_MAX_SMEM_BYTES", 1024)
+    assert "shaded table" in wf.wave_refusal(scene)
+    seen = _count_calls(monkeypatch, ACCEL_ENTRIES)
+    opts = rt.RenderOptions(samples_sqrt=1)
+
+    brute = rt.render_to_srgb_u8(scene, opts, device="cpu")
+    assert seen["closest_hit_tid_n"] == 11 and seen["occluded_tid"] == 22
+    assert sum(seen.values()) == 33
+
+    for k in seen:
+        seen[k] = 0
+    bvh = rt.render_to_srgb_u8(scene, rt.RenderOptions(samples_sqrt=1, use_bvh=True), device="cpu")
+    assert seen["closest_hit_tid_n_bvh"] == 11 and seen["occluded_tid"] == 22
+    assert sum(seen.values()) == 33
+
+    for k in seen:
+        seen[k] = 0
+    monkeypatch.setattr(ch, "BRUTE_SMEM_MAX_GEOMS", 8)
+    monkeypatch.setattr(lbvh, "CHUNK", 4)
+    n_chunks = []
+    real_with_chunks = pipeline.with_chunks
+
+    def recording(s):
+        out = real_with_chunks(s)
+        n_chunks.append(out.chunk_boxes.shape[0])
+        return out
+
+    monkeypatch.setattr(pipeline, "with_chunks", recording)
+    chunks = rt.render_to_srgb_u8(scene, rt.RenderOptions(samples_sqrt=1, use_bvh=True), device="cpu")
+    assert seen["closest_hit_tid_n_chunks"] == 11 and seen["occluded_tid_chunks"] == 22
+    assert sum(seen.values()) == 33
+    # CHUNK is read when the chunks are built: several chunks of 4, so the
+    # cull and the ragged last chunk are on this frame's path
+    assert n_chunks == [-(-scene.n_geoms // 4)] and n_chunks[0] > 1
+
+    assert np.array_equal(brute, bvh) and np.array_equal(brute, chunks)
+    assert brute.shape == (36, 64, 3) and brute.min() < brute.max()
+
+    sj = models_jax.get(name, res=(64, 36), **kwargs)
+    ref = np.asarray(rt_jax.render_to_srgb_u8(
+        sj, rt_jax.RenderOptions(samples_sqrt=1), key=jax.random.key(0)))
+    diff = np.abs(brute.astype(int) - ref.astype(int))
+    assert diff.max() <= 1, f"max uint8 diff {diff.max()}"
+    assert (diff > 0).mean() < 0.01
+
+
+def test_oversize_fused_scene_takes_the_general_path(monkeypatch):
+    """A fused-eligible scene whose shaded table passes the block's shared
+    memory is refused by the gate, by name, and rendered down the general
+    path; forcing the fused path still raises."""
+    from ray_tracying_tpu_torch import models
+    from ray_tracying_tpu_torch.kernels import wavefront as wf
+    from ray_tracying_tpu_torch.render.integrator import trace_wavefront
+    from ray_tracying_tpu_torch.render.pipeline import tile_rays
+
+    scene = models.get("cube_city", n=24, res=(48, 27), device="cpu")
+    assert wf.wave_refusal(scene) is None
+    opts = rt.RenderOptions(samples_sqrt=1)
+    levels = []
+    real = wf.wave_level
+    import ray_tracying_tpu_torch.render.integrator as G
+    monkeypatch.setattr(G, "wave_level", lambda *a, **k: levels.append(1) or real(*a, **k))
+    fused = rt.render_to_srgb_u8(scene, opts, device="cpu")
+    small = wf.wave_smem_bytes(scene.n_geoms, 31, scene.n_lights) - 4
+    monkeypatch.setattr(wf, "WAVE_MAX_SMEM_BYTES", small)
+    assert "shaded table of 25 geoms" in wf.wave_refusal(scene)
+    seen = _count_calls(monkeypatch, ACCEL_ENTRIES)
+    general = rt.render_to_srgb_u8(scene, opts, device="cpu")
+    assert seen["closest_hit_tid_n"] == 11 and seen["occluded_tid"] == 22
+    diff = np.abs(fused.astype(int) - general.astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() < 0.01
+    o, d, tm = tile_rays(scene.camera, 0, 2, 48, 1)
+    with pytest.raises(NotImplementedError, match="shaded table"):
+        trace_wavefront(scene, o, d, tm, fused=True, device="cpu")

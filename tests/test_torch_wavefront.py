@@ -369,6 +369,8 @@ GATE_CASES = {
     "legacy planes": lambda: _scene_with(n_planes=1),
     "textured spheres": lambda: _scene_with(has_textures=True, tex_atlas=torch.zeros(1, 2, 2, 3)),
     "more than 8 lights": lambda: _scene_with(n_lights=9),
+    # 3000 rows of 31 columns pass the 232,448 bytes a block has.
+    "a shaded table of 3000 geoms": lambda: _scene_with(n_prims=3000),
 }
 
 
@@ -398,11 +400,16 @@ def test_gate_refuses_options_by_name(kwargs, feature):
     with pytest.raises(NotImplementedError, match=feature):
         wf.wave_supported(st, **kwargs)
     o, d, tm = cam_rays(n=8)
+    rays = [torch.from_numpy(np.array(x)) for x in (o, d, tm)]
+    # use_bvh belongs to the general path: only a forced fused path
+    # refuses it; record mode is refused on both.
+    forced = dict(kwargs, fused=True) if "use_bvh" in kwargs else kwargs
     with pytest.raises(NotImplementedError, match=feature):
-        trace_wavefront(
-            st, *(torch.from_numpy(np.array(x)) for x in (o, d, tm)), 1,
-            device="cpu", **kwargs,
-        )
+        trace_wavefront(st, *rays, 1, device="cpu", **forced)
+    if "use_bvh" in kwargs:
+        general = trace_wavefront(st, *rays, 1, device="cpu", fused=False)
+        routed = trace_wavefront(st, *rays, 1, device="cpu", **kwargs)
+        assert torch.equal(routed, general)
 
 
 def test_gate_refuses_committed_scenes_by_name():
