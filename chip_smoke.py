@@ -11,9 +11,12 @@ path: a 20,001-geom procedural scene whose table does not fit a block's
 shared memory (chunk kernels) and a 2,049-geom one rendered with and
 without `use_bvh` (BVH traversal), both at 1920x1080.  It builds the CUDA
 kernels from the sources of this checkout, holds each kernel against its
-plain PyTorch version on the card, checks twelve images against the
-reference renderer's goldens, and prints one JSON line per phase.  Any
-failure exits non-zero; nothing is caught.
+plain PyTorch version on the card (the fused level bit for bit on every
+level of a full-width flagship tile), measures the fused level's kernel
+against the one-thread-per-lane schedule of the same stages in turns
+(phase wave_redesign_ab: per level, and one flagship frame each, byte-equal),
+checks twelve images against the reference renderer's goldens, and prints
+one JSON line per phase.  Any failure exits non-zero; nothing is caught.
 
     python3 chip_smoke.py
 
@@ -824,6 +827,83 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
     return accel_entries
 
 
+def wave_plan_phase(W, _build, tables, scene):
+    """Phase wave_plan: what ptxas reports for the level's kernel, the plan
+    it launches with on this card, and the largest table the gate takes."""
+    log = _build.last_build["log"].splitlines()
+    report, inside = [], False
+    for ln in log:
+        if "entry function" in ln:
+            inside = "wave_level_blocks_kernel" in ln
+        if inside:
+            report.append(ln.strip())
+    plan = W.wave_plan(tables)
+    n_cols, g = tables.table.shape
+    say("wave_plan", kernel="wave_level_blocks_kernel", ptxas=report, geoms=g,
+        n_cols=n_cols, lights=scene.n_lights, **plan,
+        cap_geoms=W.wave_cap_geoms(n_cols, scene.n_lights),
+        cap_geoms_untextured=W.wave_cap_geoms(31, scene.n_lights),
+        cap_geoms_textured=W.wave_cap_geoms(32, scene.n_lights))
+    if _build.last_build["compiled"] and not report:
+        fail("ptxas reported nothing for wave_level_blocks_kernel")
+    return plan
+
+
+def wave_redesign_ab(rt, W, scene, tables, inputs, fuzz, opts, n_levels):
+    """Phase wave_redesign_ab: the package's level kernel (persistent
+    blocks, `wave_level`) against the one-thread-per-lane schedule of the
+    same stages (`wave_level_lane`) on the inputs of every level of one
+    full-width flagship tile: outputs bit-equal, ms of each by CUDA events
+    in turns (lane, blocks, blocks, lane).  Then the flagship frame through
+    render_to_srgb_u8 once with each kernel from one seed: bytes equal.
+    Returns the per-level rows."""
+    rows = []
+    for lv in range(n_levels):
+        prev, fz = inputs[lv], fuzz[lv]
+        equal = bool(torch.equal(W.wave_level_lane(prev, fz, tables),
+                                 W.wave_level(prev, fz, tables)))
+        t = {}
+        for turn, fn in (("lane", W.wave_level_lane), ("blocks", W.wave_level),
+                         ("blocks_again", W.wave_level), ("lane_again", W.wave_level_lane)):
+            t[turn] = cuda_ms(lambda: fn(prev, fz, tables), 5)
+        rows.append(dict(level=lv, lanes=prev.shape[1], live=int((prev[7] > 0).sum()),
+                         lane_ms=[t["lane"], t["lane_again"]],
+                         blocks_ms=[t["blocks"], t["blocks_again"]], bitwise_equal=equal))
+        say("wave_redesign_ab", **rows[-1])
+        if not equal:
+            fail(f"the two schedules of wave_level differ on level {lv}")
+
+    def total(key, levels):
+        return sum(sum(r[key]) / 2 for r in rows if r["level"] in levels)
+
+    deep = range(1, n_levels)
+    summary = dict(level0_lane_ms=total("lane_ms", [0]), level0_blocks_ms=total("blocks_ms", [0]),
+                   levels_1_10_lane_ms=total("lane_ms", deep),
+                   levels_1_10_blocks_ms=total("blocks_ms", deep),
+                   slower_levels=[r["level"] for r in rows
+                                  if max(r["blocks_ms"]) > min(r["lane_ms"])])
+    # The frame: the wrapper's launcher swapped for the lane schedule's.
+    real = W._launch
+    frames = {}
+    for name in ("blocks", "lane"):
+        if name == "lane":
+            W._launch = lambda q, f, tb, m: W.wave_level_lane(q, f, tb, m)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        frames[name] = rt.render_to_srgb_u8(scene, opts, torch.Generator(device="cuda").manual_seed(3))
+        torch.cuda.synchronize()
+        summary[f"frame_{name}_seconds"] = time.time() - t0
+        W._launch = real
+    summary["frames_bytes_equal"] = bool(np.array_equal(frames["blocks"], frames["lane"]))
+    say("wave_redesign_ab", **summary)
+    if not summary["frames_bytes_equal"]:
+        fail("the flagship frame differs between the two schedules of wave_level")
+    if summary["level0_blocks_ms"] > summary["level0_lane_ms"] or \
+            summary["levels_1_10_blocks_ms"] > summary["levels_1_10_lane_ms"]:
+        say("wave_redesign_ab", warning="the redesign is slower on level 0 or on levels 1-10")
+    return rows
+
+
 def main():
     t_start = time.time()
     # ---- phase 1: device
@@ -855,15 +935,17 @@ def main():
     _build.load()
     ptxas = [ln.strip() for ln in _build.last_build["log"].splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
-    # wave_level, three brute kernels, four chunk sweeps, two traversals
-    if sum("entry function" in ln for ln in ptxas) != 10 and _build.last_build["compiled"]:
-        fail("the build did not report ten kernels")
+    # wave_level (blocks) and its one-thread-per-lane schedule, three brute
+    # kernels, four chunk sweeps, two traversals
+    if sum("entry function" in ln for ln in ptxas) != 11 and _build.last_build["compiled"]:
+        fail("the build did not report eleven kernels")
     say("build", seconds=round(_build.last_build["seconds"], 2),
         compiled=_build.last_build["compiled"], flags=_build.last_build["flags"],
         library=os.path.relpath(_build.last_build["path"], REPO), ptxas=ptxas)
 
     scene = rt.load_scene(os.path.join(REPO, "golden", "ASCII", "scene.json"))
     tables = W.wave_tables(scene)
+    plan = wave_plan_phase(W, _build, tables, scene)
     width, height = scene.camera.resolution
     n_levels = C.MAX_RECURSION_DEPTH + 1
     opts = rt.RenderOptions(samples_sqrt=4, light_samples=1)
@@ -891,8 +973,8 @@ def main():
         res, tainted = compare_level(a, b, tainted)
         say("kernel_vs_plain", level=lv, lanes=n, spawned=int((b[7] > 0).sum()),
             rtol=RTOL, atol=ATOL, max_disagreeing_share=MAX_FLIP_SHARE, **res)
-        if not res["ok"]:
-            fail(f"kernel and plain version disagree on level {lv}")
+        if not res["bitwise_equal"]:
+            fail(f"kernel and plain version are not bit-equal on level {lv}")
     say("kernel_vs_plain", plain_trace_seconds=round(plain_trace_s, 2), lanes=n,
         levels=n_levels)
 
@@ -908,8 +990,8 @@ def main():
     dead_zero = bool((a[:, boot[7] <= 0] == 0).all())
     say("kernel_vs_plain", case="random act mask, ragged width", lanes=m,
         live=int(boot[7].sum()), dead_lanes_all_zero=dead_zero, **res)
-    if not (res["ok"] and dead_zero):
-        fail("kernel and plain version disagree on the mixed-mask tile")
+    if not (res["bitwise_equal"] and dead_zero):
+        fail("kernel and plain version are not bit-equal on the mixed-mask tile")
 
     # The three brute kernels on the same ragged tile with a random act
     # mask, and on a scene with every kind and a moving sphere, rays at
@@ -1046,14 +1128,15 @@ def main():
         level_ms=[cuda_ms(lambda: W.wave_level(inputs[lv], fuzz[lv], tables), 3)
                   for lv in range(n_levels)])
 
-    # ---- phase 6: the kernel at the main path's shapes: level 0 and a deep
-    # level of that tile, against the plain version on the same inputs,
-    # with its times and its roofline bound.
-    del inputs
+    # ---- phase 6: the kernel at the main path's shapes: every level of
+    # that tile against the plain version on the same input (bit-equal, or
+    # the run fails), and for level 0 and a deep level the kernel's time
+    # and roofline bound.
     deep = 4
-    rows_out = []
+    rows_out = {}
     plain0 = None
-    for name, lv, prev in (("level0", 0, boot), (f"level{deep}", deep, levels[deep - 1])):
+    for lv in range(n_levels):
+        prev = inputs[lv]
         a = W.wave_level(prev, fuzz[lv], tables)
         need = {}
         torch.cuda.synchronize()
@@ -1065,32 +1148,36 @@ def main():
         if lv == 0:
             plain0 = b
         del a, b
-        ms = cuda_ms(lambda: W.wave_level(prev, fuzz[lv], tables), 5)
-        # Least work this call's data needs.  Bytes: every lane's act row
-        # read and its 13 output rows written (zeros for a dead lane); only
-        # a live lane's other 8 queue rows and 3 fuzz rows are read; the
-        # tables once.  Operations: G tests per live lane, the shadow tests
-        # up to each ray's first blocker, the shading of hit lanes.
-        n_bytes = 4 * (n * (1 + W.OUT_ROWS) + need["live"] * (W.Q_ROWS - 1 + 3)) \
-            + 4 * (tables.table.numel() + tables.lights.numel()) \
-            + (tables.tex.numel() if tables.has_tex else 0)
-        per_test = sum(
-            FLOPS_PER_TEST[k] * (e - s) for k, s, e in tables.ranges
-        ) / tables.table.shape[1]
-        flops = per_test * (need["closest_tests"] + need["shadow_tests"]) \
-            + FLOPS_PER_HIT_LANE * int(stats.hits[lv])
-        bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-        ops_ms = flops / PEAK_F32_FLOPS * 1e3
-        rows_out.append(dict(
-            case=name, lanes=n, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            bytes_ms=bytes_ms, operations_ms=ops_ms, needed_bytes=n_bytes,
-            needed=need, **res))
-        say("kernel_at_width", **rows_out[-1])
-        if not res["ok"]:
-            fail(f"kernel and plain version disagree at full width, {name}")
-    r0, r1 = rows_out
+        row = dict(case=f"level{lv}", lanes=n, plain_ms=plain_ms, needed=need, **res)
+        if lv in (0, deep):
+            ms = cuda_ms(lambda: W.wave_level(prev, fuzz[lv], tables), 5)
+            # Least work this call's data needs.  Bytes: every lane's act
+            # row read and its 13 output rows written (zeros for a dead
+            # lane); only a live lane's other 8 queue rows and 3 fuzz rows
+            # are read; the tables once.  Operations: G tests per live
+            # lane, the shadow tests up to each ray's first blocker, the
+            # shading of hit lanes.  With --fmad=false no multiply-add is
+            # fused, so the build can reach at best half the f32 peak on the
+            # operations part: fmad_false_floor_ms is twice operations_ms.
+            n_bytes = 4 * (n * (1 + W.OUT_ROWS) + need["live"] * (W.Q_ROWS - 1 + 3)) \
+                + 4 * (tables.table.numel() + tables.lights.numel()) \
+                + (tables.tex.numel() if tables.has_tex else 0)
+            per_test = sum(
+                FLOPS_PER_TEST[k] * (e - s) for k, s, e in tables.ranges
+            ) / tables.table.shape[1]
+            flops = per_test * (need["closest_tests"] + need["shadow_tests"]) \
+                + FLOPS_PER_HIT_LANE * int(stats.hits[lv])
+            bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+            ops_ms = flops / PEAK_F32_FLOPS * 1e3
+            row.update(ms=ms, bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                       bytes_ms=bytes_ms, operations_ms=ops_ms,
+                       fmad_false_floor_ms=max(bytes_ms, 2 * ops_ms), needed_bytes=n_bytes)
+        rows_out[lv] = row
+        say("kernel_at_width", level=lv, **row)
+        if not res["bitwise_equal"]:
+            fail(f"kernel and plain version are not bit-equal at full width, level {lv}")
+    r0, r1 = rows_out[0], rows_out[deep]
 
     # The same sources built with FMA contraction on, beside the package's
     # --fmad=false build: level 0 of that tile against the plain version,
@@ -1116,6 +1203,11 @@ def main():
     _build._lib = strict
     del plain0
     say("fma_variant", lanes=n, **variant)
+
+    # The redesign against the one-thread-per-lane schedule of the same
+    # stages (the kernel before the redesign), on one card in one run.
+    ab = wave_redesign_ab(rt, W, scene, tables, inputs, fuzz, opts, n_levels)
+    del inputs
     # ---- phase 7: the three brute kernels at the main path's width: the
     # 8,386,560 level-0 rays of that cube-heavy tile, and the tile's
     # level-0 shadow rays for the first light, as the general path casts
@@ -1262,7 +1354,7 @@ def main():
         "source": "ray_tracying_tpu_torch/csrc/wavefront.cu",
         "replaces": "ray_tracying_tpu/kernels/wavefront.py:211",
         "launches": launches,
-        "max_abs_err": max(r0["max_abs_err"], r1["max_abs_err"]),
+        "max_abs_err": max(r["max_abs_err"] for r in rows_out.values()),
         "ms": r0["ms"],
         "plain_ms": r0["plain_ms"],
         "bound_ms": r0["bound_ms"],
@@ -1275,6 +1367,11 @@ def main():
         "deep_plain_ms": r1["plain_ms"],
         "deep_bound_ms": r1["bound_ms"],
         "deep_bound_by": r1["bound_by"],
+        "fmad_false_floor_ms": r0["fmad_false_floor_ms"],
+        "lane_schedule_ms": sum(ab[0]["lane_ms"]) / 2,
+        "lane_schedule_deep_ms": sum(ab[deep]["lane_ms"]) / 2,
+        "blocks_per_sm": plan["blocks_per_sm"],
+        "smem_bytes": plan["smem_bytes"],
     }] + brute_entries + accel_entries}), flush=True)
 
     say("done", seconds=round(time.time() - t_start, 1))

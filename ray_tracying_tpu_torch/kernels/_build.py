@@ -101,15 +101,19 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
     pass them as 32-bit ints and cut the addresses."""
     lib = ctypes.CDLL(build(fmad))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wave_level_launch.argtypes = [
+    level = [
         p, p, p, p, p, p, p,                 # q fuzz table lights tex twh out
         ctypes.c_longlong, i, i, i,          # R G n_cols n_lights
         ctypes.POINTER(ctypes.c_int), i,     # ranges n_ranges
         i, i,                                # glossy has_tex
         i, i, i,                             # n_tex tex_h tex_w
-        ctypes.c_float, i, p,                # min_tp threads stream
+        ctypes.c_float,                      # min_tp
     ]
-    lib.wave_level_launch.restype = i
+    lib.wave_level_launch.argtypes = level + [p, p, p]        # ctr live stream
+    lib.wave_level_lane_launch.argtypes = level + [i, p]      # threads stream
+    lib.wave_level_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.wave_level_launch, lib.wave_level_lane_launch, lib.wave_level_plan):
+        fn.restype = i
     ranges = ctypes.POINTER(ctypes.c_int)
     lib.brute_closest_launch.argtypes = [
         p, p, p, p,                          # rays table t id

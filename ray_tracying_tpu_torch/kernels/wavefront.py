@@ -11,15 +11,21 @@ is also what the kernel is held against on the card.
 Replaces the TPU kernel `kernels/wavefront.py::_wave_kernel` (with
 `_any_hit`, called through `wave_level_call`) of the JAX package.
 
-What bounds it on an H100: operations, not bytes.  Per live lane the level
-costs G slab/quadratic tests for the closest hit plus up to n_lights * G
-more for the shadow rays (about 80 f32 operations each), against 9 + F
-rows of 4 bytes read and 13 written.  At the flagship's 142 geoms that is
-some 10^4 operations per 100 bytes, two orders above the card's
-operations-per-byte balance in plain f32.  The design therefore spends
-nothing on memory tricks: one thread per lane with coalesced row-major
-accesses, the whole table broadcast from shared memory, per-thread early
-exit from the shadow loops, and dead lanes retired before any arithmetic.
+What bounds it on an H100.  Level 0, where every lane is live: operations
+(G slab/quadratic tests a lane for the closest hit, up to n_lights * G more
+for its shadow rays, about 80 f32 operations each, against ~100 bytes a
+lane).  The deep levels, where under 1 % of lanes live: bytes (every lane's
+act read and its 13 rows written).  The kernel is built around that
+(csrc/wavefront.cu), one cooperative launch a level: persistent blocks that
+stage the table once; a scan that retires dead lanes with 16-byte zero
+stores and lists the live ones; after a grid barrier, chunks of that list
+spread over every block, each run on dense warps in three stages (closest
+hit without the normal, two lanes a thread, each transform read as three
+16-byte broadcasts; every shadow ray that matters queued and tested on
+dense warps; shading with a visibility bit per light).  Each lane's
+arithmetic is that of the plain version, so the two are bit-equal.
+`wave_level_lane` launches the one-thread-per-lane schedule of the same
+stages, to be measured against; nothing in the package calls it.
 
 Dataflow (row-major (rows, R) f32; lane i of row r at r * R + i):
 
@@ -73,13 +79,22 @@ HIT_ROW = 12  # act_hit
 OUT_ROWS = 13
 
 WAVE_MAX_LIGHTS = 8
-# Threads per block; one thread per ray lane.
+# Threads per block of the one-thread-per-lane schedule (wave_level_lane).
 WAVE_THREADS = 256
-# The block's copy of the shaded table and the light table live in dynamic
-# shared memory; above 48 KB the launcher opts in with
-# cudaFuncAttributeMaxDynamicSharedMemorySize, up to the 227 KB a block
-# can have on sm_90.  Larger scenes are refused by the wrapper.
+# A block of the level holds in dynamic shared memory its copy of the
+# shaded table and the light table, a list of live lanes and a queue of
+# shadow rays; the launcher opts in with
+# cudaFuncAttributeMaxDynamicSharedMemorySize, up to the 227 KB a block can
+# have on sm_90.  Larger scenes are refused by the gate.
 WAVE_MAX_SMEM_BYTES = 232448
+# The least staging list and shadow queue (entries) a block runs with, the
+# chunk of lanes it runs at once, and its header (csrc/wavefront.cu:
+# kListCapMin, kQueueCapMin, kChunk, kSmemHeader); the launcher takes a
+# larger list and queue where the table leaves room.
+WAVE_LIST_MIN = 1024
+WAVE_QUEUE_MIN = 256
+WAVE_CHUNK = 512
+_SMEM_HEADER = 256
 
 # Column offsets into the shaded table (kernels/geom_table.py).
 _M = GEOM_COLS  # first material column
@@ -117,9 +132,25 @@ def pack_tex_u8(scene: Scene):
 
 
 def wave_smem_bytes(n_geoms: int, n_cols: int, n_lights: int) -> int:
-    """Dynamic shared memory of one block of the level: its copy of the
-    shaded table and of the light table."""
-    return 4 * (n_cols * n_geoms + 8 * max(n_lights, 1))
+    """Least dynamic shared memory of one block of the level
+    (csrc/wavefront.cu::wave_layout): header, the staged shaded table and
+    light table, then 16-byte aligned a list of WAVE_LIST_MIN live lanes,
+    the winner and visibility bits of a chunk of WAVE_CHUNK (4 bytes each)
+    and a queue of WAVE_QUEUE_MIN shadow rays (32 bytes each)."""
+    tables = _SMEM_HEADER + 4 * (n_cols * n_geoms + 8 * max(n_lights, 1))
+    return (-(-tables // 16) * 16 + 4 * (WAVE_LIST_MIN + WAVE_CHUNK)
+            + 32 * WAVE_QUEUE_MIN)
+
+
+def wave_cap_geoms(n_cols: int, n_lights: int) -> int:
+    """The most geoms whose table the level takes (`wave_smem_bytes` within
+    WAVE_MAX_SMEM_BYTES)."""
+    g = (WAVE_MAX_SMEM_BYTES - wave_smem_bytes(0, n_cols, n_lights)) // (4 * n_cols)
+    while wave_smem_bytes(g + 1, n_cols, n_lights) <= WAVE_MAX_SMEM_BYTES:
+        g += 1
+    while wave_smem_bytes(g, n_cols, n_lights) > WAVE_MAX_SMEM_BYTES:
+        g -= 1
+    return g
 
 
 def wave_refusal(
@@ -517,8 +548,9 @@ def wave_level_plain(
     return torch.where(live[None, :], out, torch.zeros_like(out))
 
 
-def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no synchronization)."""
+def _level_args(out_prev, fuzz, tables: WaveTables, min_tp: float, out):
+    """The launchers' common arguments, after the checks of what the kernel
+    takes."""
     n_cols, g = tables.table.shape
     smem = wave_smem_bytes(g, n_cols, tables.n_lights)
     if smem > WAVE_MAX_SMEM_BYTES:
@@ -528,12 +560,13 @@ def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float) -> torch.Tensor:
         )
     if len(tables.ranges) > 3:
         raise NotImplementedError("more than three kind ranges")
+    if any(a[2] > b[1] for a, b in zip(tables.ranges, tables.ranges[1:])):
+        raise ValueError("the kind ranges must be in row order")
     for kind, _, _ in tables.ranges:
         if kind not in (KIND_SPHERE, KIND_CUBE, KIND_RECT):
             raise NotImplementedError(f"geom kind {kind} in the CUDA level")
-    lib = _build.load()
-    r = out_prev.shape[1]
-    out = torch.empty((OUT_ROWS, r), dtype=torch.float32, device=out_prev.device)
+    if tables.table.data_ptr() % 16:
+        raise ValueError("the shaded table must be 16-byte aligned (bulk copy)")
     flat = [x for rng in tables.ranges for x in rng]
     ranges = (ctypes.c_int * 9)(*(flat + [0] * (9 - len(flat))))
     if tables.has_tex:
@@ -542,28 +575,101 @@ def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float) -> torch.Tensor:
     else:
         n_tex = tex_h = tex_w = 0
         tex_ptr = twh_ptr = None
-    with torch.cuda.device(out_prev.device):
-        err = lib.wave_level_launch(
-            out_prev.data_ptr(),
-            fuzz.data_ptr() if tables.glossy else None,
-            tables.table.data_ptr(),
-            tables.lights.data_ptr(),
-            tex_ptr, twh_ptr,
-            out.data_ptr(),
-            r, g, n_cols, tables.n_lights,
-            ranges, len(tables.ranges),
-            int(tables.glossy), int(tables.has_tex),
-            n_tex, tex_h, tex_w,
-            float(min_tp), WAVE_THREADS,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    return (
+        out_prev.data_ptr(),
+        fuzz.data_ptr() if tables.glossy else None,
+        tables.table.data_ptr(),
+        tables.lights.data_ptr(),
+        tex_ptr, twh_ptr,
+        out.data_ptr(),
+        out_prev.shape[1], g, n_cols, tables.n_lights,
+        ranges, len(tables.ranges),
+        int(tables.glossy), int(tables.has_tex),
+        n_tex, tex_h, tex_w,
+        float(min_tp),
+    )
+
+
+def _raise_on(lib, err, what):
     if err != 0:
         raise RuntimeError(
-            f"wave_level kernel launch failed: CUDA error {err} "
+            f"{what} failed: CUDA error {err} "
             f"({lib.wave_error_string(err).decode()})"
         )
+
+
+# The kernel's work counters (five int32, zero between launches: the last
+# block of a launch zeroes them), one set per device and stream, so that
+# launches in flight at once never share one.
+_COUNTERS: dict = {}
+
+
+def _counters(device, stream: int) -> torch.Tensor:
+    key = (device, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(5, dtype=torch.int32, device=device)
+    return _COUNTERS[key]
+
+
+def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream (no synchronization)."""
+    out = torch.empty((OUT_ROWS, out_prev.shape[1]), dtype=torch.float32,
+                      device=out_prev.device)
+    args = _level_args(out_prev, fuzz, tables, min_tp, out)
+    lib = _build.load()
+    with torch.cuda.device(out_prev.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ctr = _counters(out_prev.device, stream)
+        # the launch's list of live lanes (scratch, no initial value)
+        live = torch.empty(out_prev.shape[1], dtype=torch.int32, device=out_prev.device)
+        err = lib.wave_level_launch(*args, ctr.data_ptr(), live.data_ptr(), stream)
+    _raise_on(lib, err, "wave_level kernel launch")
     wave_level.launches += 1
     return out
+
+
+def wave_plan(tables: WaveTables, device=None) -> dict:
+    """What the kernel launches with for this table on the current card:
+    list and queue capacities (entries), shared memory bytes of a block,
+    resident blocks per SM, SMs, threads per block."""
+    n_cols, g = tables.table.shape
+    lib = _build.load()
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device or tables.table.device):
+        err = lib.wave_level_plan(g, n_cols, tables.n_lights, out)
+    _raise_on(lib, err, "wave_level plan")
+    keys = ("list_cap", "queue_cap", "smem_bytes", "blocks_per_sm", "sms", "threads")
+    return dict(zip(keys, list(out)))
+
+
+def wave_level_lane(
+    out_prev: torch.Tensor,
+    fuzz: Optional[torch.Tensor],
+    tables: WaveTables,
+    min_tp: float = 0.0,
+) -> torch.Tensor:
+    """The same level by the one-thread-per-lane schedule
+    (csrc/wavefront.cu::wave_level_lane_kernel: every block stages the whole
+    table, one thread runs one lane's three stages).  Only for measuring the
+    package's kernel against it (chip_smoke.py); CUDA tensors only.
+    `wave_level_lane.launches` counts its launches apart from
+    `wave_level.launches`."""
+    if not out_prev.is_cuda:
+        raise ValueError("wave_level_lane runs on the card only")
+    _check_level_args(out_prev, fuzz, tables)
+    out = torch.empty((OUT_ROWS, out_prev.shape[1]), dtype=torch.float32,
+                      device=out_prev.device)
+    args = _level_args(out_prev, fuzz, tables, min_tp, out)
+    lib = _build.load()
+    with torch.cuda.device(out_prev.device):
+        err = lib.wave_level_lane_launch(
+            *args, WAVE_THREADS, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "wave_level_lane kernel launch")
+    wave_level_lane.launches += 1
+    return out
+
+
+wave_level_lane.launches = 0
 
 
 def wave_level(

@@ -2,13 +2,14 @@
 (chunk_stream.cu and the chunked brute kernel) and csrc/bvh_traverse.cu,
 checked without a GPU.
 
-The CUDA sources keep their per-lane functions (`rtt::wave_lane`,
-`rtt::closest_lane`, `rtt::occlusion_lane`, `rtt::sweep_lane`,
-`rtt::bvh_lane`) free of CUDA constructs, so a host C++ compiler builds
-them.  Here g++ compiles that
-function behind a ten-line loop over lanes, with FMA contraction off as in
-the nvcc build, and every level of a trace goes through it and through
-`wave_level_plain` on the same rays and fuzz rows.  This holds the two
+The CUDA sources keep their per-lane functions (`rtt::wave_lane` and the
+stages it composes, `rtt::closest_lane`, `rtt::occlusion_lane`,
+`rtt::sweep_lane`, `rtt::bvh_lane`) free of CUDA constructs, so a host C++
+compiler builds them.  Here g++ compiles each behind a short loop over
+lanes, with FMA contraction off as in the nvcc build, and every level of a
+trace goes through it and through `wave_level_plain` on the same rays and
+fuzz rows; the fused level's block schedule also runs from the same stage
+functions behind a host loop (HOST_BLOCKS).  This holds the two
 sources to the same arithmetic (the closest-hit and any-hit lane functions
 likewise go through seeded rays beside `brute_closest_plain`,
 `brute_closest_n_plain` and `occlusion_plain`, and the chunk sweep and the
@@ -163,6 +164,316 @@ def test_lane_function_mixed_mask(host_level):
     assert_same(a, b)
     assert not a[:, act <= 0].any()
     assert a[:, act > 0].any()
+
+
+# ---------------------------------------------------------------------------
+# The block schedule of csrc/wavefront.cu (wave_level_blocks_kernel), run
+# sequentially on the host from the same stage functions: scan steps of
+# kScanLanes lanes taken by the blocks in turn, dead lanes written at the
+# scan (16-byte stores where the rows allow), live lanes staged in each
+# block's list at its real capacity and flushed to the launch's list, then
+# that list in chunks: the hit stage (split over threads for a short
+# chunk), the shadow queue drained in rounds as it fills, the visibility
+# bits, the finish stage.  Threads of a block run one after another, in
+# thread order, which is the order the kernel's prefix sums give the list
+# and the queue.
+# ---------------------------------------------------------------------------
+
+HOST_BLOCKS = """
+#include "wavefront.cu"
+#include <algorithm>
+#include <vector>
+
+namespace {
+struct Counts { long long lists, drains, queued, max_queue; };
+
+void drain(const rtt::WaveParams& p, const rtt::TabS& tb, const rtt::WaveSmem& s, int n,
+           Counts& c) {
+  const int split = rtt::wave_split(n);
+  for (int q = 0; q < n; ++q) {
+    int e = 0, li = 0;
+    bool blocked = false;
+    for (int j = 0; j < split; ++j) blocked = rtt::queue_blocked(p, tb, s, q, j, split, e, li) || blocked;
+    if (blocked) s.list_meta[e] |= 1u << (16 + li);
+  }
+  c.drains += 1; c.queued += n;
+  if (n > c.max_queue) c.max_queue = n;
+}
+
+void run_list(const rtt::WaveParams& p, const rtt::TabS& tb, const rtt::WaveSmem& s, int n,
+              int queue_cap, Counts& c) {
+  const int T = rtt::kWaveThreads;
+  const int split = rtt::wave_split(n);
+  for (int e = 0; e < n && e < T; ++e) {
+    if (split == 1 && e + T < n) {  // a thread's two lanes side by side
+      rtt::hit_pair(p, tb, s, e, e + T);
+      continue;
+    }
+    for (int e1 = e; e1 < n; e1 += T) {
+      float t = rtt::kInf;
+      int row = -1;
+      for (int j = 0; j < split; ++j) {
+        float tj = rtt::kInf;
+        int rj = -1;
+        rtt::hit_entry(p, tb, s, e1, j, split, tj, rj);
+        rtt::merge_hit(t, row, tj, rj);
+      }
+      s.list_meta[e1] = rtt::meta_of(row);
+    }
+  }
+  int qn = 0;
+  for (int seg = 0; seg < n; seg += T) {
+    std::vector<rtt::WaveShade> sh(T);
+    std::vector<int> row(T, -1);
+    for (int t = 0; t < T && seg + t < n; ++t) {
+      row[t] = rtt::meta_row(s.list_meta[seg + t]);
+      if (row[t] >= 0) sh[t] = rtt::wave_shade(p, tb, (size_t)s.list_lane[seg + t], row[t]);
+    }
+    for (int li = 0; li < p.n_lights; ++li) {
+      if (qn + T > queue_cap) { drain(p, tb, s, qn, c); qn = 0; }
+      for (int t = 0; t < T; ++t) {
+        if (row[t] < 0) continue;
+        const rtt::LightTerm lt = rtt::light_term(sh[t], s.lights, p.n_lights, li);
+        if (lt.needs) rtt::queue_put(s, qn++, sh[t], lt, seg + t, li);
+      }
+    }
+  }
+  if (qn > 0) drain(p, tb, s, qn, c);
+  for (int e = 0; e < n; ++e) rtt::finish_entry(p, tb, s, e);
+  c.lists += 1;
+}
+}  // namespace
+
+extern "C" void wave_level_blocks_host(
+    const float* q, const float* fuzz, const float* table, const float* lights,
+    const uint8_t* tex, const float* twh, float* out,
+    long long R, int G, int n_cols, int n_lights,
+    const int* ranges, int n_ranges, int glossy, int has_tex,
+    int n_tex, int tex_h, int tex_w, float min_tp,
+    int n_blocks, int list_cap, int queue_cap, long long* counts) {
+  const rtt::WaveParams p = rtt::make_params(
+      q, fuzz, table, lights, tex, twh, out, R, G, n_cols, n_lights, ranges,
+      n_ranges, glossy, has_tex, n_tex, tex_h, tex_w, min_tp);
+  const rtt::WaveLayout lay = rtt::wave_layout(G, n_cols, n_lights, list_cap, queue_cap);
+  const int T = rtt::kWaveThreads;
+  // one shared memory per block; blocks take scan steps in turn
+  std::vector<std::vector<rtt::F4>> bufs(n_blocks, std::vector<rtt::F4>(lay.bytes / sizeof(rtt::F4) + 1));
+  std::vector<rtt::WaveSmem> smem;
+  for (auto& b : bufs) smem.push_back(rtt::wave_smem(reinterpret_cast<unsigned char*>(b.data()), lay));
+  std::vector<int> n_list(n_blocks, 0);
+  std::vector<int> live;  // the launch's list
+  const long long n_steps = (R + rtt::kScanLanes - 1) / rtt::kScanLanes;
+  for (long long step = 0; step < n_steps; ++step) {
+    const int b = (int)(step % n_blocks);
+    const rtt::WaveSmem& s = smem[b];
+    std::vector<unsigned> live4(T);
+    int total = 0;
+    for (int t = 0; t < T; ++t) {
+      live4[t] = rtt::scan_group(p, step * rtt::kScanLanes + 4 * t);
+      total += __builtin_popcount(live4[t]);
+    }
+    if (n_list[b] + total > list_cap) {
+      live.insert(live.end(), s.list_lane, s.list_lane + n_list[b]);
+      n_list[b] = 0;
+    }
+    for (int t = 0; t < T; ++t)
+      for (int j = 0; j < 4; ++j)
+        if ((live4[t] >> j) & 1u) s.list_lane[n_list[b]++] = (int)(step * rtt::kScanLanes + 4 * t + j);
+  }
+  for (int b = 0; b < n_blocks; ++b) live.insert(live.end(), smem[b].list_lane, smem[b].list_lane + n_list[b]);
+  // chunks of the whole list, each by one block with the table staged
+  const rtt::WaveSmem& s = smem[0];
+  for (int k = 0; k < 3 * G; ++k) s.xf4[k] = rtt::staged_xf(table, G, k);
+  for (int k = 0; k < (n_cols - 12) * G; ++k) s.rest[k] = table[12 * G + k];
+  for (int k = 0; k < 8 * n_lights; ++k) s.lights[k] = lights[k];
+  const rtt::TabS tb{s.xf4, s.rest, G};
+  Counts c = {0, 0, 0, 0};
+  const size_t chunk = (size_t)rtt::wave_chunk((long long)live.size(), n_blocks);
+  for (size_t first = 0; first < live.size(); first += chunk) {
+    const int n = (int)std::min<size_t>(chunk, live.size() - first);
+    for (int k = 0; k < n; ++k) s.list_lane[k] = live[first + k];
+    run_list(p, tb, s, n, queue_cap, c);
+  }
+  counts[0] = c.lists; counts[1] = c.drains; counts[2] = c.queued; counts[3] = c.max_queue;
+}
+
+// wave_plan: list and queue capacities and bytes a block takes within `limit`.
+extern "C" void wave_plan_host(int G, int n_cols, int n_lights, long long limit, long long* out) {
+  int list_cap, queue_cap;
+  out[2] = (long long)rtt::wave_plan(G, n_cols, n_lights, (size_t)limit, list_cap, queue_cap).bytes;
+  out[0] = list_cap; out[1] = queue_cap;
+  out[3] = rtt::kWaveThreads; out[4] = rtt::kListCapMin; out[5] = rtt::kQueueCapMin;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_blocks(tmp_path_factory):
+    """`wave_level`'s signature over the g++ build of the block schedule;
+    the level also takes the grid, the capacities and a dict that receives
+    what the schedule did (chunks run, queue drains, rays queued, the
+    fullest drain).  Capacities default to what the kernel takes for the
+    table."""
+    d = tmp_path_factory.mktemp("wave_blocks")
+    src, out = str(d / "wave_blocks.cpp"), str(d / "libwave_blocks.so")
+    with open(src, "w") as f:
+        f.write(HOST_BLOCKS)
+    subprocess.run(
+        ["g++", "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-I", CSRC,
+         "-shared", "-fPIC", "-o", out, src],
+        check=True,
+    )
+    lib = ctypes.CDLL(out)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.wave_level_blocks_host.argtypes = [
+        p, p, p, p, p, p, p, ll, i, i, i,
+        ctypes.POINTER(ctypes.c_int), i, i, i, i, i, i, ctypes.c_float,
+        i, i, i, ctypes.POINTER(ll),
+    ]
+    lib.wave_plan_host.argtypes = [i, i, i, ll, ctypes.POINTER(ll)]
+    lib.wave_level_blocks_host.restype = lib.wave_plan_host.restype = None
+
+    def plan(g, n_cols, n_lights, limit=W.WAVE_MAX_SMEM_BYTES):
+        res = (ll * 6)()
+        lib.wave_plan_host(g, n_cols, n_lights, limit, res)
+        return dict(zip(("list_cap", "queue_cap", "bytes", "threads", "list_min",
+                         "queue_min"), list(res)))
+
+    def level(out_prev, fuzz, tables, min_tp=0.0, n_blocks=3, list_cap=None,
+              queue_cap=None, counts=None):
+        r = out_prev.shape[1]
+        n_cols, g = tables.table.shape
+        chosen = plan(g, n_cols, tables.n_lights)
+        out = torch.full((W.OUT_ROWS, r), float("nan"), dtype=torch.float32)
+        flat = [x for rng in tables.ranges for x in rng]
+        ranges = (ctypes.c_int * 9)(*(flat + [0] * (9 - len(flat))))
+        if tables.has_tex:
+            n_tex, th, tw, _ = tables.tex.shape
+            tex, twh = tables.tex.data_ptr(), tables.twh.data_ptr()
+        else:
+            n_tex = th = tw = 0
+            tex = twh = None
+        did = (ll * 4)()
+        lib.wave_level_blocks_host(
+            out_prev.data_ptr(), fuzz.data_ptr() if tables.glossy else None,
+            tables.table.data_ptr(), tables.lights.data_ptr(), tex, twh,
+            out.data_ptr(), r, g, n_cols, tables.n_lights, ranges,
+            len(tables.ranges), int(tables.glossy), int(tables.has_tex),
+            n_tex, th, tw, float(min_tp), n_blocks,
+            list_cap or chosen["list_cap"], queue_cap or chosen["queue_cap"], did,
+        )
+        if counts is not None:
+            counts.update(zip(("lists", "drains", "queued", "max_queue"), list(did)))
+        return out
+
+    level.plan = plan
+    return level
+
+
+@pytest.mark.parametrize("path,rows,spp_sqrt", [
+    ("scenes/bvh_glossy.json", 3, 2),
+    ("golden/ASCII/scene.json", 1, 1),
+    ("scenes/glossy.json", 3, 2),
+    ("scenes/det_mirrors.json", 3, 2),
+])
+def test_block_schedule_equals_plain_on_every_level(host_blocks, path, rows, spp_sqrt):
+    """Every level of a trace through the block schedule (three blocks,
+    the kernel's capacities) against wave_level_plain; every output row is
+    written (the host buffer starts as NaN)."""
+    scene, o, d, tm, fuzz = scene_and_rays(path, rows, spp_sqrt, seed=0)
+    common = dict(fuzz=fuzz, device="cpu", return_levels=True)
+    _, plain = trace_wavefront(scene, o, d, tm, level_fn=W.wave_level_plain, **common)
+    _, host = trace_wavefront(scene, o, d, tm, level_fn=host_blocks, **common)
+    assert len(host) == len(plain) == 11
+    assert int((plain[0][7] > 0).sum()) > 0
+    for a, b in zip(host, plain):
+        assert not torch.isnan(a).any()
+        assert_same(a, b)
+
+
+def block_case(act, seed=1, rows=2):
+    """(tables, bootstrap tensor with the given act row, fuzz) on
+    bvh_glossy (cubes + rect, two lights, textured, glossy); the width is
+    act's, rays repeated as needed."""
+    scene, o, d, tm, fuzz = scene_and_rays("scenes/bvh_glossy.json", rows, 1, seed=seed)
+    n = act.shape[0]
+    idx = torch.arange(n) % o.shape[0]
+    boot = torch.cat([o[idx].T, d[idx].T, tm[idx][None], act[None],
+                      torch.ones((1, n))]).contiguous()
+    return W.wave_tables(scene), boot, fuzz[0][:, idx].contiguous()
+
+
+def random_act(n, share, seed):
+    return torch.from_numpy((np.random.default_rng(seed).random(n) < share).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", [
+    "mixed_mask", "all_dead", "live_not_multiple_of_32", "ragged_width_odd",
+    "ragged_width_vec4",
+])
+def test_block_schedule_tiles(host_blocks, case):
+    """The scan's edge cases against wave_level_plain: a random mask (dead
+    and live lanes in every warp), an all-dead tile (no list runs, every
+    row zero), a live count that is not a multiple of 32, and widths that
+    are not a multiple of the scan step, with and without 16-byte rows."""
+    n = {"ragged_width_odd": 3 * 1024 + 517, "ragged_width_vec4": 4 * 1024 + 36}.get(case, 3000)
+    if case == "all_dead":
+        act = torch.zeros(n)
+    elif case == "live_not_multiple_of_32":
+        act = torch.zeros(n)
+        act[torch.from_numpy(np.random.default_rng(3).choice(n, 37, replace=False))] = 1.0
+    else:
+        act = random_act(n, 0.5, seed=2)
+    tables, boot, fz = block_case(act)
+    counts = {}
+    a = host_blocks(boot, fz, tables, counts=counts)
+    b = W.wave_level_plain(boot, fz, tables)
+    assert_same(a, b)
+    assert not a[:, act <= 0].any()
+    if case == "all_dead":
+        assert counts["lists"] == 0 and not a.any()
+    else:
+        assert a[:, act > 0].any() and counts["lists"] >= 1
+    if case == "live_not_multiple_of_32":   # three short chunks (13, 13, 11), split
+        assert int((act > 0).sum()) % 32 and counts["lists"] == 3
+
+
+def test_block_schedule_shadow_queue_fills_in_rounds(host_blocks):
+    """All lanes live, the least capacities (a staging list of one scan
+    step, a queue of one ray a thread): the queue is drained several times
+    per chunk, and the visibility bits still land on the right lanes and
+    lights."""
+    n = 4 * 1024 + 300
+    tables, boot, fz = block_case(torch.ones(n), seed=4, rows=4)
+    plan = host_blocks.plan(*tables.table.shape[::-1], tables.n_lights)
+    counts = {}
+    a = host_blocks(boot, fz, tables, n_blocks=2, list_cap=plan["list_min"],
+                    queue_cap=plan["queue_min"], counts=counts)
+    b = W.wave_level_plain(boot, fz, tables)
+    assert_same(a, b)
+    assert counts["drains"] > counts["lists"] >= 4
+    assert counts["max_queue"] <= plan["queue_min"]
+    # the same level with the preferred capacities: fewer, fuller drains
+    again = {}
+    assert_same(host_blocks(boot, fz, tables, n_blocks=2, counts=again), b)
+    assert again["drains"] < counts["drains"]
+
+
+def test_smem_formula_is_the_kernels(host_blocks):
+    """kernels/wavefront.py::wave_smem_bytes is the layout of
+    csrc/wavefront.cu at its least capacities, the kernel takes the
+    preferred ones where they fit, and the cap in geoms sits at the edge."""
+    for g, n_cols, lights in [(0, 31, 1), (141, 32, 2), (1000, 31, 8), (1700, 32, 3)]:
+        least = host_blocks.plan(g, n_cols, lights, limit=0)
+        assert least["list_cap"] == W.WAVE_LIST_MIN and least["queue_cap"] == W.WAVE_QUEUE_MIN
+        assert least["bytes"] == W.wave_smem_bytes(g, n_cols, lights)
+        assert host_blocks.plan(g, n_cols, lights, limit=least["bytes"]) == least
+        big = host_blocks.plan(g, n_cols, lights, limit=10 ** 9)
+        assert big["list_cap"] > least["list_cap"] and big["bytes"] > least["bytes"]
+    for n_cols in (31, 32):
+        cap = W.wave_cap_geoms(n_cols, 2)
+        assert W.wave_smem_bytes(cap, n_cols, 2) <= W.WAVE_MAX_SMEM_BYTES
+        assert W.wave_smem_bytes(cap + 1, n_cols, 2) > W.WAVE_MAX_SMEM_BYTES
 
 
 # ---------------------------------------------------------------------------

@@ -437,6 +437,38 @@ def test_gate_refuses_committed_scenes_by_name():
                 wf.wave_supported(st)
 
 
+def test_gate_keeps_every_fused_scene_under_the_kernels_shared_memory(monkeypatch):
+    """The size gate reads the level kernel's own shared memory (table,
+    lights, the staging list, a chunk's bits and the shadow queue): every
+    committed scene, the flagship and the zoo's large scenes keep the path
+    they had when the gate counted the table and the lights alone, and the
+    largest table it takes stays within 10 % of what that formula allowed."""
+    from ray_tracying_tpu_torch import models
+
+    def refusals():
+        out = {}
+        for path in sorted(os.listdir(os.path.join(REPO, "scenes"))) + ["flagship"]:
+            full = (os.path.join(REPO, "golden", "ASCII", "scene.json") if path == "flagship"
+                    else os.path.join(REPO, "scenes", path))
+            out[path] = wf.wave_refusal(rt.load_scene(full, textures_dir=TEX, device="cpu"))
+        for name, n in (("cube_city", 2048), ("sphere_field", 20000)):
+            out[name] = wf.wave_refusal(models.get(name, n=n, res=(8, 6), device="cpu"))
+        return out
+
+    new = refusals()
+    with monkeypatch.context() as m:
+        m.setattr(wf, "wave_smem_bytes", lambda g, c, lights: 4 * (c * g + 8 * max(lights, 1)))
+        old = refusals()
+    assert len(new) == 13 and new.keys() == old.keys()
+    assert {k: v is None for k, v in new.items()} == {k: v is None for k, v in old.items()}
+    assert new["flagship"] is None and "shaded table" in new["cube_city"]
+    for n_cols in (31, 32):
+        for lights in (1, 2, 8):
+            old_cap = (wf.WAVE_MAX_SMEM_BYTES // 4 - 8 * lights) // n_cols
+            cap = wf.wave_cap_geoms(n_cols, lights)
+            assert 0.9 * old_cap <= cap < old_cap
+
+
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     """The wrapper's dispatch: a CUDA tensor goes to the launcher (which
     builds the kernel or raises), never to wave_level_plain."""
