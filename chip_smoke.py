@@ -14,7 +14,12 @@ kernels from the sources of this checkout, holds each kernel against its
 plain PyTorch version on the card (the fused level bit for bit on every
 level of a full-width flagship tile), measures the fused level's kernel
 against the one-thread-per-lane schedule of the same stages in turns
-(phase wave_redesign_ab: per level, and one flagship frame each, byte-equal),
+(phase wave_redesign_ab: per level, and one flagship frame each, byte-equal)
+and the warp schedule of chunk_closest_n and chunk_occlusion against the
+one-thread-per-lane sweep it replaced (phase sweep_redesign_ab: level-0,
+level-1 and shadow rays of the 20,001-geom scene, bit-equal; phase
+accel_tile_breakdown: every chunk-kernel launch of one frame by each
+schedule, the frames byte-equal),
 checks twelve images against the reference renderer's goldens, and prints
 one JSON line per phase.  Any failure exits non-zero; nothing is caught.
 
@@ -307,9 +312,10 @@ def general_frame(rt, scene, opts, tile_rows, gen):
 
 def accel_kernels(CH, CS, BT, scene):
     """The six kernels of the acceleration path on `scene` (which carries
-    chunks and a BVH), each as (kernel call, plain call): both take the
-    (8, R) rays, or ((8, R) shadow rays, maxt) for the any-hit, and the
-    plain call also a dict for its counts of needed tests."""
+    chunks and a BVH), each as (kernel call, plain call[, the kernel by the
+    one-thread-per-lane schedule it replaced]): all take the (8, R) rays, or
+    ((8, R) shadow rays, maxt) for the any-hit, and the plain call also a
+    dict for its counts of needed tests."""
     g = scene.n_geoms
     chunks = (scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms, g)
     bvh = (scene.bvh_geoms, scene.bvh_nodes_box, scene.bvh_nodes_topo,
@@ -334,10 +340,14 @@ def accel_kernels(CH, CS, BT, scene):
             lambda r, need: CS.chunk_closest_plain(r, *chunks, mo, stats=need)),
         "chunk_closest_n": (
             lambda r: CS.chunk_closest_n(r, *chunks, mo),
-            lambda r, need: CS.chunk_closest_n_plain(r, *chunks, mo, stats=need)),
+            lambda r, need: CS.chunk_closest_n_plain(r, *chunks, mo, stats=need),
+            lambda r: CS.chunk_sweep_variant("chunk_closest_n", r, None, *chunks, mo,
+                                             schedule="lane")),
         "chunk_occlusion": (
             lambda rm: CS.chunk_occlusion(rm[0], rm[1], *chunks),
-            lambda rm, need: CS.chunk_occlusion_plain(rm[0], rm[1], *chunks, stats=need)),
+            lambda rm, need: CS.chunk_occlusion_plain(rm[0], rm[1], *chunks, stats=need),
+            lambda rm: CS.chunk_sweep_variant("chunk_occlusion", rm[0], rm[1], *chunks,
+                                              schedule="lane")),
         "bvh_closest": (
             lambda r: BT.bvh_closest(r, *bvh, mo),
             lambda r, need: BT.bvh_closest_plain(r, *bvh, mo, stats=need)),
@@ -351,7 +361,7 @@ def accel_vs_plain(kernels, case, rays, shadow, names=None):
     blocked).  Returns {name: result dict with the plain version's ms and
     its counts of needed tests}."""
     out = {}
-    for name, (fn, plain) in kernels.items():
+    for name, (fn, plain, *lane) in kernels.items():
         if names is not None and name not in names:
             continue
         arg = shadow if name == "chunk_occlusion" else rays
@@ -366,6 +376,12 @@ def accel_vs_plain(kernels, case, rays, shadow, names=None):
         plain_ms = (time.time() - t0) * 1e3
         b = b if isinstance(b, tuple) else (b,)
         equal = [bool(torch.equal(x, y)) for x, y in zip(a, b)]
+        if lane:
+            # the schedule it replaced, on the same rays: new = old = plain
+            c = lane[0](arg)
+            c = c if isinstance(c, tuple) else (c,)
+            equal += [bool(torch.equal(x, y)) for x, y in zip(c, b)]
+            del c
         if name == "chunk_occlusion":
             err = float((a[0] != b[0]).sum() > 0)
             found = dict(blocked=int(b[0].sum()),
@@ -377,6 +393,7 @@ def accel_vs_plain(kernels, case, rays, shadow, names=None):
             found = dict(hits=int((b[1] >= 0).sum()),
                          other_winner_lanes=int((a[1] != b[1]).sum()))
         out[name] = dict(case=case, kernel=name, lanes=lanes, bitwise_equal=all(equal),
+                         old_schedule_checked=bool(lane),
                          max_abs_err=err, plain_ms=plain_ms, needed=need, **found)
         say("accel_vs_plain", **out[name])
         if not all(equal):
@@ -491,6 +508,149 @@ def accel_frame(rt, scene, opts, seed, dev):
 
 
 
+def anyhit_at_width(CH, scene, shadow, idx, case):
+    """occlusion_any on a scene under the cap at full width: against its
+    plain version on the strided sample `idx` (bit-equal, and the tests to
+    each ray's first blocker, scaled to the live lanes of the full width),
+    ms by CUDA events, bound."""
+    table, ranges = CH.scene_table(scene)
+    rays, maxt = shadow
+    sub = (rays[:, idx].contiguous(), maxt[idx].contiguous())
+    a = CH.occlusion_any(*sub, table, ranges)
+    need = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    b = CH.occlusion_plain(*sub, table, ranges, stats=need)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    if not torch.equal(a, b):
+        fail(f"occlusion_any and its plain version disagree on {case}")
+    n, g = rays.shape[1], scene.n_geoms
+    live = int((rays[7] > 0).sum())
+    ms = cuda_ms(lambda: CH.occlusion_any(rays, maxt, table, ranges), 2)
+    row = dict(case=case, kernel="occlusion_any", lanes=n, live=live, geoms=g, ms=ms,
+               plain_ms=plain_ms, plain_lanes=sub[0].shape[1], blocked_in_sample=int(b.sum()),
+               **brute_bound(n, live, need["tests"] * live / max(need["live"], 1), ranges, g,
+                             7, 1))
+    say("accel_at_width", **row)
+    return row
+
+
+def sweep_plan_phase(CS, _build, scene):
+    """Phase sweep_plan: what ptxas reports for the warp schedule's kernels
+    and the plan each launches with on this card for `scene`'s chunk table."""
+    report, inside = [], False
+    for ln in _build.last_build["log"].splitlines():
+        if "entry function" in ln:
+            inside = "sweep_warp_kernel" in ln
+        if inside:
+            report.append(ln.strip())
+    g, chunk = scene.n_geoms, scene.chunk_geoms.shape[0] // scene.chunk_boxes.shape[0]
+    plans = {name: CS.chunk_sweep_plan(name, g, chunk)
+             for name in ("chunk_closest_n", "chunk_occlusion")}
+    say("sweep_plan", kernel="sweep_warp_kernel", ptxas=report, geoms=g, chunk=chunk,
+        chunks=scene.chunk_boxes.shape[0], **plans)
+    if _build.last_build["compiled"] and not report:
+        fail("ptxas reported nothing for sweep_warp_kernel")
+    return plans
+
+
+def sweep_redesign_ab(CS, scene, sets):
+    """Phase sweep_redesign_ab: chunk_closest_n and chunk_occlusion by the
+    package's warp schedule against the one-thread-per-lane schedule they
+    replaced, on the same full-width inputs: sets = {label: (kernel name,
+    rays, maxt or None)}.  Outputs torch.equal; ms by CUDA events in turns
+    (lane, warp, warp, lane); what each schedule ran, from its counting
+    build (geom and box tests a live lane, and the share of the warps' lane
+    slots that ran a test).  Returns the rows by label."""
+    chunks = (scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms, scene.n_geoms)
+    rows = {}
+    for label, (name, rays, maxt) in sets.items():
+        mo = scene.has_motion if maxt is None else False
+
+        def call(schedule="warp", work=None):
+            return CS.chunk_sweep_variant(name, rays, maxt, *chunks, mo, schedule=schedule,
+                                          work=work)
+
+        outs = [call(), call(schedule="lane")]
+        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+        equal = all(bool(torch.equal(x, y)) for x, y in zip(*outs))
+        del outs
+        t = {}
+        for turn, sched in (("lane", "lane"), ("warp", "warp"), ("warp_again", "warp"),
+                            ("lane_again", "lane")):
+            t[turn] = cuda_ms(lambda: call(sched), 2)
+        live = int((rays[7] > 0).sum())
+        ran = {}
+        for sched in ("warp", "lane"):
+            work = torch.zeros(3, dtype=torch.int64, device=rays.device)
+            call(schedule=sched, work=work)
+            tests, boxes, slots = work.tolist()
+            ran[sched] = dict(tests_per_live_lane=tests / max(live, 1),
+                              box_tests_per_live_lane=boxes / max(live, 1),
+                              lane_slots_used=tests / max(slots, 1))
+        rows[label] = dict(case=label, kernel=name, lanes=rays.shape[1], live=live,
+                           lane_ms=[t["lane"], t["lane_again"]],
+                           warp_ms=[t["warp"], t["warp_again"]],
+                           ran=ran, warp_equals_lane=equal)
+        say("sweep_redesign_ab", **rows[label])
+        if not equal:
+            fail(f"the schedules of {name} differ on {label}")
+    return rows
+
+
+def accel_tile_breakdown(CS, rt, bare, dev, schedule):
+    """Phase accel_tile_breakdown: one untextured frame of `bare` (one tile)
+    through render_to_srgb_u8, every chunk_closest_n and chunk_occlusion
+    launch timed by CUDA events, level by level with its live lanes; the
+    chunk kernels by `schedule` ("warp", the package's, or "lane").
+    Returns (image, row)."""
+    real = {name: getattr(CS, name) for name in ("chunk_closest_n", "chunk_occlusion")}
+    real_launch = CS._launch
+    rec = []
+
+    def timed(name):
+        def run(rays, *args):
+            if name == "chunk_closest_n":
+                timed.level += 1
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[name](rays, *args)
+            end.record()
+            rec.append((timed.level, name, start, end, (rays[7] > 0).sum()))
+            return out
+        # the wrapper counts its launches in the module's name, this one
+        run.launches = real[name].launches
+        return run
+
+    timed.level = -1
+    for name in real:
+        setattr(CS, name, timed(name))
+    if schedule == "lane":
+        CS._launch = lambda *a: real_launch(*a, schedule="lane")
+    try:
+        img, seconds = accel_frame(rt, bare, rt.RenderOptions(samples_sqrt=2), 5, dev)
+    finally:
+        for name, fn in real.items():
+            fn.launches = getattr(CS, name).launches
+            setattr(CS, name, fn)
+        CS._launch = real_launch
+    launches = [dict(level=lv, kernel=name, live=int(n_live), ms=s.elapsed_time(e))
+                for lv, name, s, e, n_live in rec]
+    total = sum(x["ms"] for x in launches)
+    row = dict(scene="sphere_field", schedule=schedule, frame_seconds=seconds,
+               chunk_kernel_ms=total, chunk_kernel_share=total / 1e3 / seconds,
+               closest_n_ms=sum(x["ms"] for x in launches if x["kernel"] == "chunk_closest_n"),
+               occlusion_ms=sum(x["ms"] for x in launches if x["kernel"] == "chunk_occlusion"),
+               launches=launches)
+    say("accel_tile_breakdown", **row)
+    if [x["kernel"] for x in launches].count("chunk_closest_n") != timed.level + 1 or \
+            len(launches) != (1 + bare.n_lights) * (timed.level + 1):
+        fail(f"the frame launched {len(launches)} chunk kernels over {timed.level + 1} levels")
+    return img, row
+
+
 def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
     """Phases accel_vs_plain, accel_at_width and accel_path: the five
     kernels of the acceleration path (and the normal-carrying traversal)
@@ -499,6 +659,7 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
     stride of the sample the plain versions run on, rows of the strip the
     chunkless trace runs on.  Returns the kernels' entries for the
     `kernels` line."""
+    from ray_tracying_tpu_torch.kernels import _build
     from ray_tracying_tpu_torch.kernels import closest_hit as CH
     from ray_tracying_tpu_torch.kernels import wavefront as W
     from ray_tracying_tpu_torch.render import integrator as G
@@ -569,8 +730,11 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
     if not (acc["sphere_field"]["full"].n_geoms > CH.BRUTE_SMEM_MAX_GEOMS
             >= acc["cube_city"]["full"].n_geoms):
         fail("the two scenes do not straddle the shared-memory cap")
+    sweep_plans = sweep_plan_phase(CS, _build, acc["sphere_field"]["full"])
 
     at_width = {}
+    ab_sets = {}
+    city_anyhit = None
     for sname in ("sphere_field", "cube_city"):
         full = acc[sname]["full"]
         big = full.n_geoms > CH.BRUTE_SMEM_MAX_GEOMS
@@ -580,20 +744,22 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
         n_acc = o.shape[0]
         rays0 = CH.pack_rays(o, d, tm)
         cast = []
-        if big:
-            real = I.occluded_tid_chunks
+        # the level-0 shadow rays as the path casts them: the chunk sweep
+        # over the cap, the brute any-hit under it
+        entry = "occluded_tid_chunks" if big else "occluded_tid"
+        real = getattr(I, entry)
 
-            def recording(scene_, so, sd, maxt, active=None):
-                cast.append((CH.pack_rays(so, sd, torch.zeros_like(maxt), active),
-                             maxt.contiguous()))
-                return real(scene_, so, sd, maxt, active)
+        def recording(scene_, so, sd, maxt, active=None):
+            cast.append((CH.pack_rays(so, sd, torch.zeros_like(maxt), active),
+                         maxt.contiguous()))
+            return real(scene_, so, sd, maxt, active)
 
-            I.occluded_tid_chunks = recording
-            trace_wavefront(full, o, d, tm, generator=gen, fused=False, max_depth=0,
-                            device=dev)
-            I.occluded_tid_chunks = real
-            if len(cast) != full.n_lights:  # one level, one launch a light
-                fail("one level of the path did not cast one any-hit launch per light")
+        setattr(I, entry, recording)
+        trace_wavefront(full, o, d, tm, generator=gen, fused=False, max_depth=0,
+                        device=dev)
+        setattr(I, entry, real)
+        if len(cast) != full.n_lights:  # one level, one launch a light
+            fail("one level of the path did not cast one any-hit launch per light")
         o1, d1, tm1, act1 = level1_rays(G, I, CH, full, o, d, tm)
         rays1 = CH.pack_rays(o1, d1, tm1, act1)
         kernels = accel_kernels(CH, CS, BT, full)
@@ -601,6 +767,13 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
                   "chunk_occlusion", "bvh_closest", "bvh_closest_n"] if big
                  else ["bvh_closest", "bvh_closest_n"])
         idx = torch.arange(0, n_acc, sizes["stride"], device=dev)
+        if big:
+            ab_sets = {"level 0": ("chunk_closest_n", rays0, None),
+                       "level 1": ("chunk_closest_n", rays1, None),
+                       "level-0 shadow rays of light 0": ("chunk_occlusion", *cast[0])}
+        else:
+            city_anyhit = anyhit_at_width(CH, full, cast[0], idx,
+                                          f"{sname}, level-0 shadow rays of light 0")
         for level, rays_l in (("level 0", rays0), ("level 1", rays1)):
             case = f"{sname}, {level} rays of the full-width tile"
             shadow = cast[0] if big and level == "level 0" else None
@@ -650,6 +823,12 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
             del plain_t, sorted_t
         del o, d, tm, o1, d1, tm1, act1, rays0, rays1, cast, kernels
         torch.cuda.empty_cache()
+
+    # The redesigned sweeps against the schedule they replaced, on the same
+    # full-width inputs of sphere_field.
+    ab = sweep_redesign_ab(CS, acc["sphere_field"]["full"], ab_sets)
+    del ab_sets
+    torch.cuda.empty_cache()
 
     # ---- phase 10: this slice's path at full width, through
     # models.get -> render_to_srgb_u8, counts set to 0 just before.
@@ -727,6 +906,19 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
         fail("cube_city with and without use_bvh differ")
     if np.array_equal(frames["sphere_field"], frames["sphere_field_textured"]):
         fail("the texture left the sphere_field frame as it was")
+    # One untextured sphere_field frame (the seed of the frames above) with
+    # each schedule of the two redesigned sweeps, every chunk-kernel launch
+    # timed: the sweep's share of the frame before and after; the bytes
+    # equal to each other and to the frame above.
+    breakdown = {}
+    for schedule in ("lane", "warp"):
+        img, breakdown[schedule] = accel_tile_breakdown(
+            CS, rt, acc["sphere_field"]["bare"], dev, schedule)
+        if not np.array_equal(img, frames["sphere_field"]):
+            fail(f"the sphere_field frame with the {schedule} schedule differs")
+    say("sweep_redesign_ab", scene="sphere_field", frames_bytes_equal=True,
+        frame_lane_seconds=breakdown["lane"]["frame_seconds"],
+        frame_warp_seconds=breakdown["warp"]["frame_seconds"])
     del frames
 
     # bvh_det (textured: the (t, id) traversal, then pass 2) with use_bvh
@@ -821,10 +1013,27 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
                           f"at {res_w}x{res_h}, 2x2 spp; plain_ms and the needed tests behind "
                           f"bound_ms are of every {sizes['stride']}th of these rays",
         })
+        if name in ("chunk_closest_n", "chunk_occlusion"):
+            label = "level 0" if name == "chunk_closest_n" else "level-0 shadow rays of light 0"
+            r_ab = ab[label]
+            accel_entries[-1].update(
+                old_schedule_ms=sum(r_ab["lane_ms"]) / 2,
+                tests_per_live_lane=r_ab["ran"]["warp"]["tests_per_live_lane"],
+                old_schedule_tests_per_live_lane=r_ab["ran"]["lane"]["tests_per_live_lane"],
+                **sweep_plans[name])
+            if name == "chunk_closest_n":
+                r1 = at_width[(scene_key, "level 1")][name]
+                accel_entries[-1].update(
+                    level1_ms=r1["ms"], level1_bound_ms=r1["bound_ms"],
+                    level1_old_schedule_ms=sum(ab["level 1"]["lane_ms"]) / 2)
+            accel_entries[-1]["frame_ms_all_launches"] = breakdown["warp"][
+                "closest_n_ms" if name == "chunk_closest_n" else "occlusion_ms"]
+            accel_entries[-1]["frame_ms_all_launches_old_schedule"] = breakdown["lane"][
+                "closest_n_ms" if name == "chunk_closest_n" else "occlusion_ms"]
         if not accel_entries[-1]["launches"]:
             fail(f"the acceleration path never launched {name}")
 
-    return accel_entries
+    return accel_entries, city_anyhit
 
 
 def wave_plan_phase(W, _build, tables, scene):
@@ -936,9 +1145,12 @@ def main():
     ptxas = [ln.strip() for ln in _build.last_build["log"].splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     # wave_level (blocks) and its one-thread-per-lane schedule, three brute
-    # kernels, four chunk sweeps, two traversals
-    if sum("entry function" in ln for ln in ptxas) != 11 and _build.last_build["compiled"]:
-        fail("the build did not report eleven kernels")
+    # kernels, two traversals; six one-thread-per-lane sweeps (the chunked
+    # brute, chunk_closest, and chunk_closest_n and chunk_occlusion each
+    # with its counting build); four warp sweeps (chunk_closest_n and
+    # chunk_occlusion, each with its counting build)
+    if sum("entry function" in ln for ln in ptxas) != 17 and _build.last_build["compiled"]:
+        fail("the build did not report seventeen kernels")
     say("build", seconds=round(_build.last_build["seconds"], 2),
         compiled=_build.last_build["compiled"], flags=_build.last_build["flags"],
         library=os.path.relpath(_build.last_build["path"], REPO), ptxas=ptxas)
@@ -1319,8 +1531,8 @@ def main():
     # ---- phases 9 and 10: the acceleration path
     del o, d, tm, fuzz, levels, boot, g_img, img
     torch.cuda.empty_cache()
-    accel_entries = accel_phases(rt, dev, ACCEL_SIZES, kinds, k_table, k_ranges, k_n,
-                                 n_levels)
+    accel_entries, city_anyhit = accel_phases(rt, dev, ACCEL_SIZES, kinds, k_table, k_ranges,
+                                              k_n, n_levels)
 
     brute_entries = []
     for name, line, count in (
@@ -1348,6 +1560,10 @@ def main():
                              if name == "brute_closest_n" else
                              "; launches counted on two general-path frames"),
         })
+        if name == "occlusion_any":
+            brute_entries[-1].update(
+                cube_city_ms=city_anyhit["ms"], cube_city_bound_ms=city_anyhit["bound_ms"],
+                cube_city_bound_by=city_anyhit["bound_by"], cube_city_live=city_anyhit["live"])
     print(json.dumps({"kernels": [{
         "name": "wave_level",
         "route": "cuda",

@@ -255,7 +255,7 @@ extern "C" int brute_closest_chunked_launch(
     long long R, int G, int chunk, int motion, int threads, void* stream) {
   const rtt::SweepParams p = rtt::make_sweep_params(
       rays, nullptr, nullptr, nullptr, table, t, id, nullptr, nullptr, R, G, chunk, motion);
-  return rtt::launch_sweep(rtt::sweep_kernel<rtt::kSweepClosest, false>, p,
+  return rtt::launch_sweep(rtt::sweep_kernel<rtt::kSweepClosest, false, false>, p,
                            threads, stream);
 }
 

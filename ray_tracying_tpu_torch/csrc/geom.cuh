@@ -301,12 +301,13 @@ RTT_DEV bool box_axis(float oo, float dd, float mn, float mx, float& t_near,
 //     node_graze); 0 for a box without spheres.
 constexpr float kBoxSlack = (float)4e-6;
 
-// Can the ray hit the box (6 floats, min | max), grown by the slack above,
-// at a Euclidean distance <= bound?  bound is the ray's best t so far or a
-// shadow ray's max t; <=, so a box that can only tie is still visited.  The
+// The slab test of the box (6 floats, min | max), grown by the slack above,
+// without a bound: true when the ray meets the box ahead of its origin, with
+// `e` the Euclidean distance at which it enters (negative when the origin is
+// inside).  A miss leaves `e` meaningless: keep the flag apart from it.  The
 // unshifted origin is right for a moving sphere too: its box holds its
 // time-1 extent.
-RTT_DEV bool box_hit(const float* box, const Ray& r, float bound, float graze) {
+RTT_DEV bool box_entry(const float* box, const Ray& r, float graze, float& e) {
   // Per axis, the distance from the origin to the box's farther face.
   const float fx = fabsf(0.5f * (box[0] + box[3]) - r.ox) + 0.5f * (box[3] - box[0]);
   const float fy = fabsf(0.5f * (box[1] + box[4]) - r.oy) + 0.5f * (box[4] - box[1]);
@@ -317,8 +318,16 @@ RTT_DEV bool box_hit(const float* box, const Ray& r, float bound, float graze) {
   bool miss = box_axis(r.ox, r.dx, box[0] - pad, box[3] + pad, t_near, t_far);
   miss = box_axis(r.oy, r.dy, box[1] - pad, box[4] + pad, t_near, t_far) || miss;
   miss = box_axis(r.oz, r.dz, box[2] - pad, box[5] + pad, t_near, t_far) || miss;
-  return !miss && (t_near <= t_far) && (t_far >= 0.0f) &&
-         (t_near * r.dnorm <= bound);
+  e = t_near * r.dnorm;
+  return !miss && (t_near <= t_far) && (t_far >= 0.0f);
+}
+
+// Can the ray hit the box at a Euclidean distance <= bound?  bound is the
+// ray's best t so far or a shadow ray's max t; <=, so a box that can only
+// tie is still visited.
+RTT_DEV bool box_hit(const float* box, const Ray& r, float bound, float graze) {
+  float e;
+  return box_entry(box, r, graze, e) && (e <= bound);
 }
 
 // Running closest hit with the winner's table row and world normal.

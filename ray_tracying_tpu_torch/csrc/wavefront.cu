@@ -58,13 +58,7 @@
 #include <string.h>
 
 #include "geom.cuh"
-
-// Host and device: the shared-memory layout, which the launcher sizes.
-#ifdef __CUDACC__
-#define RTT_HD __host__ __device__ __forceinline__
-#else
-#define RTT_HD inline
-#endif
+#include "persist.cuh"
 
 namespace rtt {
 
@@ -115,44 +109,6 @@ struct WaveParams {
   float min_tp;
   int vec4;               // R % 4 == 0 and q, out 16-byte aligned
 };
-
-#ifdef __CUDACC__
-typedef float4 F4;
-#else
-struct alignas(16) F4 {
-  float x, y, z, w;
-};
-#endif
-
-RTT_DEV F4 load4(const float* a) {
-#ifdef __CUDACC__
-  return *reinterpret_cast<const float4*>(a);
-#else
-  F4 v;
-  memcpy(&v, a, sizeof v);
-  return v;
-#endif
-}
-
-RTT_DEV void store4(float* a, const F4& v) {
-#ifdef __CUDACC__
-  *reinterpret_cast<float4*>(a) = v;
-#else
-  memcpy(a, &v, sizeof v);
-#endif
-}
-
-RTT_DEV float u32_as_f32(uint32_t u) {
-  float f;
-  memcpy(&f, &u, sizeof f);
-  return f;
-}
-
-RTT_DEV uint32_t f32_as_u32(float f) {
-  uint32_t u;
-  memcpy(&u, &f, sizeof u);
-  return u;
-}
 
 // The shaded table as the tensor holds it: (n_cols, G), transposed.
 struct TabT {
@@ -782,21 +738,6 @@ __global__ void wave_level_lane_kernel(const WaveParams p) {
   if (i < p.R) wave_lane(p, tab, lights, (size_t)i);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return (uint32_t)__cvta_generic_to_shared(ptr);
-}
-
-__device__ __forceinline__ void wait_phase0(uint32_t bar) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar) : "memory");
-  }
-}
-
 // Block-wide: test the n queued shadow rays on dense warps and set the
 // visibility bits of their lanes.
 __device__ void drain_queue(const WaveParams& p, const TabS& tb, const WaveSmem& s, int n) {
@@ -884,18 +825,6 @@ __device__ void run_list(const WaveParams& p, const TabS& tb, const WaveSmem& s,
   __syncthreads();  // the list is free
 }
 
-// All blocks of the (cooperative) launch meet here.
-__device__ void grid_barrier(int* arrived) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(arrived, 1);
-    while (*reinterpret_cast<volatile int*>(arrived) < (int)gridDim.x) __nanosleep(64);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 // Block-wide: append the n staged lanes to the launch's list.
 __device__ void flush_list(const WaveSmem& s, int n, int* listed, int* live) {
   if (threadIdx.x == 0) s.next[2] = atomicAdd(listed, n);
@@ -925,21 +854,11 @@ wave_level_blocks_kernel(const WaveParams p, int list_cap, int queue_cap, int* c
   const int n_rest = (p.n_cols - 12) * p.G;
   const uint32_t bulk = (uint32_t)(4 * n_rest) & ~15u;
   if (tid == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init(bar);
     s.next[0] = atomicAdd(&ctr[0], 1);
   }
   __syncthreads();
-  if (tid == 0) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(bar), "r"(bulk) : "memory");
-    if (bulk) {
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-          :: "r"(smem_u32(s.rest)), "l"(p.table + 12 * (size_t)p.G), "r"(bulk), "r"(bar)
-          : "memory");
-    }
-  }
+  if (tid == 0) bulk_copy(smem_u32(s.rest), p.table + 12 * (size_t)p.G, bulk, bar);
   for (int k = tid; k < 3 * p.G; k += kWaveThreads) s.xf4[k] = staged_xf(p.table, p.G, k);
   for (int k = (int)(bulk / 4) + tid; k < n_rest; k += kWaveThreads) {
     s.rest[k] = p.table[12 * (size_t)p.G + k];
@@ -988,7 +907,7 @@ wave_level_blocks_kernel(const WaveParams p, int list_cap, int queue_cap, int* c
   // lanes clustered in a few scan steps spread over the card.
   grid_barrier(&ctr[2]);
   const long long n_live = *reinterpret_cast<volatile int*>(&ctr[1]);
-  wait_phase0(bar);  // the bulk copy has landed (long since)
+  mbar_wait(bar, 0);  // the bulk copy has landed (long since)
   const int chunk = wave_chunk(n_live, (int)gridDim.x);
   for (;;) {
     if (tid == 0) s.next[0] = atomicAdd(&ctr[3], 1);

@@ -138,11 +138,20 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
         p, p, p, p, p, p, *sizes, i, i, p,   # rays boxes graze table t id
     ]
     lib.chunk_closest_n_launch.argtypes = [
-        p, p, p, p, p, p, p, *sizes, i, i, p,  # rays boxes graze table t id n
+        p, p, p, p, p, p, p, *sizes, i,      # rays boxes graze table t id n | motion
+        p, p, p, p,                          # work ctr live stream
     ]
     lib.chunk_occlusion_launch.argtypes = [
-        p, p, p, p, p, p, *sizes, i, p,      # rays maxt boxes graze table blocked | threads stream
+        p, p, p, p, p, p, *sizes,            # rays maxt boxes graze table blocked
+        p, p, p, p,                          # work ctr live stream
     ]
+    lib.chunk_closest_n_lane_launch.argtypes = [
+        p, p, p, p, p, p, p, *sizes, i, p, i, p,  # ... motion work threads stream
+    ]
+    lib.chunk_occlusion_lane_launch.argtypes = [
+        p, p, p, p, p, p, *sizes, p, i, p,   # ... work threads stream
+    ]
+    lib.chunk_sweep_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.bvh_closest_launch.argtypes = [
         p, p, p, p, p, p, p,                 # rays table boxes topo graze t id
         ctypes.c_longlong, i, i,             # R G M
@@ -157,7 +166,9 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
                lib.bvh_closest_n_launch,
                lib.occlusion_any_launch, lib.brute_closest_chunked_launch,
                lib.chunk_closest_launch, lib.chunk_closest_n_launch,
-               lib.chunk_occlusion_launch, lib.bvh_closest_launch):
+               lib.chunk_occlusion_launch, lib.chunk_closest_n_lane_launch,
+               lib.chunk_occlusion_lane_launch, lib.chunk_sweep_plan,
+               lib.bvh_closest_launch):
         fn.restype = i
     lib.wave_error_string.argtypes = [i]
     lib.wave_error_string.restype = ctypes.c_char_p

@@ -12,16 +12,29 @@ column 15.
 The three kernels (csrc/chunk_stream.cu over csrc/sweep.cuh) replace
 `_closest_kernel`, `_closest_n_kernel` and `_occlusion_kernel` of the JAX
 package's kernels/chunk_stream.py.  What bounds them on an H100:
-operations — the geom tests of the chunks a ray cannot rule out, about 80
-f32 operations each, against 8 rows of 4 bytes read and 1 to 5 written a
-ray.  Design: one thread per ray with its (best t, row[, normal]) in
-registers across the whole sweep; each thread slab-tests the chunk's AABB
-against its own ray and its own bound (best t so far, or the shadow ray's
-max t) and runs the chunk's rows only if it can be hit — the cull is per
-thread; the block stages a chunk in shared memory only if one of its
-threads wants it — the staging is culled per block; the any-hit thread
-stops at its first blocker.  The table is read as it lies in the scene,
-row-major (rows, 17): a chunk is one contiguous copy.
+operations — the box tests and the geom tests of the chunks a ray cannot
+rule out, about 80 f32 operations a geom test, against 8 rows of 4 bytes
+read and 1 to 5 written a ray; bytes where few lanes are live.
+
+`chunk_closest_n` and `chunk_occlusion` launch the warp schedule
+(sweep.cuh::sweep_warp_kernel): one cooperative launch of persistent
+blocks lists the live lanes (act > 0; dead lanes get their outputs in that
+scan) and deals them to warps 32 at a time; the boxes are staged once a
+block; a warp runs a chunk when one of its lanes wants it (the cull per
+warp, no block barrier), its rows arriving through a ring of bulk copies of
+its own; the closest hit visits the chunks nearest first by the warp's
+least entry distance, merges by (t, row) and computes the winner's normal
+once; the any-hit lane stops at its first blocker and the warp once no lane
+is open.  `chunk_closest` stays on the one-thread-per-lane schedule
+(sweep.cuh::sweep_kernel): each thread culls a chunk against its own bound,
+and the block stages a chunk in shared memory when one of its threads
+wants it.  `chunk_sweep_variant` reaches, by name, that schedule for the
+other two, for the measurement that compares them; the package never calls
+it.  The ring needs a chunk of whole 16-byte copies (a multiple of 4 rows
+under 32, of 32 rows above) and a 16-byte aligned table: the warp
+schedule refuses other operands.  The table
+is read as it lies in the scene, row-major (rows, 17): a chunk is one
+contiguous block.
 
 The cull only removes provable misses, so every kernel equals the plain
 sweep of the whole table in row order (`mixed_closest_plain`), which is
@@ -34,12 +47,16 @@ kernels/_build.py) or raise; only CPU tensors take the plain versions.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
+from ray_tracying_tpu_torch.kernels import _build, _coop
 from ray_tracying_tpu_torch.kernels.closest_hit import (
+    BRUTE_THREADS,
     RayBlock,
+    _raise_on,
     check_rays,
     check_rows_table,
     geom_t,
@@ -210,7 +227,7 @@ def chunk_closest_n(rays, boxes, graze, table, g: int, motion: bool = False):
     if not rays.is_cuda:
         return chunk_closest_n_plain(rays, boxes, graze, table, g, motion)
     chunk = _check(rays, boxes, graze, table, g)
-    out = launch_sweep("chunk_closest_n", rays, None, boxes, graze, table, g, chunk, motion)
+    out = _launch("chunk_closest_n", rays, None, boxes, graze, table, g, chunk, motion)
     chunk_closest_n.launches += 1
     return out
 
@@ -220,14 +237,87 @@ def chunk_occlusion(rays, maxt, boxes, graze, table, g: int):
     if not rays.is_cuda:
         return chunk_occlusion_plain(rays, maxt, boxes, graze, table, g)
     chunk = _check(rays, boxes, graze, table, g, maxt)
-    out = launch_sweep("chunk_occlusion", rays, maxt, boxes, graze, table, g, chunk, False)
+    out = _launch("chunk_occlusion", rays, maxt, boxes, graze, table, g, chunk, False)
     chunk_occlusion.launches += 1
     return out
+
+
+def _launch(name, rays, maxt, boxes, graze, table, g, chunk, motion, schedule="warp",
+            work=None):
+    """Launch `name` (chunk_closest_n, or chunk_occlusion when maxt is
+    given) on the current stream: the warp schedule or, schedule="lane",
+    the one-thread-per-lane sweep.  work: an
+    int64 (3,) tensor to count into (lane geom tests, lane box tests, warp
+    lane slots; csrc/sweep.cuh::SweepWork), or None.  Returns the outputs;
+    the caller counts the launch."""
+    lib = _build.load()
+    r = rays.shape[1]
+    dev = rays.device
+    if maxt is not None:
+        outs = [torch.empty((r,), dtype=torch.bool, device=dev)]
+        head = [rays.data_ptr(), maxt.data_ptr()]
+        tail = [r, g, chunk]
+    else:
+        outs = [torch.empty((r,), dtype=torch.float32, device=dev),
+                torch.empty((r,), dtype=torch.int32, device=dev),
+                torch.empty((3, r), dtype=torch.float32, device=dev)]
+        head = [rays.data_ptr()]
+        tail = [r, g, chunk, int(bool(motion))]
+    args = head + [boxes.data_ptr(), graze.data_ptr(), table.data_ptr()]
+    args += [x.data_ptr() for x in outs] + tail
+    work_ptr = None if work is None else work.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if schedule == "lane":
+            err = getattr(lib, f"{name}_lane_launch")(*args, work_ptr, BRUTE_THREADS, stream)
+        else:
+            ctr = _coop.work_counters(dev, stream)
+            # the launch's list of live lanes (scratch, no initial value)
+            live = torch.empty(r, dtype=torch.int32, device=dev)
+            err = getattr(lib, f"{name}_launch")(
+                *args, work_ptr, ctr.data_ptr(), live.data_ptr(), stream)
+    _raise_on(err, lib, name)
+    return outs[0] if maxt is not None else tuple(outs)
+
+
+def chunk_sweep_variant(name, rays, maxt, boxes, graze, table, g: int, motion: bool = False,
+                        schedule: str = "warp", work=None):
+    """`name` ("chunk_closest_n" or "chunk_occlusion", maxt None or not)
+    by the package's warp schedule or, schedule="lane", the
+    one-thread-per-lane sweep it replaced; work counts what the launch ran
+    (see `_launch`).  Only for measuring the package's kernel against the
+    schedule it replaced (chip_smoke.py); CUDA tensors only.  Its launches
+    count in `chunk_sweep_variant.launches`, apart from the package's."""
+    if not rays.is_cuda:
+        raise ValueError("chunk_sweep_variant runs on the card only")
+    if schedule not in ("warp", "lane") or name not in ("chunk_closest_n", "chunk_occlusion") \
+            or (maxt is None) != (name == "chunk_closest_n"):
+        raise ValueError(f"no variant {schedule!r} of {name!r} with these operands")
+    chunk = _check(rays, boxes, graze, table, g, maxt)
+    out = _launch(name, rays, maxt, boxes, graze, table, g, chunk, motion, schedule, work)
+    chunk_sweep_variant.launches += 1
+    return out
+
+
+def chunk_sweep_plan(name: str, g: int, chunk: int, device=None) -> dict:
+    """What the warp schedule of `name` launches with for a table of g rows
+    in chunks of `chunk` on the current card: shared memory bytes of a
+    block, resident blocks per SM, SMs, threads per block, boxes staged in
+    shared memory."""
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    mode = 1 if name == "chunk_closest_n" else 2
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        err = lib.chunk_sweep_plan(mode, g, chunk, out)
+    _raise_on(err, lib, f"{name} plan")
+    keys = ("smem_bytes", "blocks_per_sm", "sms", "threads", "boxes_staged")
+    return dict(zip(keys, list(out)))
 
 
 chunk_closest.launches = 0
 chunk_closest_n.launches = 0
 chunk_occlusion.launches = 0
+chunk_sweep_variant.launches = 0
 
 
 def _operands(scene: Scene):

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from ray_tracying_tpu_torch.core import constants as C
-from ray_tracying_tpu_torch.kernels import _build
+from ray_tracying_tpu_torch.kernels import _build, _coop
 from ray_tracying_tpu_torch.kernels.closest_hit import (
     KIND_CUBE,
     KIND_RECT,
@@ -598,19 +598,6 @@ def _raise_on(lib, err, what):
         )
 
 
-# The kernel's work counters (five int32, zero between launches: the last
-# block of a launch zeroes them), one set per device and stream, so that
-# launches in flight at once never share one.
-_COUNTERS: dict = {}
-
-
-def _counters(device, stream: int) -> torch.Tensor:
-    key = (device, stream)
-    if key not in _COUNTERS:
-        _COUNTERS[key] = torch.zeros(5, dtype=torch.int32, device=device)
-    return _COUNTERS[key]
-
-
 def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (no synchronization)."""
     out = torch.empty((OUT_ROWS, out_prev.shape[1]), dtype=torch.float32,
@@ -619,7 +606,7 @@ def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float) -> torch.Tensor:
     lib = _build.load()
     with torch.cuda.device(out_prev.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ctr = _counters(out_prev.device, stream)
+        ctr = _coop.work_counters(out_prev.device, stream)
         # the launch's list of live lanes (scratch, no initial value)
         live = torch.empty(out_prev.shape[1], dtype=torch.int32, device=out_prev.device)
         err = lib.wave_level_launch(*args, ctr.data_ptr(), live.data_ptr(), stream)

@@ -218,7 +218,9 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch, fn):
     _, st = both()
     mod = ch if fn == "brute_closest_chunked" else cs
     called = []
-    monkeypatch.setattr(mod, "launch_sweep", lambda *a, **k: called.append(a) or "launched")
+    # chunk_closest_n and chunk_occlusion launch the warp schedule
+    launcher = "_launch" if fn in ("chunk_closest_n", "chunk_occlusion") else "launch_sweep"
+    monkeypatch.setattr(mod, launcher, lambda *a, **k: called.append(a) or "launched")
     monkeypatch.setattr(mod, fn + "_plain", lambda *a, **k: pytest.fail("plain"))
 
     class FakeCuda(torch.Tensor):
@@ -236,6 +238,39 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch, fn):
     assert getattr(mod, fn)(*args) == "launched"
     assert len(called) == 1 and called[0][0] == fn
     assert getattr(mod, fn).launches == before + 1
+
+
+def test_sweep_variants_are_for_the_card_and_count_apart(monkeypatch):
+    """The schedules chip_smoke.py measures the package's against are
+    reached by name, refuse a CPU tensor and operands of the other
+    function, and count their launches apart from the wrappers'."""
+    _, st = both()
+    boxes, graze, table, g = st.chunk_boxes, st.chunk_graze, st.chunk_geoms, st.n_geoms
+    r = torch.zeros((8, 8))
+    with pytest.raises(ValueError, match="card"):
+        cs.chunk_sweep_variant("chunk_closest_n", r, None, boxes, graze, table, g)
+    called = []
+    monkeypatch.setattr(cs, "_launch", lambda *a, **k: called.append(a) or "launched")
+
+    class FakeCuda(torch.Tensor):
+        is_cuda = True
+
+    r = r.as_subclass(FakeCuda)
+    with pytest.raises(ValueError, match="variant"):
+        cs.chunk_sweep_variant("chunk_closest_n", r, torch.zeros(8), boxes, graze, table, g)
+    with pytest.raises(ValueError, match="variant"):
+        cs.chunk_sweep_variant("chunk_closest", r, None, boxes, graze, table, g)
+    before = (cs.chunk_sweep_variant.launches, cs.chunk_closest_n.launches,
+              cs.chunk_occlusion.launches)
+    cs.chunk_sweep_variant("chunk_closest_n", r, None, boxes, graze, table, g, schedule="lane")
+    work = torch.zeros(3, dtype=torch.int64)
+    cs.chunk_sweep_variant("chunk_occlusion", r, torch.zeros(8), boxes, graze, table, g,
+                           work=work)
+    assert [a[0] for a in called] == ["chunk_closest_n", "chunk_occlusion"]
+    assert called[0][9:] == ("lane", None)
+    assert called[1][9] == "warp" and called[1][10] is work
+    assert (cs.chunk_sweep_variant.launches, cs.chunk_closest_n.launches,
+            cs.chunk_occlusion.launches) == (before[0] + 2, before[1], before[2])
 
 
 def test_wrappers_refuse_malformed_operands():

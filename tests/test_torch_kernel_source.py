@@ -9,7 +9,9 @@ compiler builds them.  Here g++ compiles each behind a short loop over
 lanes, with FMA contraction off as in the nvcc build, and every level of a
 trace goes through it and through `wave_level_plain` on the same rays and
 fuzz rows; the fused level's block schedule also runs from the same stage
-functions behind a host loop (HOST_BLOCKS).  This holds the two
+functions behind a host loop (HOST_BLOCKS), and so does the warp schedule of
+the chunk sweeps (WARP_HOST: scan, live-lane list, warps of 32 lanes run in a
+loop, nearest chunk first).  This holds the two
 sources to the same arithmetic (the closest-hit and any-hit lane functions
 likewise go through seeded rays beside `brute_closest_plain`,
 `brute_closest_n_plain` and `occlusion_plain`, and the chunk sweep and the
@@ -823,6 +825,440 @@ def test_bvh_lane_equals_plain(host_accel, name, want_n):
     assert scene.bvh_nodes_topo.shape[0] > 1  # a real tree, not one leaf
 
 
+# ---------------------------------------------------------------------------
+# The warp schedule of csrc/sweep.cuh (sweep_warp_kernel: chunk_closest_n,
+# chunk_occlusion), run on the host from the same step functions: the scan in
+# steps of kWarpScan lanes (dead lanes written there, 16-byte stores where
+# the rows allow), the list of live lanes, then tasks of 32 list entries,
+# each an emulated warp whose 32 lanes run in a loop where the kernel has
+# __any_sync, __reduce_min_sync and the lanes of the rank sort.
+# ---------------------------------------------------------------------------
+
+WARP_HOST = """
+#include "chunk_stream.cu"
+#include <algorithm>
+#include <vector>
+
+namespace {
+using namespace rtt;
+
+// One warp: lanes s[0..31], windows of `cap` chunks; counts into work[0..2]
+// as the counting build does, and each lane's geom tests into tests[].
+template <int MODE>
+void warp_host(const SweepParams& p, SweepLane* s, int nc, int cap, long long* work,
+               int* tests, long long* did) {
+  std::vector<uint32_t> keys(cap);
+  std::vector<uint8_t> order(cap);
+  bool want[32];
+  const auto any = [&](const bool* f) { return std::any_of(f, f + 32, [](bool b) { return b; }); };
+  const auto reach = [&] {
+    float r = -kInf;
+    for (int l = 0; l < 32; ++l) r = std::max(r, s[l].open ? s[l].best.t : -kInf);
+    return r;
+  };
+  // A chunk on the lanes that want it: each runs all its rows when more
+  // than half want it, else each has its rows split over split_lanes(k)
+  // helpers (strided rows from its own offset), whose winners or blocked
+  // flags merge back into it.
+  const auto run = [&](int c) {
+    constexpr int LM = kLoopMode<MODE>;
+    const int row0 = c * p.chunk;
+    const int n_rows = std::min(p.chunk, p.G - row0);
+    const float* rows = p.table + (size_t)kGeomCols * row0;
+    int k = 0;
+    for (int l = 0; l < 32; ++l) k += want[l];
+    const int g = split_lanes(k);
+    did[g == 1 ? 3 : 2] += 1;
+    int most = 0;
+    for (int l = 0; l < 32; ++l) {
+      if (!want[l]) continue;
+      if (g == 1) {
+        const int ran = sweep_rows<LM, true>(p, s[l], rows, row0, n_rows);
+        work[0] += ran; tests[l] += ran;
+        most = std::max(most, ran);
+        continue;
+      }
+      SweepLane group = sweep_helper(s[l]);
+      for (int h = 0; h < g; ++h) {
+        SweepLane helper = sweep_helper(s[l]);
+        const int ran = sweep_rows<LM, true>(p, helper, rows, row0, n_rows, h, g);
+        work[0] += ran; tests[l] += ran;
+        most = std::max(most, ran);
+        sweep_merge<LM>(group, helper.best.t, helper.best.row, helper.blocked);
+      }
+      sweep_merge<LM>(s[l], group.best.t, group.best.row, group.blocked);
+    }
+    work[2] += 32 * most;
+  };
+  const auto wants = [&](int c) {
+    for (int l = 0; l < 32; ++l) {
+      work[1] += s[l].open;
+      want[l] = sweep_wants_box<MODE>(p.boxes + 6 * c, p.graze[c], s[l]);
+    }
+    return any(want);
+  };
+  if (MODE == kSweepAnyHit) {
+    for (int c = 0; c < nc; ++c) {
+      bool open[32];
+      for (int l = 0; l < 32; ++l) open[l] = s[l].open;
+      if (!any(open)) break;
+      if (wants(c)) run(c);
+    }
+    return;
+  }
+  for (int w0 = 0; w0 < nc; w0 += cap) {
+    const int wn = std::min(cap, nc - w0);
+    for (int j = 0; j < wn; ++j) {
+      uint32_t least = kNoKey;
+      for (int l = 0; l < 32; ++l)
+        least = std::min(least, sweep_key(p.boxes + 6 * (w0 + j), p.graze[w0 + j], s[l]));
+      keys[j] = least;
+    }
+    for (int l = 0; l < 32; ++l) work[1] += s[l].open ? wn : 0;
+    int m = 0;
+    for (int l = 0; l < 32; ++l) m = order_window(keys.data(), order.data(), wn, l, 32);
+    float r = reach();
+    for (int q = 0; q < m; ++q) {
+      const int j = order[q];
+      if (key_dist(keys[j]) > r) break;
+      if (!wants(w0 + j)) continue;
+      run(w0 + j);
+      r = reach();
+    }
+  }
+}
+
+template <int MODE>
+void sweep_warps(const SweepParams& p, int cap, int n_warps, long long* work, int* tests,
+                 long long* did) {
+  std::vector<int> live;
+  for (long long base = 0; base < p.R; base += kWarpScan) {
+    for (int lane = 0; lane < 32; ++lane) {
+      const unsigned live4 = sweep_scan4<MODE>(p, base + 4 * lane);
+      for (int j = 0; j < 4; ++j)
+        if ((live4 >> j) & 1u) live.push_back((int)(base + 4 * lane + j));
+    }
+  }
+  const int nc = (p.G + p.chunk - 1) / p.chunk;
+  const int n = (int)live.size();
+  const int task = warp_task(n, n_warps);
+  long long warps = 0;
+  for (int first = 0; first < n; first += task, ++warps) {
+    SweepLane s[32];
+    int lane_tests[32] = {0};
+    for (int l = 0; l < 32; ++l) {
+      sweep_idle(s[l]);
+      if (l < task && first + l < n) sweep_begin<MODE>(p, (size_t)live[first + l], s[l]);
+    }
+    warp_host<MODE>(p, s, nc, cap, work, lane_tests, did);
+    for (int l = 0; l < task && first + l < n; ++l) {
+      sweep_winner_normal<MODE>(p, s[l]);
+      sweep_end<MODE>(p, (size_t)live[first + l], s[l]);
+      tests[live[first + l]] = lane_tests[l];
+    }
+  }
+  did[0] = n; did[1] = warps;  // did[2], did[3]: counted by warp_host
+}
+}  // namespace
+
+// mode: 0 closest, 1 closest + normal, 2 any-hit.
+extern "C" void sweep_warp_host(
+    int mode, const float* rays, const float* maxt, const float* boxes, const float* graze,
+    const float* table, float* t, int* id, float* n, uint8_t* blocked, long long R, int G,
+    int chunk, int motion, int cap, int n_warps, long long* work, int* tests, long long* did) {
+  const SweepParams p = make_sweep_params(
+      rays, maxt, boxes, graze, table, t, id, n, blocked, R, G, chunk, motion);
+  if (mode == 0) sweep_warps<kSweepClosest>(p, cap, n_warps, work, tests, did);
+  else if (mode == 1) sweep_warps<kSweepClosestN>(p, cap, n_warps, work, tests, did);
+  else sweep_warps<kSweepAnyHit>(p, cap, n_warps, work, tests, did);
+}
+
+extern "C" void sweep_layout_host(int nc, int chunk, long long* out) {
+  const SweepLayout o = sweep_layout(nc, chunk);
+  out[0] = (long long)o.keys; out[1] = (long long)o.order; out[2] = (long long)o.ring;
+  out[3] = (long long)o.boxes; out[4] = (long long)o.bytes; out[5] = ring_rows(chunk);
+  out[6] = kSweepWarps; out[7] = kOrderCap; out[8] = kStageChunks;
+}
+
+extern "C" unsigned order_key_host(float e) { return order_key(e); }
+extern "C" float key_dist_host(unsigned k) { return key_dist(k); }
+"""
+
+
+@pytest.fixture(scope="module")
+def host_warp(tmp_path_factory):
+    """The g++ build of the warp schedule behind the chunk wrappers'
+    signatures: sweep(mode, rays, maxt, boxes, graze, table, g, chunk,
+    motion, cap=kOrderCap, n_warps=1, counts=None) -> outputs; n_warps: the
+    launch's warps, which a short list is shared over; `counts` receives what
+    the schedule ran (lane geom tests, lane box tests, warp lane slots, the
+    live lanes, the warps, the chunks a warp ran with rows split over helper
+    lanes and those it ran whole, and each lane's geom tests).  Every output is
+    written: the buffers start as NaN / 7 / 7."""
+    d = tmp_path_factory.mktemp("warp_host")
+    src, out = str(d / "warp_host.cpp"), str(d / "libwarp_host.so")
+    with open(src, "w") as f:
+        f.write(WARP_HOST)
+    subprocess.run(
+        ["g++", "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-I", CSRC,
+         "-shared", "-fPIC", "-o", out, src],
+        check=True,
+    )
+    lib = ctypes.CDLL(out)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.sweep_warp_host.argtypes = [i, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, p, p, p]
+    lib.sweep_layout_host.argtypes = [i, i, ctypes.POINTER(ll)]
+    lib.order_key_host.argtypes = [ctypes.c_float]
+    lib.order_key_host.restype = ctypes.c_uint
+    lib.key_dist_host.argtypes = [ctypes.c_uint]
+    lib.key_dist_host.restype = ctypes.c_float
+    lib.sweep_warp_host.restype = lib.sweep_layout_host.restype = None
+
+    def sweep(mode, rays, maxt, boxes, graze, table, g, chunk, motion, cap=None, n_warps=1,
+              counts=None):
+        r = rays.shape[1]
+        t = torch.full((r,), float("nan"))
+        pid = torch.full((r,), 7, dtype=torch.int32)
+        n = torch.full((3, r), float("nan"))
+        blocked = torch.full((r,), 7, dtype=torch.uint8)
+        work = torch.zeros(3, dtype=torch.int64)
+        tests = torch.zeros(r, dtype=torch.int32)
+        did = torch.zeros(4, dtype=torch.int64)
+        lib.sweep_warp_host(
+            mode, rays.data_ptr(), None if maxt is None else maxt.data_ptr(),
+            boxes.data_ptr(), graze.data_ptr(), table.data_ptr(), t.data_ptr(),
+            pid.data_ptr(), n.data_ptr(), blocked.data_ptr(), r, g, chunk, int(motion),
+            cap or layout(1)["order_cap"], n_warps, work.data_ptr(), tests.data_ptr(),
+            did.data_ptr(),
+        )
+        if counts is not None:
+            counts.update(tests=int(work[0]), box_tests=int(work[1]), slots=int(work[2]),
+                          live=int(did[0]), warps=int(did[1]), split_chunks=int(did[2]),
+                          whole_chunks=int(did[3]), lane_tests=tests)
+        if mode == 2:
+            assert int(blocked.max()) <= 1
+            return blocked.bool()
+        return (t, pid, n) if mode == 1 else (t, pid)
+
+    def layout(nc, chunk=256):
+        res = (ll * 9)()
+        lib.sweep_layout_host(nc, chunk, res)
+        return dict(zip(("keys", "order", "ring", "boxes", "bytes", "ring_rows", "warps",
+                         "order_cap", "stage_chunks"), list(res)))
+
+    sweep.layout = layout
+    sweep.order_key = lib.order_key_host
+    sweep.key_dist = lib.key_dist_host
+    return sweep
+
+
+WARP_KERNELS = {"chunk_closest_n": 1, "chunk_occlusion": 2}
+
+
+def warp_case(name, kernel, act_share=None, seed=8):
+    """(operands, plain output, rays, maxt) of `kernel` on accel_case(name),
+    shadow rays at time 0 for the any-hit; act_share: a random act mask with
+    that share of live lanes instead of accel_case's."""
+    from ray_tracying_tpu_torch.kernels import chunk_stream as CS
+
+    scene, rays, maxt = accel_case(name)
+    if act_share is not None:
+        rays[7] = torch.from_numpy(
+            (np.random.default_rng(seed).random(rays.shape[1]) < act_share).astype(np.float32))
+    ops = (scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms, scene.n_geoms)
+    if kernel == "chunk_occlusion":
+        rays[6] = 0.0
+        return ops, CS.chunk_occlusion_plain(rays, maxt, *ops), rays, maxt, False
+    return ops, CS.chunk_closest_n_plain(rays, *ops, scene.has_motion), rays, None, \
+        scene.has_motion
+
+
+def assert_warp_same(host, lane, plain, rays, kernel):
+    """The warp schedule against the one-thread-per-lane schedule (g++ builds
+    of the same arithmetic: bit-equal) and against the plain version (ids
+    equal; t and normals to the host tolerance)."""
+    if kernel == "chunk_occlusion":
+        assert torch.equal(host, lane)
+        assert int((host != plain).sum()) <= 1  # a hit within one rounding of maxt
+        assert not host[rays[7] <= 0].any()
+        return
+    for a, b in zip(host, lane):
+        assert torch.equal(a, b)
+    assert_same_hits(host, plain, rays)
+
+
+@pytest.mark.parametrize("name", ACCEL_SCENES)
+@pytest.mark.parametrize("kernel", sorted(WARP_KERNELS))
+@pytest.mark.parametrize("act", ["case_mask", "few_live"])
+@pytest.mark.parametrize("n_warps", [1, 600])
+def test_warp_schedule_equals_plain(host_warp, host_accel, name, kernel, act, n_warps):
+    """The warp schedule (scan, live-lane list, warps of 32, nearest chunk
+    first with the (t, row) merge; any-hit in row order) on the scene with
+    every kind and a moving sphere and on two zoo scenes, chunks of 4, the
+    last ragged, a random act mask or few live lanes (warps mostly of
+    lanes that are not theirs in the tile), the list dealt in tasks of 32
+    or, over 600 warps, in short equal shares; every output written, a dead
+    lane a miss."""
+    sweep, _ = host_accel
+    ops, plain, rays, maxt, motion = warp_case(
+        name, kernel, act_share=0.05 if act == "few_live" else None)
+    mode = WARP_KERNELS[kernel]
+    counts = {}
+    host = host_warp(mode, rays, maxt, *ops, 4, motion, n_warps=n_warps, counts=counts)
+    lane = sweep(mode, rays, maxt, *ops, 4, motion)
+    assert_warp_same(host, lane, plain, rays, kernel)
+    live = int((rays[7] > 0).sum())
+    task = min(32, max(1, -(-live // n_warps)))
+    assert counts["live"] == live and counts["warps"] == -(-live // task)
+    assert (task == 32) == (n_warps == 1)
+    assert counts["split_chunks"] > 0          # chunks few lanes of a warp want
+    if act == "case_mask" and task == 32:
+        assert counts["whole_chunks"] > 0      # and chunks most of a warp wants
+    if task <= 16:
+        assert counts["whole_chunks"] == 0     # a short task always splits
+    if kernel == "chunk_closest_n":
+        dead = rays[7] <= 0
+        assert not host[2][:, dead].any() and (host[1][dead] == -1).all()
+        assert torch.isinf(host[0][dead]).all()
+    assert not counts["lane_tests"][rays[7] <= 0].any()
+
+
+@pytest.mark.parametrize("kernel", sorted(WARP_KERNELS))
+@pytest.mark.parametrize("width", [4 * 128 * 3, 4 * 128 * 3 + 2])
+def test_warp_schedule_scan_widths(host_warp, kernel, width):
+    """Widths with and without the scan's 16-byte stores (a multiple of 4
+    and not), an all-dead tile and a tile whose live lanes are not a
+    multiple of 32."""
+    scene, rays, maxt = accel_case("sphere_field")
+    idx = torch.arange(width) % rays.shape[1]
+    rays, maxt = rays[:, idx].contiguous(), maxt[idx].contiguous()
+    mode = WARP_KERNELS[kernel]
+    ops = (scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms, scene.n_geoms)
+    for live in (0, 37):
+        rays[7] = 0.0
+        rays[7, torch.from_numpy(np.random.default_rng(live).choice(width, live, replace=False))] = 1.0
+        counts = {}
+        host = host_warp(mode, rays, maxt if mode == 2 else None, *ops, 4, False, counts=counts)
+        assert counts["live"] == live and counts["warps"] == -(-live // 32)
+        if mode == 2:
+            assert int(host.sum()) <= live
+            assert not host[rays[7] <= 0].any()
+        else:
+            dead = rays[7] <= 0
+            assert torch.isinf(host[0][dead]).all() and (host[1][dead] == -1).all()
+            assert not host[2][:, dead].any() and not torch.isnan(host[2]).any()
+            plain = CH.mixed_closest_plain(rays, scene.chunk_geoms, scene.n_geoms, False, want_n=True)
+            assert torch.equal(host[1], plain[1])
+
+
+@pytest.mark.parametrize("cap", [1, 3, 7])
+def test_warp_schedule_windows(host_warp, host_accel, cap):
+    """More chunks than a warp orders at once: the chunks go window by
+    window, each nearest first, and the result is the same."""
+    sweep, _ = host_accel
+    ops, plain, rays, _, motion = warp_case("sphere_field", "chunk_closest_n")
+    assert ops[0].shape[0] > cap
+    host = host_warp(1, rays, None, *ops, 4, motion, cap=cap)
+    assert_warp_same(host, sweep(1, rays, None, *ops, 4, motion), plain, rays, "chunk_closest_n")
+
+
+def test_warp_schedule_tie_across_chunks_keeps_the_lowest_row(host_warp, host_accel):
+    """The same sphere twice, in two chunks: rows 0 and 2.  The chunk of
+    row 2 also holds a small sphere near the camera, so its box is entered
+    first and the warp visits it first; the chunk of row 0 can only tie
+    (its box is re-tested with <=) and its row wins the tie, as in the
+    row-order sweep, by the (t, row) merge."""
+    from ray_tracying_tpu_torch.accel import lbvh
+
+    sweep, _ = host_accel
+    s = {"location": [0.0, 10.0, 0.0], "radius": 1.0}
+    scene = rt.load_scene_dict(camera_dict(spheres=[
+        s, {"location": [0.0, 20.0, 0.0], "radius": 1.0},
+        s, {"location": [0.6, 2.0, 0.0], "radius": 0.3}]), device="cpu")
+    table = CH.pack_geom_table(scene).contiguous()        # load order: rows 0..3
+    aabbs = lbvh.geom_aabbs(scene)
+    boxes = torch.from_numpy(np.concatenate(
+        [np.concatenate([aabbs[k:k + 2, :3].min(0), aabbs[k:k + 2, 3:].max(0)])[None]
+         for k in (0, 2)]).astype(np.float32))
+    graze = torch.from_numpy(lbvh.chunk_graze(table.numpy(), 2))
+    assert float(boxes[1, 1]) < float(boxes[0, 1])          # row 2's chunk is nearer
+    rng = np.random.default_rng(12)
+    n = 300
+    d = np.stack([rng.normal(0, 0.03, n), np.ones(n), rng.normal(0, 0.03, n)], axis=1)
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32))
+    rays = CH.pack_rays(torch.zeros((n, 3)), d, torch.zeros(n))
+    plain = CH.mixed_closest_plain(rays, table, 4, False, want_n=True)
+    assert (plain[1] == 0).sum() > n // 2 and not (plain[1] == 2).any()
+    for mode in (0, 1):
+        host = host_warp(mode, rays, None, boxes, graze, table, 4, 2, False)
+        assert torch.equal(host[1], plain[1])
+        assert torch.equal(host[1], sweep(mode, rays, None, boxes, graze, table, 4, 2, False)[1])
+
+
+def test_warp_schedule_lane_without_a_hit_skips_the_boxes_it_misses(host_warp):
+    """Lanes that have no hit (best t = +inf) beside boxes they miss: rays
+    parallel to an axis and outside the boxes' slab there, or pointing away
+    from the scene, in the same warps as rays that hit.  A missed box
+    is never wanted, though its entry distance may read +inf and the
+    lane's bound is +inf: those lanes run no geom test."""
+    scene, rays, _ = accel_case("sphere_field")
+    n = rays.shape[1]
+    miss = torch.arange(n) % 3 == 0
+    rays[7] = 1.0
+    rays[0, miss] = 1000.0                              # far off the scene in x ...
+    rays[3, miss] = 0.0                                 # ... and parallel to x
+    away = torch.arange(n) % 3 == 1
+    rays[3:6, away] = -rays[3:6, away]
+    rays[4, away] = -rays[4, away].abs() - 0.5         # back, away from the field
+    rays[3:6, away] /= rays[3:6, away].norm(dim=0)
+    ops = (scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms, scene.n_geoms)
+    counts = {}
+    host = host_warp(1, rays, None, *ops, 4, False, counts=counts)
+    plain = CH.mixed_closest_plain(rays, scene.chunk_geoms, scene.n_geoms, False, want_n=True)
+    assert torch.equal(host[1], plain[1])
+    assert (host[1][miss] == -1).all() and not counts["lane_tests"][miss].any()
+    hit = plain[1] >= 0
+    assert int(hit.sum()) > n // 10 and counts["tests"] > 0
+    # Warps of such lanes alone rank no chunk: each lane's one key test a
+    # chunk is all they run.
+    alone = rays[:, miss].contiguous()
+    counts = {}
+    host = host_warp(1, alone, None, *ops, 4, False, counts=counts)
+    assert (host[1] == -1).all()
+    nc = scene.chunk_boxes.shape[0]
+    assert counts["tests"] == counts["slots"] == 0
+    assert counts["box_tests"] == alone.shape[1] * nc
+
+
+def test_order_key_is_the_float_order(host_warp):
+    """The chunks' keys order as their entry distances: negative, -0 just
+    below +0, +inf last but below the no-key mark, and back."""
+    vals = [-float("inf"), -3e38, -2.5, -1e-30, -0.0, 0.0, 1e-30, 0.5, 2.5, 3e38, float("inf")]
+    keys = [host_warp.order_key(v) for v in vals]
+    assert keys == sorted(keys) and len(set(keys)) == len(keys) and keys[-1] < 0xffffffff
+    back = [host_warp.key_dist(k) for k in keys]
+    assert [np.float32(x).tobytes() for x in back] == [np.float32(v).tobytes() for v in vals]
+
+
+def test_warp_layout_is_aligned_and_stages_boxes_up_to_its_cap(host_warp):
+    """The shared memory the warp kernel's launcher sizes: 16-byte aligned
+    regions, two ring buffers a warp of whole 16-byte rows, the box table (7
+    floats a chunk) while it fits the staging cap.  A chunk that gives no
+    whole 16-byte copies gets no ring rows, which the launcher refuses."""
+    for nc, chunk, rows in [(79, 256, 32), (2, 4, 4), (4, 12, 12), (1024, 256, 32),
+                            (1025, 256, 32), (3, 6, 0), (2, 40, 0)]:
+        o = host_warp.layout(nc, chunk)
+        for key in ("keys", "order", "ring", "boxes"):
+            assert o[key] % 16 == 0 or key == "order"
+        assert o["order"] == o["keys"] + 4 * o["order_cap"] * o["warps"]
+        assert o["ring_rows"] == rows
+        ring_bytes = 2 * 4 * 17 * rows * o["warps"]
+        assert o["boxes"] == o["ring"] + ring_bytes and (17 * 4 * rows) % 16 == 0
+        staged = 28 * nc if nc <= o["stage_chunks"] else 0
+        assert o["bytes"] == o["boxes"] + staged
+    assert host_warp.layout(79)["bytes"] < 48 * 1024
+
+
 def silhouette_rays(rng, n, centre, radius):
     """n rays from the origin to a ring around a sphere's silhouette, from
     0.9 to 1.3 radii off its centre: ((8, n) rays, the ring's radii)."""
@@ -850,7 +1286,7 @@ def leaf_of(scene, geom_id):
     return next(i for i, (l, _, f, c) in enumerate(topo) if l < 0 and f <= row < f + c), row
 
 
-def test_box_slack_keeps_the_fuzzy_grazing_hits_of_far_spheres(host_accel, monkeypatch):
+def test_box_slack_keeps_the_fuzzy_grazing_hits_of_far_spheres(host_accel, host_warp, monkeypatch):
     """At a distance of hundreds of radii the sphere test's discriminant
     cancels, and rays that pass just outside a sphere still test as grazing
     hits; an exact box would cull some of them.  The culling kernels grow
@@ -880,6 +1316,10 @@ def test_box_slack_keeps_the_fuzzy_grazing_hits_of_far_spheres(host_accel, monke
     host = sweep(0, rays, None, scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms,
                  g, 4, False)
     assert torch.equal(host[1], plain[1]) and torch.equal(host[0], plain[0])
+    # the warp schedule, nearest chunk first, as chunk_closest_n runs it
+    host = host_warp(1, rays, None, scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms,
+                     g, 4, False)
+    assert torch.equal(host[1], plain[1]) and torch.equal(host[0], plain[0])
     # The same box test without the slack would cull some of those hits.
     leaf, _ = leaf_of(scene, 0)
     box = scene.bvh_nodes_box[leaf].tolist()
@@ -889,7 +1329,7 @@ def test_box_slack_keeps_the_fuzzy_grazing_hits_of_far_spheres(host_accel, monke
     assert not bool(CS.box_hit(rb, box, inf, None)[hit].all())
 
 
-def test_one_tiny_far_sphere_widens_only_its_own_boxes(host_accel):
+def test_one_tiny_far_sphere_widens_only_its_own_boxes(host_accel, host_warp):
     """One sphere of radius 0.001 at 150 units among large cubes and
     spheres: its fuzzy grazing hits need a wide slack (1.2e-7 * 9000 *
     distance^2, about 24 units there), and every box that holds it gets
@@ -931,6 +1371,10 @@ def test_one_tiny_far_sphere_widens_only_its_own_boxes(host_accel):
     assert torch.equal(host[1], plain[1]) and torch.equal(host[0], plain[0])
     host = sweep(0, rays, None, scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms,
                  g, 4, False)
+    assert torch.equal(host[1], plain[1]) and torch.equal(host[0], plain[0])
+    # the warp schedule, nearest chunk first, as chunk_closest_n runs it
+    host = host_warp(1, rays, None, scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms,
+                     g, 4, False)
     assert torch.equal(host[1], plain[1]) and torch.equal(host[0], plain[0])
 
     # How many boxes a ray is let into, of the random rays: with each box's
