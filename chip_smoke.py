@@ -14,12 +14,15 @@ kernels from the sources of this checkout, holds each kernel against its
 plain PyTorch version on the card (the fused level bit for bit on every
 level of a full-width flagship tile), measures the fused level's kernel
 against the one-thread-per-lane schedule of the same stages in turns
-(phase wave_redesign_ab: per level, and one flagship frame each, byte-equal)
-and the warp schedule of chunk_closest_n and chunk_occlusion against the
-one-thread-per-lane sweep it replaced (phase sweep_redesign_ab: level-0,
-level-1 and shadow rays of the 20,001-geom scene, bit-equal; phase
-accel_tile_breakdown: every chunk-kernel launch of one frame by each
-schedule, the frames byte-equal),
+(phase wave_redesign_ab: per level, and one flagship frame each, byte-equal),
+the warp schedule of the three chunk kernels against the one-thread-per-lane
+sweep it replaced (phase sweep_redesign_ab: level-0, level-1 and shadow rays
+of the 20,001-geom scene, plain and textured, bit-equal) and the shadow
+any-hit's persistent warps against its one-thread-per-lane kernel (phase
+anyhit_redesign_ab: the 2,049-geom scene's level-0 and level-1 shadow rays
+and the flagship tile's, bit-equal), and times every closest-hit and any-hit
+launch of one frame of each large scene by each schedule (phase
+accel_tile_breakdown, the frames byte-equal); it
 checks twelve images against the reference renderer's goldens, and prints
 one JSON line per phase.  Any failure exits non-zero; nothing is caught.
 
@@ -508,46 +511,75 @@ def accel_frame(rt, scene, opts, seed, dev):
 
 
 
-def anyhit_at_width(CH, scene, shadow, idx, case):
-    """occlusion_any on a scene under the cap at full width: against its
-    plain version on the strided sample `idx` (bit-equal, and the tests to
-    each ray's first blocker, scaled to the live lanes of the full width),
-    ms by CUDA events, bound."""
-    table, ranges = CH.scene_table(scene)
-    rays, maxt = shadow
+def ptxas_report(_build, needle):
+    """The -Xptxas -v lines of the last build for the entry functions whose
+    mangled names hold `needle`."""
+    report, inside = [], False
+    for ln in _build.last_build["log"].splitlines():
+        if "entry function" in ln:
+            inside = needle in ln
+        if inside:
+            report.append(ln.strip())
+    return report
+
+
+def anyhit_redesign_ab(CH, _build, case, rays, maxt, table, ranges, idx):
+    """Phase anyhit_redesign_ab: occlusion_any by the package's kernel
+    (persistent warps over a live-lane list, the 12-column shadow table
+    staged once a block) against the one-thread-per-lane kernel it replaced,
+    on the same full-width shadow rays: both torch.equal at full width, and
+    the package's equal to occlusion_plain on the strided sample `idx`
+    (whose counts of tests to each ray's first blocker, scaled to the live
+    lanes, give the bound); ms of each by CUDA events in turns (lane, warp,
+    warp, lane); the launch plan and the ptxas report of both kernels.
+    Returns the row."""
+    new = CH.occlusion_any(rays, maxt, table, ranges)
+    old = CH.occlusion_any_variant(rays, maxt, table, ranges, schedule="lane")
+    equal = bool(torch.equal(new, old))
     sub = (rays[:, idx].contiguous(), maxt[idx].contiguous())
-    a = CH.occlusion_any(*sub, table, ranges)
     need = {}
     torch.cuda.synchronize()
     t0 = time.time()
     b = CH.occlusion_plain(*sub, table, ranges, stats=need)
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3
-    if not torch.equal(a, b):
-        fail(f"occlusion_any and its plain version disagree on {case}")
-    n, g = rays.shape[1], scene.n_geoms
+    plain_equal = bool(torch.equal(new[idx], b))
+    del old
+    t = {}
+    for turn, sched in (("lane", "lane"), ("warp", "warp"), ("warp_again", "warp"),
+                        ("lane_again", "lane")):
+        t[turn] = cuda_ms(lambda: CH.occlusion_any_variant(rays, maxt, table, ranges,
+                                                           schedule=sched), 3)
+    n, g = rays.shape[1], table.shape[1]
     live = int((rays[7] > 0).sum())
-    ms = cuda_ms(lambda: CH.occlusion_any(rays, maxt, table, ranges), 2)
-    row = dict(case=case, kernel="occlusion_any", lanes=n, live=live, geoms=g, ms=ms,
+    row = dict(case=case, kernel="occlusion_any", lanes=n, live=live, geoms=g,
+               ms=(t["warp"] + t["warp_again"]) / 2,
+               warp_ms=[t["warp"], t["warp_again"]], lane_ms=[t["lane"], t["lane_again"]],
+               old_schedule_ms=(t["lane"] + t["lane_again"]) / 2,
                plain_ms=plain_ms, plain_lanes=sub[0].shape[1], blocked_in_sample=int(b.sum()),
+               warp_equals_lane=equal, equals_plain_on_sample=plain_equal,
+               max_abs_err=0.0 if plain_equal else 1.0,
+               **CH.occlusion_any_plan(g),
+               ptxas=ptxas_report(_build, "occlusion_warp_kernel"),
+               old_schedule_ptxas=ptxas_report(_build, "occlusion_any_kernel"),
                **brute_bound(n, live, need["tests"] * live / max(need["live"], 1), ranges, g,
                              7, 1))
-    say("accel_at_width", **row)
+    row["tests_per_live_lane"] = row["needed_tests"] / max(live, 1)
+    say("anyhit_redesign_ab", **row)
+    if not equal:
+        fail(f"the two schedules of occlusion_any differ on {case}")
+    if not plain_equal:
+        fail(f"occlusion_any and its plain version disagree on {case}")
     return row
 
 
 def sweep_plan_phase(CS, _build, scene):
     """Phase sweep_plan: what ptxas reports for the warp schedule's kernels
     and the plan each launches with on this card for `scene`'s chunk table."""
-    report, inside = [], False
-    for ln in _build.last_build["log"].splitlines():
-        if "entry function" in ln:
-            inside = "sweep_warp_kernel" in ln
-        if inside:
-            report.append(ln.strip())
+    report = ptxas_report(_build, "sweep_warp_kernel")
     g, chunk = scene.n_geoms, scene.chunk_geoms.shape[0] // scene.chunk_boxes.shape[0]
     plans = {name: CS.chunk_sweep_plan(name, g, chunk)
-             for name in ("chunk_closest_n", "chunk_occlusion")}
+             for name in ("chunk_closest", "chunk_closest_n", "chunk_occlusion")}
     say("sweep_plan", kernel="sweep_warp_kernel", ptxas=report, geoms=g, chunk=chunk,
         chunks=scene.chunk_boxes.shape[0], **plans)
     if _build.last_build["compiled"] and not report:
@@ -556,9 +588,9 @@ def sweep_plan_phase(CS, _build, scene):
 
 
 def sweep_redesign_ab(CS, scene, sets):
-    """Phase sweep_redesign_ab: chunk_closest_n and chunk_occlusion by the
-    package's warp schedule against the one-thread-per-lane schedule they
-    replaced, on the same full-width inputs: sets = {label: (kernel name,
+    """Phase sweep_redesign_ab: the three chunk kernels by the package's
+    warp schedule against the one-thread-per-lane schedule they replaced,
+    on the same full-width inputs: sets = {label: (kernel name,
     rays, maxt or None)}.  Outputs torch.equal; ms by CUDA events in turns
     (lane, warp, warp, lane); what each schedule ran, from its counting
     build (geom and box tests a live lane, and the share of the warps' lane
@@ -599,55 +631,61 @@ def sweep_redesign_ab(CS, scene, sets):
     return rows
 
 
-def accel_tile_breakdown(CS, rt, bare, dev, schedule):
-    """Phase accel_tile_breakdown: one untextured frame of `bare` (one tile)
-    through render_to_srgb_u8, every chunk_closest_n and chunk_occlusion
-    launch timed by CUDA events, level by level with its live lanes; the
-    chunk kernels by `schedule` ("warp", the package's, or "lane").
-    Returns (image, row)."""
-    real = {name: getattr(CS, name) for name in ("chunk_closest_n", "chunk_occlusion")}
-    real_launch = CS._launch
+def accel_tile_breakdown(rt, label, scene, opts, dev, schedule, kernels):
+    """Phase accel_tile_breakdown: one frame of `scene` (one tile) through
+    render_to_srgb_u8, every launch of `kernels` ({name: module}; the first
+    is the closest hit that opens each level) timed by CUDA events, level by
+    level with its live lanes; occlusion_any and the chunk kernels by
+    `schedule` ("warp", the package's; "lane", the one-thread-per-lane
+    kernels they replaced).  Returns (image, row)."""
+    from ray_tracying_tpu_torch.kernels import chunk_stream as CS
+    from ray_tracying_tpu_torch.kernels import closest_hit as CH
+
+    real = {name: getattr(mod, name) for name, mod in kernels.items()}
+    opener = next(iter(kernels))
+    launchers = (CS._launch, CH._launch_occlusion)
     rec = []
+    level = [-1]
 
     def timed(name):
-        def run(rays, *args):
-            if name == "chunk_closest_n":
-                timed.level += 1
+        def run(rays, *args, **kw):
+            if name == opener:
+                level[0] += 1
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = real[name](rays, *args)
+            out = real[name](rays, *args, **kw)
             end.record()
-            rec.append((timed.level, name, start, end, (rays[7] > 0).sum()))
+            rec.append((level[0], name, start, end, (rays[7] > 0).sum()))
             return out
         # the wrapper counts its launches in the module's name, this one
         run.launches = real[name].launches
         return run
 
-    timed.level = -1
-    for name in real:
-        setattr(CS, name, timed(name))
+    for name, mod in kernels.items():
+        setattr(mod, name, timed(name))
     if schedule == "lane":
-        CS._launch = lambda *a: real_launch(*a, schedule="lane")
+        CS._launch = lambda *a: launchers[0](*a, schedule="lane")
+        CH._launch_occlusion = lambda *a: launchers[1](*a, schedule="lane")
     try:
-        img, seconds = accel_frame(rt, bare, rt.RenderOptions(samples_sqrt=2), 5, dev)
+        img, seconds = accel_frame(rt, scene, opts, 5, dev)
     finally:
-        for name, fn in real.items():
-            fn.launches = getattr(CS, name).launches
-            setattr(CS, name, fn)
-        CS._launch = real_launch
+        for name, mod in kernels.items():
+            real[name].launches = getattr(mod, name).launches
+            setattr(mod, name, real[name])
+        CS._launch, CH._launch_occlusion = launchers
     launches = [dict(level=lv, kernel=name, live=int(n_live), ms=s.elapsed_time(e))
                 for lv, name, s, e, n_live in rec]
-    total = sum(x["ms"] for x in launches)
-    row = dict(scene="sphere_field", schedule=schedule, frame_seconds=seconds,
-               chunk_kernel_ms=total, chunk_kernel_share=total / 1e3 / seconds,
-               closest_n_ms=sum(x["ms"] for x in launches if x["kernel"] == "chunk_closest_n"),
-               occlusion_ms=sum(x["ms"] for x in launches if x["kernel"] == "chunk_occlusion"),
+    by_kernel = {name: sum(x["ms"] for x in launches if x["kernel"] == name) for name in kernels}
+    total = sum(by_kernel.values())
+    row = dict(scene=label, schedule=schedule, frame_seconds=seconds, kernel_ms=by_kernel,
+               timed_kernels_ms=total, timed_kernels_share=total / 1e3 / seconds,
                launches=launches)
     say("accel_tile_breakdown", **row)
-    if [x["kernel"] for x in launches].count("chunk_closest_n") != timed.level + 1 or \
-            len(launches) != (1 + bare.n_lights) * (timed.level + 1):
-        fail(f"the frame launched {len(launches)} chunk kernels over {timed.level + 1} levels")
+    n_levels = level[0] + 1
+    if [x["kernel"] for x in launches].count(opener) != n_levels or \
+            len(launches) != (1 + scene.n_lights) * n_levels:
+        fail(f"the {label} frame launched {len(launches)} timed kernels over {n_levels} levels")
     return img, row
 
 
@@ -734,7 +772,7 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
 
     at_width = {}
     ab_sets = {}
-    city_anyhit = None
+    city_anyhit = {}
     for sname in ("sphere_field", "cube_city"):
         full = acc[sname]["full"]
         big = full.n_geoms > CH.BRUTE_SMEM_MAX_GEOMS
@@ -744,8 +782,8 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
         n_acc = o.shape[0]
         rays0 = CH.pack_rays(o, d, tm)
         cast = []
-        # the level-0 shadow rays as the path casts them: the chunk sweep
-        # over the cap, the brute any-hit under it
+        # the level-0 and level-1 shadow rays as the path casts them: the
+        # chunk sweep over the cap, the brute any-hit under it
         entry = "occluded_tid_chunks" if big else "occluded_tid"
         real = getattr(I, entry)
 
@@ -755,11 +793,11 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
             return real(scene_, so, sd, maxt, active)
 
         setattr(I, entry, recording)
-        trace_wavefront(full, o, d, tm, generator=gen, fused=False, max_depth=0,
+        trace_wavefront(full, o, d, tm, generator=gen, fused=False, max_depth=1,
                         device=dev)
         setattr(I, entry, real)
-        if len(cast) != full.n_lights:  # one level, one launch a light
-            fail("one level of the path did not cast one any-hit launch per light")
+        if len(cast) != 2 * full.n_lights:  # two levels, one launch a light
+            fail("two levels of the path did not cast one any-hit launch per light each")
         o1, d1, tm1, act1 = level1_rays(G, I, CH, full, o, d, tm)
         rays1 = CH.pack_rays(o1, d1, tm1, act1)
         kernels = accel_kernels(CH, CS, BT, full)
@@ -768,12 +806,22 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
                  else ["bvh_closest", "bvh_closest_n"])
         idx = torch.arange(0, n_acc, sizes["stride"], device=dev)
         if big:
+            # chunk_closest takes the closest hit of the textured scene: the
+            # same geoms and rays, its level-1 rays spawned from its own hits
+            tex = with_texture(full, models.get("texture", device=dev))
+            rays1_tex = CH.pack_rays(*level1_rays(G, I, CH, tex, o, d, tm))
             ab_sets = {"level 0": ("chunk_closest_n", rays0, None),
                        "level 1": ("chunk_closest_n", rays1, None),
-                       "level-0 shadow rays of light 0": ("chunk_occlusion", *cast[0])}
+                       "level-0 shadow rays of light 0": ("chunk_occlusion", *cast[0]),
+                       "textured level 0": ("chunk_closest", rays0, None),
+                       "textured level 1": ("chunk_closest", rays1_tex, None)}
+            del tex, rays1_tex
         else:
-            city_anyhit = anyhit_at_width(CH, full, cast[0], idx,
-                                          f"{sname}, level-0 shadow rays of light 0")
+            table_s, ranges_s = CH.scene_table(full)
+            for level, shadow in (("level 0", cast[0]), ("level 1", cast[full.n_lights])):
+                city_anyhit[level] = anyhit_redesign_ab(
+                    CH, _build, f"{sname}, {level} shadow rays of light 0", *shadow, table_s,
+                    ranges_s, idx)
         for level, rays_l in (("level 0", rays0), ("level 1", rays1)):
             case = f"{sname}, {level} rays of the full-width tile"
             shadow = cast[0] if big and level == "level 0" else None
@@ -793,14 +841,17 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
                 ref_name = "brute_closest_chunked"
                 others = ("chunk_closest", "bvh_closest")
             else:
-                table_s, ranges_s = CH.scene_table(full)
                 ref = CH.brute_closest(rays_l, table_s, ranges_s, full.has_motion)
                 ref_name = "brute_closest"
                 others = ("bvh_closest",)
                 ms = cuda_ms(lambda: CH.brute_closest(
                     rays_l, table_s, ranges_s, full.has_motion), 2)
-                say("accel_at_width", case=case, kernel="brute_closest",
-                    lanes=n_acc, live=int((rays_l[7] > 0).sum()), geoms=full.n_geoms, ms=ms)
+                live_l = int((rays_l[7] > 0).sum())
+                # a brute closest hit runs every geom test of every live ray
+                say("accel_at_width", case=case, kernel="brute_closest", lanes=n_acc,
+                    live=live_l, geoms=full.n_geoms, ms=ms,
+                    **brute_bound(n_acc, live_l, live_l * full.n_geoms, ranges_s,
+                                  full.n_geoms, 7, 8))
             for name in others:
                 same_hit_set(case, kernels[name][0](rays_l), ref, name, ref_name)
             del ref
@@ -906,19 +957,30 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
         fail("cube_city with and without use_bvh differ")
     if np.array_equal(frames["sphere_field"], frames["sphere_field_textured"]):
         fail("the texture left the sphere_field frame as it was")
-    # One untextured sphere_field frame (the seed of the frames above) with
-    # each schedule of the two redesigned sweeps, every chunk-kernel launch
-    # timed: the sweep's share of the frame before and after; the bytes
-    # equal to each other and to the frame above.
+    # One frame of each large scene (the seed of the frames above) with each
+    # schedule of the redesigned kernels, every launch of its closest-hit
+    # and any-hit kernels timed: their share of the frame before and after;
+    # the bytes equal to each other and to the frame above.
     breakdown = {}
-    for schedule in ("lane", "warp"):
-        img, breakdown[schedule] = accel_tile_breakdown(
-            CS, rt, acc["sphere_field"]["bare"], dev, schedule)
-        if not np.array_equal(img, frames["sphere_field"]):
-            fail(f"the sphere_field frame with the {schedule} schedule differs")
-    say("sweep_redesign_ab", scene="sphere_field", frames_bytes_equal=True,
-        frame_lane_seconds=breakdown["lane"]["frame_seconds"],
-        frame_warp_seconds=breakdown["warp"]["frame_seconds"])
+    for label, sname, use_bvh, timed_k in (
+            ("sphere_field", "sphere_field", False,
+             {"chunk_closest_n": CS, "chunk_occlusion": CS}),
+            ("sphere_field_textured", "sphere_field_textured", False,
+             {"chunk_closest": CS, "chunk_occlusion": CS}),
+            ("cube_city_bvh", "cube_city", True, {"bvh_closest_n": BT, "occlusion_any": CH}),
+            ("cube_city_brute", "cube_city", False,
+             {"brute_closest_n": CH, "occlusion_any": CH})):
+        opts_l = rt.RenderOptions(samples_sqrt=2, use_bvh=use_bvh)
+        schedules = ("lane", "warp")
+        for schedule in schedules:
+            img, breakdown[(label, schedule)] = accel_tile_breakdown(
+                rt, label, acc[sname]["bare"], opts_l, dev, schedule, timed_k)
+            if not np.array_equal(img, frames[label]):
+                fail(f"the {label} frame with the {schedule} schedule differs")
+        say("anyhit_redesign_ab" if "occlusion_any" in timed_k else "sweep_redesign_ab",
+            scene=label, frames_bytes_equal=True,
+            **{f"frame_{sched}_seconds": breakdown[(label, sched)]["frame_seconds"]
+               for sched in schedules})
     del frames
 
     # bvh_det (textured: the (t, id) traversal, then pass 2) with use_bvh
@@ -1013,39 +1075,40 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
                           f"at {res_w}x{res_h}, 2x2 spp; plain_ms and the needed tests behind "
                           f"bound_ms are of every {sizes['stride']}th of these rays",
         })
-        if name in ("chunk_closest_n", "chunk_occlusion"):
-            label = "level 0" if name == "chunk_closest_n" else "level-0 shadow rays of light 0"
+        if name in ("chunk_closest", "chunk_closest_n", "chunk_occlusion"):
+            label = {"chunk_closest": "textured level 0", "chunk_closest_n": "level 0",
+                     "chunk_occlusion": "level-0 shadow rays of light 0"}[name]
             r_ab = ab[label]
             accel_entries[-1].update(
                 old_schedule_ms=sum(r_ab["lane_ms"]) / 2,
                 tests_per_live_lane=r_ab["ran"]["warp"]["tests_per_live_lane"],
                 old_schedule_tests_per_live_lane=r_ab["ran"]["lane"]["tests_per_live_lane"],
                 **sweep_plans[name])
-            if name == "chunk_closest_n":
+            if name != "chunk_occlusion":
                 r1 = at_width[(scene_key, "level 1")][name]
+                label1 = "textured level 1" if name == "chunk_closest" else "level 1"
                 accel_entries[-1].update(
                     level1_ms=r1["ms"], level1_bound_ms=r1["bound_ms"],
-                    level1_old_schedule_ms=sum(ab["level 1"]["lane_ms"]) / 2)
-            accel_entries[-1]["frame_ms_all_launches"] = breakdown["warp"][
-                "closest_n_ms" if name == "chunk_closest_n" else "occlusion_ms"]
-            accel_entries[-1]["frame_ms_all_launches_old_schedule"] = breakdown["lane"][
-                "closest_n_ms" if name == "chunk_closest_n" else "occlusion_ms"]
+                    level1_old_schedule_ms=sum(ab[label1]["lane_ms"]) / 2)
+            frame = "sphere_field_textured" if name == "chunk_closest" else "sphere_field"
+            accel_entries[-1]["frame_ms_all_launches"] = \
+                breakdown[(frame, "warp")]["kernel_ms"][name]
+            accel_entries[-1]["frame_ms_all_launches_old_schedule"] = \
+                breakdown[(frame, "lane")]["kernel_ms"][name]
+            accel_entries[-1]["frame"] = frame
         if not accel_entries[-1]["launches"]:
             fail(f"the acceleration path never launched {name}")
 
-    return accel_entries, city_anyhit
+    city_frames = {label: {sched: breakdown[(label, sched)]["kernel_ms"]["occlusion_any"]
+                           for sched in ("warp", "lane")}
+                   for label in ("cube_city_bvh", "cube_city_brute")}
+    return accel_entries, city_anyhit, city_frames
 
 
 def wave_plan_phase(W, _build, tables, scene):
     """Phase wave_plan: what ptxas reports for the level's kernel, the plan
     it launches with on this card, and the largest table the gate takes."""
-    log = _build.last_build["log"].splitlines()
-    report, inside = [], False
-    for ln in log:
-        if "entry function" in ln:
-            inside = "wave_level_blocks_kernel" in ln
-        if inside:
-            report.append(ln.strip())
+    report = ptxas_report(_build, "wave_level_blocks_kernel")
     plan = W.wave_plan(tables)
     n_cols, g = tables.table.shape
     say("wave_plan", kernel="wave_level_blocks_kernel", ptxas=report, geoms=g,
@@ -1145,12 +1208,12 @@ def main():
     ptxas = [ln.strip() for ln in _build.last_build["log"].splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     # wave_level (blocks) and its one-thread-per-lane schedule, three brute
-    # kernels, two traversals; six one-thread-per-lane sweeps (the chunked
-    # brute, chunk_closest, and chunk_closest_n and chunk_occlusion each
-    # with its counting build); four warp sweeps (chunk_closest_n and
-    # chunk_occlusion, each with its counting build)
-    if sum("entry function" in ln for ln in ptxas) != 17 and _build.last_build["compiled"]:
-        fail("the build did not report seventeen kernels")
+    # kernels and the any-hit's warp kernel, two traversals; seven
+    # one-thread-per-lane sweeps (the chunked brute, and each of the three
+    # chunk kernels with its counting build); six warp sweeps (the three
+    # chunk kernels, each with its counting build)
+    if sum("entry function" in ln for ln in ptxas) != 21 and _build.last_build["compiled"]:
+        fail("the build did not report twenty-one kernels")
     say("build", seconds=round(_build.last_build["seconds"], 2),
         compiled=_build.last_build["compiled"], flags=_build.last_build["flags"],
         library=os.path.relpath(_build.last_build["path"], REPO), ptxas=ptxas)
@@ -1442,6 +1505,9 @@ def main():
     width_rows = brute_vs_plain(CH, "level 0 of one full-width flagship tile",
                                 rays_w, cast[0], g_table, g_ranges,
                                 scene.has_motion, timed=True)
+    flag_anyhit = anyhit_redesign_ab(
+        CH, _build, "level-0 shadow rays of light 0 of one full-width flagship tile", *cast[0],
+        g_table, g_ranges, torch.arange(0, n, ACCEL_SIZES["stride"], device=dev))
 
     # Level 0 of that tile, general path against fused path: the same
     # radiance to rtol 1e-4 / atol 1e-5.  The two paths rebuild the texture
@@ -1531,8 +1597,8 @@ def main():
     # ---- phases 9 and 10: the acceleration path
     del o, d, tm, fuzz, levels, boot, g_img, img
     torch.cuda.empty_cache()
-    accel_entries, city_anyhit = accel_phases(rt, dev, ACCEL_SIZES, kinds, k_table, k_ranges,
-                                              k_n, n_levels)
+    accel_entries, city_anyhit, city_frames = accel_phases(
+        rt, dev, ACCEL_SIZES, kinds, k_table, k_ranges, k_n, n_levels)
 
     brute_entries = []
     for name, line, count in (
@@ -1555,15 +1621,28 @@ def main():
             "library_ms": None,
             "lanes": row["lanes"],
             "shape_note": "level 0 of one full-width flagship tile"
+                          + ("'s shadow rays of light 0" if name == "occlusion_any" else "")
                           + ("; launches counted on det_twoway and softshadow, "
                              "the untextured general-path renders"
                              if name == "brute_closest_n" else
                              "; launches counted on two general-path frames"),
         })
         if name == "occlusion_any":
+            c0, c1 = city_anyhit["level 0"], city_anyhit["level 1"]
             brute_entries[-1].update(
-                cube_city_ms=city_anyhit["ms"], cube_city_bound_ms=city_anyhit["bound_ms"],
-                cube_city_bound_by=city_anyhit["bound_by"], cube_city_live=city_anyhit["live"])
+                old_schedule_ms=flag_anyhit["old_schedule_ms"],
+                blocks_per_sm=flag_anyhit["blocks_per_sm"], smem_bytes=flag_anyhit["smem_bytes"],
+                threads=flag_anyhit["threads"],
+                cube_city_ms=c0["ms"], cube_city_old_schedule_ms=c0["old_schedule_ms"],
+                cube_city_bound_ms=c0["bound_ms"], cube_city_bound_by=c0["bound_by"],
+                cube_city_live=c0["live"], cube_city_smem_bytes=c0["smem_bytes"],
+                cube_city_blocks_per_sm=c0["blocks_per_sm"],
+                cube_city_level1_ms=c1["ms"],
+                cube_city_level1_old_schedule_ms=c1["old_schedule_ms"],
+                cube_city_level1_bound_ms=c1["bound_ms"],
+                cube_city_frame_ms_all_launches={k: v["warp"] for k, v in city_frames.items()},
+                cube_city_frame_ms_all_launches_old_schedule={
+                    k: v["lane"] for k, v in city_frames.items()})
     print(json.dumps({"kernels": [{
         "name": "wave_level",
         "route": "cuda",

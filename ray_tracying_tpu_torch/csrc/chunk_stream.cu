@@ -12,19 +12,17 @@
 // cannot rule out, against 8 rows of 4 bytes read and 1 to 5 rows written;
 // where few lanes are live (the deep levels), bytes: every lane's act is
 // read and its outputs written.
-// Design (sweep.cuh):
-// - chunk_closest_n and chunk_occlusion: sweep_warp_kernel.  One cooperative
-//   launch lists the live lanes (dead ones get their outputs in the scan)
-//   and runs them on dense warps; the boxes are staged once a block; the
-//   cull is per warp (a ballot, no block barrier); rows arrive through a
-//   per-warp ring of bulk copies; the closest hit visits the nearest chunk
-//   first, merges by (t, row) and computes the winner's normal once, the
-//   any-hit lane is done at its first blocker and the warp once no lane is
-//   open.  The one-thread-per-lane sweep_kernel is reachable by name (the
-//   *_lane launchers) for the measurement that compares them; the package
-//   does not launch it.
-// - chunk_closest: sweep_kernel, one thread per lane, the cull per thread,
-//   the staging of a chunk in shared memory culled per block.
+// Design (sweep.cuh): sweep_warp_kernel.  One cooperative launch lists the
+// live lanes (dead ones get their outputs in the scan) and runs them on
+// dense warps; the boxes are staged once a block; the cull is per warp (a
+// ballot, no block barrier); rows arrive through a per-warp ring of bulk
+// copies; the closest hits visit the nearest chunk first and merge by
+// (t, row), chunk_closest_n computes the winner's normal once; the any-hit
+// lane is done at its first blocker and the warp once no lane is open.
+// The one-thread-per-lane sweep_kernel (the cull per thread, a chunk staged
+// in shared memory when one thread of the block wants it) is reachable by
+// name (the *_lane launchers) for the measurement that compares them; the
+// package does not launch it.
 // The table is the scene's Morton-ordered chunk table as it lies in
 // memory, row-major (NC * chunk, 17); the sweeps stop at its last real
 // row, so the all-zero padding rows are never run.
@@ -68,12 +66,11 @@ int launch_lane(const rtt::SweepParams& p, int threads, void* stream) {
 
 extern "C" int chunk_closest_launch(
     const float* rays, const float* boxes, const float* graze, const float* table,
-    float* t, int* id,
-    long long R, int G, int chunk, int motion, int threads, void* stream) {
+    float* t, int* id, long long R, int G, int chunk, int motion,
+    unsigned long long* work, int* ctr, int* live, void* stream) {
   const rtt::SweepParams p = rtt::make_sweep_params(
-      rays, nullptr, boxes, graze, table, t, id, nullptr, nullptr, R, G, chunk, motion);
-  return rtt::launch_sweep(rtt::sweep_kernel<rtt::kSweepClosest, true, false>, p,
-                           threads, stream);
+      rays, nullptr, boxes, graze, table, t, id, nullptr, nullptr, R, G, chunk, motion, work);
+  return launch_warp<rtt::kSweepClosest>(p, ctr, live, stream);
 }
 
 extern "C" int chunk_closest_n_launch(
@@ -95,7 +92,16 @@ extern "C" int chunk_occlusion_launch(
   return launch_warp<rtt::kSweepAnyHit>(p, ctr, live, stream);
 }
 
-// The one-thread-per-lane schedule of the same two functions.
+// The one-thread-per-lane schedule of the same three functions.
+extern "C" int chunk_closest_lane_launch(
+    const float* rays, const float* boxes, const float* graze, const float* table,
+    float* t, int* id, long long R, int G, int chunk, int motion,
+    unsigned long long* work, int threads, void* stream) {
+  const rtt::SweepParams p = rtt::make_sweep_params(
+      rays, nullptr, boxes, graze, table, t, id, nullptr, nullptr, R, G, chunk, motion, work);
+  return launch_lane<rtt::kSweepClosest>(p, threads, stream);
+}
+
 extern "C" int chunk_closest_n_lane_launch(
     const float* rays, const float* boxes, const float* graze, const float* table,
     float* t, int* id, float* n, long long R, int G, int chunk, int motion,
@@ -115,21 +121,30 @@ extern "C" int chunk_occlusion_lane_launch(
   return launch_lane<rtt::kSweepAnyHit>(p, threads, stream);
 }
 
-// What chunk_closest_n_launch (mode 1) or chunk_occlusion_launch (mode 2)
-// would launch for a table of G rows in chunks of `chunk`: out[0..4] =
-// shared memory bytes, resident blocks per SM, SMs, threads per block,
-// boxes staged (1) or read from global memory (0).
+// What chunk_closest_launch (mode 0), chunk_closest_n_launch (mode 1) or
+// chunk_occlusion_launch (mode 2) would launch for a table of G rows in
+// chunks of `chunk`: out[0..4] = shared memory bytes, resident blocks per
+// SM, SMs, threads per block, boxes staged (1) or read from global memory
+// (0).
 extern "C" int chunk_sweep_plan(int mode, int G, int chunk, int* out) {
   using namespace rtt;
   const int nc = (G + chunk - 1) / chunk;
   size_t bytes = 0;
   int per_sm = 0, sms = 0;
-  const int err =
-      mode == kSweepClosestN
-          ? sweep_warp_plan(sweep_warp_kernel<kSweepClosestN, false>, nc, chunk, bytes, per_sm,
-                            sms)
-          : sweep_warp_plan(sweep_warp_kernel<kSweepAnyHit, false>, nc, chunk, bytes, per_sm,
+  int err;
+  switch (mode) {
+    case kSweepClosest:
+      err = sweep_warp_plan(sweep_warp_kernel<kSweepClosest, false>, nc, chunk, bytes, per_sm,
                             sms);
+      break;
+    case kSweepClosestN:
+      err = sweep_warp_plan(sweep_warp_kernel<kSweepClosestN, false>, nc, chunk, bytes, per_sm,
+                            sms);
+      break;
+    default:
+      err = sweep_warp_plan(sweep_warp_kernel<kSweepAnyHit, false>, nc, chunk, bytes, per_sm,
+                            sms);
+  }
   out[0] = (int)bytes; out[1] = per_sm; out[2] = sms; out[3] = kSweepThreads;
   out[4] = nc <= kStageChunks ? 1 : 0;
   return err;

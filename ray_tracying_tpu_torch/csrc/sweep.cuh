@@ -13,10 +13,10 @@
 //
 // Two schedules over the same lane functions:
 //
-// sweep_kernel, one thread per lane over every lane of the tile (chunk_closest
-// and brute_closest_chunked; for chunk_closest_n and chunk_occlusion the
-// oracle and A/B baseline of the schedule below, which the package does not
-// launch).  Per chunk, in row order: each thread decides for its own ray
+// sweep_kernel, one thread per lane over every lane of the tile
+// (brute_closest_chunked; for the three chunk kernels the oracle and A/B
+// baseline of the schedule below, which the package does not launch).  Per
+// chunk, in row order: each thread decides for its own ray
 // whether it wants the chunk (CULL: its ray can hit the chunk's AABB no
 // farther than its best t so far, or its shadow ray's max t; no CULL: it is
 // live); the block stages the chunk's rows in shared memory if some thread
@@ -27,8 +27,8 @@
 // the lane slots run a test on level-1 rays); the copy never overlaps
 // compute.
 //
-// sweep_warp_kernel (chunk_closest_n, chunk_occlusion), one cooperative
-// launch of persistent blocks:
+// sweep_warp_kernel (chunk_closest, chunk_closest_n, chunk_occlusion), one
+// cooperative launch of persistent blocks:
 // - Phase 1, scan.  Warps take steps of kWarpScan lanes from a counter, four
 //   lanes a thread.  A dead lane (act <= 0) gets its outputs there (16-byte
 //   stores where four neighbours are dead); live lanes are appended to one
@@ -679,6 +679,50 @@ __device__ void warp_any_hit(const SweepParams& p, SweepLane& s, WarpRing& rg, c
   }
 }
 
+// Phase 1 of a cooperative launch, scan: warps take steps of kWarpScan
+// lanes from ctr[0]; dead lanes get their outputs here (sweep_scan4), live
+// ones are appended to `live` (warp prefix sums of popc, one atomic on
+// ctr[1] a step).  Also the scan of occlusion_any's warp kernel
+// (closest_hit.cu), in the any-hit mode.
+template <int MODE>
+__device__ __forceinline__ void warp_scan_list(const SweepParams& p, int* ctr, int* live) {
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int step = 0;
+    if (lane == 0) step = atomicAdd(&ctr[0], 1);
+    step = __shfl_sync(kFull, step, 0);
+    const long long base = (long long)step * kWarpScan;
+    if (base >= p.R) break;
+    const unsigned live4 = sweep_scan4<MODE>(p, base + 4 * lane);
+    const int cnt = __popc(live4);
+    int incl = cnt;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const int total = __shfl_sync(kFull, incl, 31);
+    int pos = 0;
+    if (lane == 0 && total) pos = atomicAdd(&ctr[1], total);
+    pos = __shfl_sync(kFull, pos, 0) + incl - cnt;
+    for (int j = 0; j < 4; ++j) {
+      if ((live4 >> j) & 1u) live[pos++] = (int)(base + 4 * lane + j);
+    }
+  }
+}
+
+// The end of a cooperative launch: the last block to leave zeroes the five
+// counters again.
+__device__ __forceinline__ void coop_release(int* ctr) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();  // this block's last take comes before its count
+    if (atomicAdd(&ctr[4], 1) == (int)gridDim.x - 1) {
+      for (int k = 0; k < 4; ++k) atomicExch(&ctr[k], 0);
+      atomicExch(&ctr[4], 0);
+    }
+  }
+}
+
 // ctr: five ints, zero at launch; the last block to leave zeroes them
 // again: [0] next scan step, [1] lanes listed, [2] blocks past the scan,
 // [3] next lane of the list to take, [4] blocks done.  live: R ints, the
@@ -713,28 +757,7 @@ sweep_warp_kernel(const SweepParams p, int* ctr, int* live) {
     mbar_init(rg.bar + 8);
   }
 
-  // Phase 1, scan: dead lanes written here, live ones listed.
-  for (;;) {
-    int step = 0;
-    if (lane == 0) step = atomicAdd(&ctr[0], 1);
-    step = __shfl_sync(kFull, step, 0);
-    const long long base = (long long)step * kWarpScan;
-    if (base >= p.R) break;
-    const unsigned live4 = sweep_scan4<MODE>(p, base + 4 * lane);
-    const int cnt = __popc(live4);
-    int incl = cnt;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += v;
-    }
-    const int total = __shfl_sync(kFull, incl, 31);
-    int pos = 0;
-    if (lane == 0 && total) pos = atomicAdd(&ctr[1], total);
-    pos = __shfl_sync(kFull, pos, 0) + incl - cnt;
-    for (int j = 0; j < 4; ++j) {
-      if ((live4 >> j) & 1u) live[pos++] = (int)(base + 4 * lane + j);
-    }
-  }
+  warp_scan_list<MODE>(p, ctr, live);
 
   // Phase 2, after every lane is listed: warps take warp_task lanes at a
   // time.
@@ -772,34 +795,34 @@ sweep_warp_kernel(const SweepParams p, int* ctr, int* live) {
       atomicAdd(&p.work[2], (unsigned long long)w.slots);
     }
   }
-  __syncthreads();
-  if (tid == 0) {
-    __threadfence();  // this block's last take comes before its count
-    if (atomicAdd(&ctr[4], 1) == (int)gridDim.x - 1) {
-      for (int k = 0; k < 4; ++k) atomicExch(&ctr[k], 0);
-      atomicExch(&ctr[4], 0);
-    }
-  }
+  coop_release(ctr);
 }
 
-// The kernel's shared memory for this table, its dynamic shared memory
-// attribute set, and its resident blocks per SM and the SM count.  0 or a
-// CUDA error.
+// A cooperative kernel of `threads` threads a block with `bytes` of
+// dynamic shared memory: the attribute set, its resident blocks per SM and
+// the SM count.  0 or a CUDA error.
 template <typename K>
-inline int sweep_warp_plan(K kernel, int nc, int chunk, size_t& bytes, int& per_sm, int& sms) {
+inline int coop_plan(K kernel, int threads, size_t bytes, int& per_sm, int& sms) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  bytes = sweep_layout(nc, chunk).bytes;
-  if (bytes > (size_t)optin || ring_rows(chunk) == 0) return (int)cudaErrorInvalidValue;
+  if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSweepThreads, bytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
   }
   if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
   return (int)e;
+}
+
+// The warp kernel's shared memory for this table and coop_plan's answer.
+template <typename K>
+inline int sweep_warp_plan(K kernel, int nc, int chunk, size_t& bytes, int& per_sm, int& sms) {
+  bytes = sweep_layout(nc, chunk).bytes;
+  if (ring_rows(chunk) == 0) return (int)cudaErrorInvalidValue;
+  return coop_plan(kernel, kSweepThreads, bytes, per_sm, sms);
 }
 
 // Launch the warp schedule cooperatively on `stream` without

@@ -128,14 +128,21 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
     lib.occlusion_any_launch.argtypes = [
         p, p, p, p,                          # rays maxt table blocked
         ctypes.c_longlong, i, ranges, i,
+        p, p, p,                             # ctr live stream
+    ]
+    lib.occlusion_any_lane_launch.argtypes = [
+        p, p, p, p,
+        ctypes.c_longlong, i, ranges, i,
         i, p,                                # threads stream
     ]
+    lib.occlusion_any_plan.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
     sizes = [ctypes.c_longlong, i, i]        # R G chunk
     lib.brute_closest_chunked_launch.argtypes = [
         p, p, p, p, *sizes, i, i, p,         # rays table t id | motion threads stream
     ]
     lib.chunk_closest_launch.argtypes = [
-        p, p, p, p, p, p, *sizes, i, i, p,   # rays boxes graze table t id
+        p, p, p, p, p, p, *sizes, i,         # rays boxes graze table t id | motion
+        p, p, p, p,                          # work ctr live stream
     ]
     lib.chunk_closest_n_launch.argtypes = [
         p, p, p, p, p, p, p, *sizes, i,      # rays boxes graze table t id n | motion
@@ -144,6 +151,9 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
     lib.chunk_occlusion_launch.argtypes = [
         p, p, p, p, p, p, *sizes,            # rays maxt boxes graze table blocked
         p, p, p, p,                          # work ctr live stream
+    ]
+    lib.chunk_closest_lane_launch.argtypes = [
+        p, p, p, p, p, p, *sizes, i, p, i, p,  # ... motion work threads stream
     ]
     lib.chunk_closest_n_lane_launch.argtypes = [
         p, p, p, p, p, p, p, *sizes, i, p, i, p,  # ... motion work threads stream
@@ -164,9 +174,11 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
     ]
     for fn in (lib.brute_closest_launch, lib.brute_closest_n_launch,
                lib.bvh_closest_n_launch,
-               lib.occlusion_any_launch, lib.brute_closest_chunked_launch,
+               lib.occlusion_any_launch, lib.occlusion_any_lane_launch,
+               lib.occlusion_any_plan, lib.brute_closest_chunked_launch,
                lib.chunk_closest_launch, lib.chunk_closest_n_launch,
-               lib.chunk_occlusion_launch, lib.chunk_closest_n_lane_launch,
+               lib.chunk_occlusion_launch, lib.chunk_closest_lane_launch,
+               lib.chunk_closest_n_lane_launch,
                lib.chunk_occlusion_lane_launch, lib.chunk_sweep_plan,
                lib.bvh_closest_launch):
         fn.restype = i

@@ -1,5 +1,5 @@
-"""Work counters of the cooperative kernels (wave_level, chunk_closest_n,
-chunk_occlusion).
+"""Work counters of the cooperative kernels (wave_level, occlusion_any and
+the chunk kernels).
 
 Each launch takes five int32 of device memory that are zero at launch and
 that the last block of the launch zeroes again.  There is one set per

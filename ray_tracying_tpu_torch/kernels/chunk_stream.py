@@ -16,23 +16,22 @@ operations — the box tests and the geom tests of the chunks a ray cannot
 rule out, about 80 f32 operations a geom test, against 8 rows of 4 bytes
 read and 1 to 5 written a ray; bytes where few lanes are live.
 
-`chunk_closest_n` and `chunk_occlusion` launch the warp schedule
+The three wrappers launch the warp schedule
 (sweep.cuh::sweep_warp_kernel): one cooperative launch of persistent
 blocks lists the live lanes (act > 0; dead lanes get their outputs in that
 scan) and deals them to warps 32 at a time; the boxes are staged once a
 block; a warp runs a chunk when one of its lanes wants it (the cull per
 warp, no block barrier), its rows arriving through a ring of bulk copies of
-its own; the closest hit visits the chunks nearest first by the warp's
-least entry distance, merges by (t, row) and computes the winner's normal
-once; the any-hit lane stops at its first blocker and the warp once no lane
-is open.  `chunk_closest` stays on the one-thread-per-lane schedule
-(sweep.cuh::sweep_kernel): each thread culls a chunk against its own bound,
-and the block stages a chunk in shared memory when one of its threads
-wants it.  `chunk_sweep_variant` reaches, by name, that schedule for the
-other two, for the measurement that compares them; the package never calls
-it.  The ring needs a chunk of whole 16-byte copies (a multiple of 4 rows
-under 32, of 32 rows above) and a 16-byte aligned table: the warp
-schedule refuses other operands.  The table
+its own; the closest hits visit the chunks nearest first by the warp's
+least entry distance and merge by (t, row), `chunk_closest_n` computes the
+winner's normal once; the any-hit lane stops at its first blocker and the
+warp once no lane is open.  `chunk_sweep_variant` reaches, by name, the
+one-thread-per-lane schedule they replaced (sweep.cuh::sweep_kernel: each
+thread culls a chunk against its own bound, and the block stages a chunk in
+shared memory when one of its threads wants it), for the measurement that
+compares them; the package never calls it.  The ring needs a chunk of whole
+16-byte copies (a multiple of 4 rows under 32, of 32 rows above) and a
+16-byte aligned table: the warp schedule refuses other operands.  The table
 is read as it lies in the scene, row-major (rows, 17): a chunk is one
 contiguous block.
 
@@ -60,7 +59,6 @@ from ray_tracying_tpu_torch.kernels.closest_hit import (
     check_rays,
     check_rows_table,
     geom_t,
-    launch_sweep,
     mixed_closest_plain,
     mixed_rows,
     pack_rays,
@@ -217,7 +215,7 @@ def chunk_closest(rays, boxes, graze, table, g: int, motion: bool = False):
     if not rays.is_cuda:
         return chunk_closest_plain(rays, boxes, graze, table, g, motion)
     chunk = _check(rays, boxes, graze, table, g)
-    out = launch_sweep("chunk_closest", rays, None, boxes, graze, table, g, chunk, motion)
+    out = _launch("chunk_closest", rays, None, boxes, graze, table, g, chunk, motion)
     chunk_closest.launches += 1
     return out
 
@@ -242,11 +240,15 @@ def chunk_occlusion(rays, maxt, boxes, graze, table, g: int):
     return out
 
 
+# The warp kernel's mode of each wrapper (csrc/sweep.cuh::kSweepClosest, ...).
+_SWEEP_MODES = {"chunk_closest": 0, "chunk_closest_n": 1, "chunk_occlusion": 2}
+
+
 def _launch(name, rays, maxt, boxes, graze, table, g, chunk, motion, schedule="warp",
             work=None):
-    """Launch `name` (chunk_closest_n, or chunk_occlusion when maxt is
-    given) on the current stream: the warp schedule or, schedule="lane",
-    the one-thread-per-lane sweep.  work: an
+    """Launch `name` (chunk_closest or chunk_closest_n, or chunk_occlusion
+    when maxt is given) on the current stream: the warp schedule or,
+    schedule="lane", the one-thread-per-lane sweep.  work: an
     int64 (3,) tensor to count into (lane geom tests, lane box tests, warp
     lane slots; csrc/sweep.cuh::SweepWork), or None.  Returns the outputs;
     the caller counts the launch."""
@@ -259,8 +261,9 @@ def _launch(name, rays, maxt, boxes, graze, table, g, chunk, motion, schedule="w
         tail = [r, g, chunk]
     else:
         outs = [torch.empty((r,), dtype=torch.float32, device=dev),
-                torch.empty((r,), dtype=torch.int32, device=dev),
-                torch.empty((3, r), dtype=torch.float32, device=dev)]
+                torch.empty((r,), dtype=torch.int32, device=dev)]
+        if name == "chunk_closest_n":
+            outs.append(torch.empty((3, r), dtype=torch.float32, device=dev))
         head = [rays.data_ptr()]
         tail = [r, g, chunk, int(bool(motion))]
     args = head + [boxes.data_ptr(), graze.data_ptr(), table.data_ptr()]
@@ -282,16 +285,17 @@ def _launch(name, rays, maxt, boxes, graze, table, g, chunk, motion, schedule="w
 
 def chunk_sweep_variant(name, rays, maxt, boxes, graze, table, g: int, motion: bool = False,
                         schedule: str = "warp", work=None):
-    """`name` ("chunk_closest_n" or "chunk_occlusion", maxt None or not)
-    by the package's warp schedule or, schedule="lane", the
-    one-thread-per-lane sweep it replaced; work counts what the launch ran
-    (see `_launch`).  Only for measuring the package's kernel against the
-    schedule it replaced (chip_smoke.py); CUDA tensors only.  Its launches
-    count in `chunk_sweep_variant.launches`, apart from the package's."""
+    """`name` ("chunk_closest" or "chunk_closest_n" with maxt None, or
+    "chunk_occlusion" with maxt) by the package's warp schedule or,
+    schedule="lane", the one-thread-per-lane sweep it replaced; work counts
+    what the launch ran (see `_launch`).  Only for measuring the package's
+    kernel against the schedule it replaced (chip_smoke.py); CUDA tensors
+    only.  Its launches count in `chunk_sweep_variant.launches`, apart from
+    the package's."""
     if not rays.is_cuda:
         raise ValueError("chunk_sweep_variant runs on the card only")
-    if schedule not in ("warp", "lane") or name not in ("chunk_closest_n", "chunk_occlusion") \
-            or (maxt is None) != (name == "chunk_closest_n"):
+    if schedule not in ("warp", "lane") or name not in _SWEEP_MODES \
+            or (maxt is None) != (name != "chunk_occlusion"):
         raise ValueError(f"no variant {schedule!r} of {name!r} with these operands")
     chunk = _check(rays, boxes, graze, table, g, maxt)
     out = _launch(name, rays, maxt, boxes, graze, table, g, chunk, motion, schedule, work)
@@ -306,9 +310,8 @@ def chunk_sweep_plan(name: str, g: int, chunk: int, device=None) -> dict:
     shared memory."""
     lib = _build.load()
     out = (ctypes.c_int * 5)()
-    mode = 1 if name == "chunk_closest_n" else 2
     with torch.cuda.device(device or torch.cuda.current_device()):
-        err = lib.chunk_sweep_plan(mode, g, chunk, out)
+        err = lib.chunk_sweep_plan(_SWEEP_MODES[name], g, chunk, out)
     _raise_on(err, lib, f"{name} plan")
     keys = ("smem_bytes", "blocks_per_sm", "sms", "threads", "boxes_staged")
     return dict(zip(keys, list(out)))

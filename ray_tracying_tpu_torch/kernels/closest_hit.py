@@ -19,10 +19,17 @@ The three kernels (csrc/closest_hit.cu) replace `_brute_kernel`,
 `_brute_n_kernel` and `_occlusion_kernel` of the JAX package's
 kernels/closest_hit.py.  What bounds them on an H100: operations.  A live
 lane runs G tests of about 80 f32 operations each against 8 rows of 4
-bytes read and 2 to 5 written.  Design: one thread per ray, the (17, G)
-table staged in shared memory and read as broadcasts, one kind-specialized
-loop per range, and a dead lane retired before any test; the any-hit loop
-leaves at each thread's first blocker.
+bytes read and 2 to 5 written.  Design of the two closest hits: one thread
+per ray, the (17, G) table staged in shared memory by every block and read
+as broadcasts, one kind-specialized loop per range, and a dead lane retired
+before any test.  The any-hit `occlusion_any` is one cooperative launch of
+persistent blocks of 1,024 threads: each block stages once the 12 columns a
+shadow test reads, as rows of 48 bytes (`occlusion_any_plan`); a scan
+writes the dead lanes and lists the live ones; warps take 32 listed lanes
+at a time and each lane leaves its loop at its first blocker (a short
+list's few lanes a warp have their rows split over helper lanes).  The
+one-thread-per-lane kernel it replaced stays reachable by name
+(`occlusion_any_variant`) for the measurement that compares the two.
 
 A fourth kernel, `brute_closest_chunked` (csrc/closest_hit.cu over
 csrc/sweep.cuh), replaces `_brute_chunked_kernel`: the same closest hit for
@@ -49,7 +56,7 @@ import numpy as np
 import torch
 
 from ray_tracying_tpu_torch.core import constants as C
-from ray_tracying_tpu_torch.kernels import _build
+from ray_tracying_tpu_torch.kernels import _build, _coop
 from ray_tracying_tpu_torch.kernels.geom_table import (
     GEOM_COLS,
     KIND_PLANE,
@@ -548,19 +555,27 @@ def _launch_closest(rays, table, ranges, motion, want_n):
     return t, pid
 
 
-def _launch_occlusion(rays, maxt, table, ranges):
+def _launch_occlusion(rays, maxt, table, ranges, schedule="warp"):
+    """Launch the any-hit on the current stream: the package's cooperative
+    kernel or, schedule="lane", the one-thread-per-lane kernel it replaced.
+    Returns blocked; the caller counts the launch."""
     g, c_ranges = _launch_args(rays, table, ranges)
     lib = _build.load()
     r = rays.shape[1]
-    blocked = torch.empty((r,), dtype=torch.bool, device=rays.device)
-    with torch.cuda.device(rays.device):
-        err = lib.occlusion_any_launch(
-            rays.data_ptr(), maxt.data_ptr(), table.data_ptr(),
-            blocked.data_ptr(), r, g, c_ranges, len(ranges),
-            BRUTE_THREADS, torch.cuda.current_stream().cuda_stream,
-        )
+    dev = rays.device
+    blocked = torch.empty((r,), dtype=torch.bool, device=dev)
+    args = [rays.data_ptr(), maxt.data_ptr(), table.data_ptr(), blocked.data_ptr(),
+            r, g, c_ranges, len(ranges)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if schedule == "lane":
+            err = lib.occlusion_any_lane_launch(*args, BRUTE_THREADS, stream)
+        else:
+            ctr = _coop.work_counters(dev, stream)
+            # the launch's list of live lanes (scratch, no initial value)
+            live = torch.empty(r, dtype=torch.int32, device=dev)
+            err = lib.occlusion_any_launch(*args, ctr.data_ptr(), live.data_ptr(), stream)
     _raise_on(err, lib, "occlusion_any")
-    occlusion_any.launches += 1
     return blocked
 
 
@@ -588,10 +603,39 @@ def brute_closest_n(rays, table, ranges, motion: bool = False):
 
 def occlusion_any(rays, maxt, table, ranges):
     """blocked (R,) bool; see `occlusion_plain`."""
-    if rays.is_cuda:
-        _check_args(rays, table, ranges, maxt)
-        return _launch_occlusion(rays, maxt, table, ranges)
-    return occlusion_plain(rays, maxt, table, ranges)
+    if not rays.is_cuda:
+        return occlusion_plain(rays, maxt, table, ranges)
+    _check_args(rays, table, ranges, maxt)
+    out = _launch_occlusion(rays, maxt, table, ranges)
+    occlusion_any.launches += 1
+    return out
+
+
+def occlusion_any_variant(rays, maxt, table, ranges, schedule: str = "warp"):
+    """`occlusion_any` by the package's kernel or by the one-thread-per-lane
+    kernel it replaced (schedule="lane").  Only for measuring the one against
+    the other (chip_smoke.py); CUDA tensors only.  Its launches count in
+    `occlusion_any_variant.launches`, apart from the package's."""
+    if not rays.is_cuda:
+        raise ValueError("occlusion_any_variant runs on the card only")
+    if schedule not in ("warp", "lane"):
+        raise ValueError(f"no variant {schedule!r} of occlusion_any")
+    _check_args(rays, table, ranges, maxt)
+    out = _launch_occlusion(rays, maxt, table, ranges, schedule)
+    occlusion_any_variant.launches += 1
+    return out
+
+
+def occlusion_any_plan(g: int, device=None) -> dict:
+    """What `occlusion_any` launches with for a table of g geoms on the
+    current card: shared memory bytes of a block, resident blocks per SM,
+    SMs, threads per block."""
+    lib = _build.load()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        err = lib.occlusion_any_plan(g, out)
+    _raise_on(err, lib, "occlusion_any plan")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "sms", "threads"), list(out)))
 
 
 def brute_closest_chunked(rays, table, motion: bool = False):
@@ -601,20 +645,16 @@ def brute_closest_chunked(rays, table, motion: bool = False):
         return brute_closest_chunked_plain(rays, table, motion)
     check_rays(rays, table=table)
     check_rows_table(table, table.shape[0])
-    out = launch_sweep(
-        "brute_closest_chunked", rays, None, None, None, table, table.shape[0],
-        GEOM_CHUNK, motion,
-    )
+    out = launch_sweep("brute_closest_chunked", rays, table, table.shape[0], GEOM_CHUNK, motion)
     brute_closest_chunked.launches += 1
     return out
 
 
-def launch_sweep(name, rays, maxt, boxes, graze, table, g, chunk, motion):
-    """Launch one of the chunk sweeps of csrc/sweep.cuh on the current
-    stream: `name`_launch(rays, [maxt,] [boxes, graze,] table, outputs...,
-    R, G, chunk, [motion,] threads, stream).  boxes, graze: the chunks'
-    AABBs and their slacks, or None for the sweep without a cull.  Returns
-    the outputs; the caller counts the launch."""
+def launch_sweep(name, rays, table, g, chunk, motion):
+    """Launch the chunk sweep of csrc/sweep.cuh without a cull on the
+    current stream: `name`_launch(rays, table, t, id, R, G, chunk, motion,
+    threads, stream) (brute_closest_chunked).  Returns (t, id); the caller
+    counts the launch."""
     if not 0 < chunk <= BRUTE_SMEM_MAX_GEOMS:
         raise ValueError(
             f"a chunk of {chunk} geoms does not fit a block's shared memory "
@@ -623,36 +663,21 @@ def launch_sweep(name, rays, maxt, boxes, graze, table, g, chunk, motion):
     lib = _build.load()
     r = rays.shape[1]
     dev = rays.device
-    any_hit = maxt is not None
-    want_n = name.endswith("_n")
-    if any_hit:
-        outs = [torch.empty((r,), dtype=torch.bool, device=dev)]
-    else:
-        outs = [torch.empty((r,), dtype=torch.float32, device=dev),
-                torch.empty((r,), dtype=torch.int32, device=dev)]
-        if want_n:
-            outs.append(torch.empty((3, r), dtype=torch.float32, device=dev))
-    args = [rays.data_ptr()]
-    if any_hit:
-        args.append(maxt.data_ptr())
-    if boxes is not None:
-        args += [boxes.data_ptr(), graze.data_ptr()]
-    args.append(table.data_ptr())
-    args += [x.data_ptr() for x in outs]
-    args += [r, g, chunk]
-    if not any_hit:
-        args.append(int(bool(motion)))
+    t = torch.empty((r,), dtype=torch.float32, device=dev)
+    pid = torch.empty((r,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, f"{name}_launch")(
-            *args, BRUTE_THREADS, torch.cuda.current_stream().cuda_stream
+            rays.data_ptr(), table.data_ptr(), t.data_ptr(), pid.data_ptr(), r, g, chunk,
+            int(bool(motion)), BRUTE_THREADS, torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, lib, name)
-    return outs[0] if any_hit else tuple(outs)
+    return t, pid
 
 
 brute_closest.launches = 0
 brute_closest_n.launches = 0
 occlusion_any.launches = 0
+occlusion_any_variant.launches = 0
 brute_closest_chunked.launches = 0
 
 

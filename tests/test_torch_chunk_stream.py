@@ -218,8 +218,8 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch, fn):
     _, st = both()
     mod = ch if fn == "brute_closest_chunked" else cs
     called = []
-    # chunk_closest_n and chunk_occlusion launch the warp schedule
-    launcher = "_launch" if fn in ("chunk_closest_n", "chunk_occlusion") else "launch_sweep"
+    # the three chunk kernels launch the warp schedule
+    launcher = "launch_sweep" if fn == "brute_closest_chunked" else "_launch"
     monkeypatch.setattr(mod, launcher, lambda *a, **k: called.append(a) or "launched")
     monkeypatch.setattr(mod, fn + "_plain", lambda *a, **k: pytest.fail("plain"))
 
@@ -259,18 +259,23 @@ def test_sweep_variants_are_for_the_card_and_count_apart(monkeypatch):
     with pytest.raises(ValueError, match="variant"):
         cs.chunk_sweep_variant("chunk_closest_n", r, torch.zeros(8), boxes, graze, table, g)
     with pytest.raises(ValueError, match="variant"):
-        cs.chunk_sweep_variant("chunk_closest", r, None, boxes, graze, table, g)
-    before = (cs.chunk_sweep_variant.launches, cs.chunk_closest_n.launches,
-              cs.chunk_occlusion.launches)
+        cs.chunk_sweep_variant("chunk_closest", r, torch.zeros(8), boxes, graze, table, g)
+    with pytest.raises(ValueError, match="variant"):
+        cs.chunk_sweep_variant("chunk_closest_n", r, None, boxes, graze, table, g,
+                               schedule="blocks")
+    before = (cs.chunk_sweep_variant.launches, cs.chunk_closest.launches,
+              cs.chunk_closest_n.launches, cs.chunk_occlusion.launches)
     cs.chunk_sweep_variant("chunk_closest_n", r, None, boxes, graze, table, g, schedule="lane")
     work = torch.zeros(3, dtype=torch.int64)
     cs.chunk_sweep_variant("chunk_occlusion", r, torch.zeros(8), boxes, graze, table, g,
                            work=work)
-    assert [a[0] for a in called] == ["chunk_closest_n", "chunk_occlusion"]
-    assert called[0][9:] == ("lane", None)
+    cs.chunk_sweep_variant("chunk_closest", r, None, boxes, graze, table, g, schedule="lane")
+    assert [a[0] for a in called] == ["chunk_closest_n", "chunk_occlusion", "chunk_closest"]
+    assert called[0][9:] == ("lane", None) and called[2][9:] == ("lane", None)
     assert called[1][9] == "warp" and called[1][10] is work
-    assert (cs.chunk_sweep_variant.launches, cs.chunk_closest_n.launches,
-            cs.chunk_occlusion.launches) == (before[0] + 2, before[1], before[2])
+    assert (cs.chunk_sweep_variant.launches, cs.chunk_closest.launches,
+            cs.chunk_closest_n.launches, cs.chunk_occlusion.launches) == \
+        (before[0] + 3, *before[1:])
 
 
 def test_wrappers_refuse_malformed_operands():
@@ -291,5 +296,5 @@ def test_wrappers_refuse_malformed_operands():
         cs.closest_hit_tid_chunks(carried(mixed_scene()), *tt(*batch(0)[:3]))
     # a chunk beyond a block's shared memory is refused before any build
     with pytest.raises(ValueError, match="shared memory"):
-        ch.launch_sweep("chunk_closest", r, None, boxes, graze, table, g,
-                        ch.BRUTE_SMEM_MAX_GEOMS + 1, False)
+        ch.launch_sweep("brute_closest_chunked", r, table, g, ch.BRUTE_SMEM_MAX_GEOMS + 1,
+                        False)

@@ -270,6 +270,32 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch, fn):
     assert len(called) == 1
 
 
+def test_occlusion_variant_is_for_the_card_and_counts_apart(monkeypatch):
+    """The schedule chip_smoke.py measures the package's any-hit against
+    (one thread per lane) is reached by name, refuses a CPU tensor and an
+    unknown schedule, and counts its launches apart from the wrapper's."""
+    _, st = both("blockers")
+    table, ranges = ch.scene_table(st)
+    with pytest.raises(ValueError, match="card"):
+        ch.occlusion_any_variant(torch.zeros((8, 8)), torch.zeros(8), table, ranges)
+    called = []
+    monkeypatch.setattr(ch, "_launch_occlusion", lambda *a: called.append(a) or "launched")
+
+    class FakeCuda(torch.Tensor):
+        is_cuda = True
+
+    r = torch.zeros((8, 8)).as_subclass(FakeCuda)
+    with pytest.raises(ValueError, match="variant"):
+        ch.occlusion_any_variant(r, torch.zeros(8), table, ranges, schedule="blocks")
+    before = (ch.occlusion_any_variant.launches, ch.occlusion_any.launches)
+    assert ch.occlusion_any_variant(r, torch.zeros(8), table, ranges, schedule="lane") == "launched"
+    ch.occlusion_any_variant(r, torch.zeros(8), table, ranges)
+    ch.occlusion_any(r, torch.zeros(8), table, ranges)
+    assert [a[4:] for a in called] == [("lane",), ("warp",), ()]
+    assert (ch.occlusion_any_variant.launches, ch.occlusion_any.launches) == \
+        (before[0] + 2, before[1] + 1)
+
+
 def test_launcher_refuses_a_table_beyond_shared_memory():
     """More geoms than one block's shared memory holds: refused by name
     before any build, not sent to a slower route."""

@@ -9,9 +9,11 @@ compiler builds them.  Here g++ compiles each behind a short loop over
 lanes, with FMA contraction off as in the nvcc build, and every level of a
 trace goes through it and through `wave_level_plain` on the same rays and
 fuzz rows; the fused level's block schedule also runs from the same stage
-functions behind a host loop (HOST_BLOCKS), and so does the warp schedule of
+functions behind a host loop (HOST_BLOCKS), and so do the warp schedule of
 the chunk sweeps (WARP_HOST: scan, live-lane list, warps of 32 lanes run in a
-loop, nearest chunk first).  This holds the two
+loop, nearest chunk first) and that of the shadow any-hit (SHADOW_HOST: the
+12-column table staged by a block's threads, scan, list, warps of 32).  This
+holds the two
 sources to the same arithmetic (the closest-hit and any-hit lane functions
 likewise go through seeded rays beside `brute_closest_plain`,
 `brute_closest_n_plain` and `occlusion_plain`, and the chunk sweep and the
@@ -634,6 +636,184 @@ def test_occlusion_lane_equals_plain(host_brute, name):
 
 
 # ---------------------------------------------------------------------------
+# The any-hit's warp schedule of csrc/closest_hit.cu (occlusion_warp_kernel),
+# run on the host from the same steps: the shadow table staged by the
+# threads of a block from the (17, G) table, the scan in steps of kWarpScan
+# lanes (sweep_scan4 in the any-hit mode), the list of live lanes, then
+# tasks of warp_task list entries, each an emulated warp whose lanes run
+# shadow_blocked in a loop (a short task's rows split over helper lanes, whose
+# answers OR as the kernel's shuffles take them).
+# ---------------------------------------------------------------------------
+
+SHADOW_HOST = """
+#include "closest_hit.cu"
+#include <string.h>
+#include <vector>
+
+namespace {
+using namespace rtt;
+}  // namespace
+
+// n_threads: the threads of the block that stage the shadow table (entries
+// t, t + n_threads, ...); n_warps: the launch's warps, which a short list is
+// shared over.  stab_out: G x 12 floats, the staged table.  did: live lanes,
+// warps, lanes a warp takes, lanes a listed lane's rows are split over.
+extern "C" void occlusion_warp_host(
+    const float* rays, const float* maxt, const float* table, uint8_t* blocked, long long R,
+    int G, const int* ranges, int n_ranges, int n_threads, int n_warps, float* stab_out,
+    long long* did) {
+  const BruteParams p = make_brute_params(rays, maxt, table, nullptr, nullptr, nullptr, blocked,
+                                          R, G, ranges, n_ranges, 0);
+  const SweepParams scan = shadow_scan_params(p);
+  std::vector<F4> buf((shadow_smem_bytes(G) + sizeof(F4) - 1) / sizeof(F4) + 1);
+  float* stab = reinterpret_cast<float*>(buf.data());
+  for (int t = 0; t < n_threads; ++t) stage_shadow_rows(table, G, stab, t, n_threads);
+  std::vector<int> live;
+  for (long long base = 0; base < R; base += kWarpScan) {
+    for (int lane = 0; lane < 32; ++lane) {
+      const unsigned live4 = sweep_scan4<kSweepAnyHit>(scan, base + 4 * lane);
+      for (int j = 0; j < 4; ++j)
+        if ((live4 >> j) & 1u) live.push_back((int)(base + 4 * lane + j));
+    }
+  }
+  const int n = (int)live.size();
+  const int task = warp_task(n, n_warps);
+  const int g = split_lanes(task);
+  long long warps = 0;
+  for (int first = 0; first < n; first += task, ++warps) {
+    bool blocked_by[32];
+    for (int lane = 0; lane < 32; ++lane) {
+      const int q = lane / g, e = first + q;
+      const bool mine = q < task && e < n;
+      blocked_by[lane] = mine && shadow_blocked(p, stab, (size_t)live[mine ? e : 0], lane % g, g);
+    }
+    for (int o = g / 2; o > 0; o >>= 1) {  // the group's OR, as the shuffles take it
+      bool next[32];
+      for (int lane = 0; lane < 32; ++lane) next[lane] = blocked_by[lane] || blocked_by[lane ^ o];
+      memcpy(blocked_by, next, sizeof next);
+    }
+    for (int lane = 0; lane < 32; ++lane) {
+      const int q = lane / g, e = first + q;
+      if (q < task && e < n && lane % g == 0) blocked[live[e]] = blocked_by[lane] ? 1 : 0;
+    }
+  }
+  memcpy(stab_out, stab, shadow_smem_bytes(G));
+  did[0] = n; did[1] = warps; did[2] = task; did[3] = g;
+}
+
+extern "C" long long shadow_smem_bytes_host(int G) { return (long long)shadow_smem_bytes(G); }
+"""
+
+
+@pytest.fixture(scope="module")
+def host_shadow(tmp_path_factory):
+    """The g++ build of the any-hit's warp schedule behind `occlusion_any`'s
+    signature: occlusion(rays, maxt, table, ranges, n_threads=1, n_warps=1,
+    counts=None) -> blocked; `counts` receives the live lanes,
+    the warps, the lanes a warp takes, the lanes a listed lane's rows are
+    split over and the staged table.  Every output is written: the buffer
+    starts as 7."""
+    d = tmp_path_factory.mktemp("shadow_host")
+    src, out = str(d / "shadow_host.cpp"), str(d / "libshadow_host.so")
+    with open(src, "w") as f:
+        f.write(SHADOW_HOST)
+    subprocess.run(
+        ["g++", "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-I", CSRC,
+         "-shared", "-fPIC", "-o", out, src],
+        check=True,
+    )
+    lib = ctypes.CDLL(out)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.occlusion_warp_host.argtypes = [p, p, p, p, ll, i, ctypes.POINTER(ctypes.c_int), i, i,
+                                        i, p, p]
+    lib.occlusion_warp_host.restype = None
+    lib.shadow_smem_bytes_host.argtypes = [i]
+    lib.shadow_smem_bytes_host.restype = ll
+
+    def occlusion(rays, maxt, table, ranges, n_threads=1, n_warps=1, counts=None):
+        r, g = rays.shape[1], table.shape[1]
+        blocked = torch.full((r,), 7, dtype=torch.uint8)
+        stab = torch.full((g, 12), float("nan"))
+        did = torch.zeros(4, dtype=torch.int64)
+        flat = [x for rng in ranges for x in rng]
+        lib.occlusion_warp_host(
+            rays.data_ptr(), maxt.data_ptr(), table.data_ptr(), blocked.data_ptr(), r, g,
+            (ctypes.c_int * 12)(*(flat + [0] * (12 - len(flat)))), len(ranges), n_threads,
+            n_warps, stab.data_ptr(), did.data_ptr())
+        if counts is not None:
+            counts.update(live=int(did[0]), warps=int(did[1]), task=int(did[2]),
+                          helpers=int(did[3]), stab=stab)
+        assert int(blocked.max()) <= 1
+        return blocked.bool()
+
+    occlusion.smem_bytes = lib.shadow_smem_bytes_host
+    return occlusion
+
+
+@pytest.mark.parametrize("name", ["all_kinds", "golden/ASCII/scene.json"])
+@pytest.mark.parametrize("act", ["case_mask", "few_live", "all_dead"])
+@pytest.mark.parametrize("n_warps", [1, 600])
+def test_shadow_schedule_equals_plain(host_shadow, host_brute, name, act, n_warps):
+    """The any-hit's warp schedule (staged 12-column rows, scan, live-lane
+    list, tasks of 32 or, over 600 warps, short equal shares whose rows are
+    split over helper lanes) on the scene with every kind (a legacy plane
+    too) and on the flagship's 141 cubes and rect: bit-equal to the
+    one-thread-per-lane function it replaced (both g++ builds of the same
+    arithmetic) and to itself over one warp (tasks of 32, no helper
+    lanes), occlusion_plain's output
+    but for a hit within one rounding of maxt, every output written, a dead
+    lane not blocked."""
+    _, occlusion = host_brute
+    scene, rays, maxt = brute_case(name)
+    rays[6] = 0.0  # shadow rays carry time 0
+    share = {"case_mask": None, "few_live": 0.05, "all_dead": 0.0}[act]
+    if share is not None:
+        rays[7] = random_act(rays.shape[1], share, seed=4)
+    table, ranges = CH.scene_table(scene)
+    assert name != "all_kinds" or sorted(k for k, _, _ in ranges) == [0, 1, 2, 3]
+    counts = {}
+    host = host_shadow(rays, maxt, table, ranges, n_warps=n_warps, counts=counts)
+    assert torch.equal(host, occlusion(rays, maxt, table, ranges))
+    assert torch.equal(host, host_shadow(rays, maxt, table, ranges, n_warps=1))
+    plain = CH.occlusion_plain(rays, maxt, table, ranges)
+    assert int((host != plain).sum()) <= 1
+    assert not host[rays[7] <= 0].any()
+    live = int((rays[7] > 0).sum())
+    task = min(32, max(1, -(-live // n_warps)))
+    assert counts["live"] == live and counts["task"] == task
+    assert counts["warps"] == -(-live // task)
+    # a short task's rows are split so that the warp's lanes stay busy
+    assert counts["helpers"] == max(g for g in (1, 2, 4, 8, 16, 32) if g == 1 or g * task <= 32)
+    assert (counts["helpers"] > 1) == (task <= 16)
+    if act == "all_dead":
+        assert live == 0 and not host.any()
+    else:
+        assert 0 < int(plain.sum()) < live
+        assert (task == 32) == (n_warps == 1)
+
+
+@pytest.mark.parametrize("n_threads", [1, 7, 1024])
+def test_shadow_table_is_the_twelve_columns_row_major(host_shadow, n_threads):
+    """However many threads of a block stage it, the shadow table is
+    columns 0..11 of the (17, G) table as rows of 12: w2o, or a legacy
+    plane's corners."""
+    scene, rays, maxt = brute_case("all_kinds")
+    table, ranges = CH.scene_table(scene)
+    counts = {}
+    host_shadow(rays, maxt, table, ranges, n_threads=n_threads, counts=counts)
+    assert torch.equal(counts["stab"], table[:12].T.contiguous())
+
+
+def test_shadow_smem_formula_is_the_kernels(host_shadow):
+    """The kernel's shared memory (csrc/closest_hit.cu::shadow_smem_bytes,
+    what occlusion_any_plan reports) is 48 bytes a geom, rows of three whole
+    16-byte words, and the table of the brute kernels' cap fits a block."""
+    for g in (0, 1, 141, 2049, CH.BRUTE_SMEM_MAX_GEOMS):
+        assert host_shadow.smem_bytes(g) == 48 * g == 3 * 16 * g
+    assert host_shadow.smem_bytes(CH.BRUTE_SMEM_MAX_GEOMS) <= CH.BRUTE_MAX_SMEM_BYTES
+
+
+# ---------------------------------------------------------------------------
 # csrc/sweep.cuh (chunk_stream.cu, the chunked brute of closest_hit.cu) and
 # csrc/bvh_traverse.cu: the chunk sweep with its per-ray cull, the per-ray
 # traversal, and the dispatch on a row's own kind
@@ -826,8 +1006,8 @@ def test_bvh_lane_equals_plain(host_accel, name, want_n):
 
 
 # ---------------------------------------------------------------------------
-# The warp schedule of csrc/sweep.cuh (sweep_warp_kernel: chunk_closest_n,
-# chunk_occlusion), run on the host from the same step functions: the scan in
+# The warp schedule of csrc/sweep.cuh (sweep_warp_kernel: chunk_closest,
+# chunk_closest_n, chunk_occlusion), run on the host from the same step functions: the scan in
 # steps of kWarpScan lanes (dead lanes written there, 16-byte stores where
 # the rows allow), the list of live lanes, then tasks of 32 list entries,
 # each an emulated warp whose 32 lanes run in a loop where the kernel has
@@ -1052,7 +1232,7 @@ def host_warp(tmp_path_factory):
     return sweep
 
 
-WARP_KERNELS = {"chunk_closest_n": 1, "chunk_occlusion": 2}
+WARP_KERNELS = {"chunk_closest": 0, "chunk_closest_n": 1, "chunk_occlusion": 2}
 
 
 def warp_case(name, kernel, act_share=None, seed=8):
@@ -1069,8 +1249,8 @@ def warp_case(name, kernel, act_share=None, seed=8):
     if kernel == "chunk_occlusion":
         rays[6] = 0.0
         return ops, CS.chunk_occlusion_plain(rays, maxt, *ops), rays, maxt, False
-    return ops, CS.chunk_closest_n_plain(rays, *ops, scene.has_motion), rays, None, \
-        scene.has_motion
+    plain = getattr(CS, kernel + "_plain")(rays, *ops, scene.has_motion)
+    return ops, plain, rays, None, scene.has_motion
 
 
 def assert_warp_same(host, lane, plain, rays, kernel):
@@ -1116,10 +1296,10 @@ def test_warp_schedule_equals_plain(host_warp, host_accel, name, kernel, act, n_
         assert counts["whole_chunks"] > 0      # and chunks most of a warp wants
     if task <= 16:
         assert counts["whole_chunks"] == 0     # a short task always splits
-    if kernel == "chunk_closest_n":
+    if kernel != "chunk_occlusion":
         dead = rays[7] <= 0
-        assert not host[2][:, dead].any() and (host[1][dead] == -1).all()
-        assert torch.isinf(host[0][dead]).all()
+        assert (host[1][dead] == -1).all() and torch.isinf(host[0][dead]).all()
+        assert len(host) == 2 or not host[2][:, dead].any()
     assert not counts["lane_tests"][rays[7] <= 0].any()
 
 
@@ -1146,8 +1326,11 @@ def test_warp_schedule_scan_widths(host_warp, kernel, width):
         else:
             dead = rays[7] <= 0
             assert torch.isinf(host[0][dead]).all() and (host[1][dead] == -1).all()
-            assert not host[2][:, dead].any() and not torch.isnan(host[2]).any()
-            plain = CH.mixed_closest_plain(rays, scene.chunk_geoms, scene.n_geoms, False, want_n=True)
+            assert not torch.isnan(host[0]).any()
+            if mode == 1:
+                assert not host[2][:, dead].any() and not torch.isnan(host[2]).any()
+            plain = CH.mixed_closest_plain(rays, scene.chunk_geoms, scene.n_geoms, False,
+                                           want_n=mode == 1)
             assert torch.equal(host[1], plain[1])
 
 
