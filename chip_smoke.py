@@ -20,8 +20,10 @@ sweep it replaced (phase sweep_redesign_ab: level-0, level-1 and shadow rays
 of the 20,001-geom scene, plain and textured, bit-equal) and the shadow
 any-hit's persistent warps against its one-thread-per-lane kernel (phase
 anyhit_redesign_ab: the 2,049-geom scene's level-0 and level-1 shadow rays
-and the flagship tile's, bit-equal), and times every closest-hit and any-hit
-launch of one frame of each large scene by each schedule (phase
+and the flagship tile's, bit-equal), the same for the two brute closest hits
+(phase brute_redesign_ab: the flagship tile's level-0 rays and the 2,049-geom
+scene's level-0 and level-1 rays, bit-equal), and times every closest-hit and
+any-hit launch of one frame of each large scene by each schedule (phase
 accel_tile_breakdown, the frames byte-equal); it
 checks twelve images against the reference renderer's goldens, and prints
 one JSON line per phase.  Any failure exits non-zero; nothing is caught.
@@ -573,6 +575,63 @@ def anyhit_redesign_ab(CH, _build, case, rays, maxt, table, ranges, idx):
     return row
 
 
+def brute_redesign_ab(CH, _build, case, rays, table, ranges, motion, idx):
+    """Phase brute_redesign_ab: brute_closest and brute_closest_n by the
+    package's kernel (persistent warps over a live-lane list, the table
+    staged once a block as 64-byte rows, the winner's normal off the loop)
+    against the one-thread-per-lane kernels they replaced, on the same
+    full-width rays: both torch.equal at full width, and the package's equal
+    to the plain version on the strided sample `idx`; ms of each by CUDA
+    events in turns (lane, warp, warp, lane); the bound (every live ray runs
+    every geom test), the launch plan and the ptxas report of both kernels.
+    Returns {kernel name: row}."""
+    n, g = rays.shape[1], table.shape[1]
+    live = int((rays[7] > 0).sum())
+    sub = rays[:, idx].contiguous()
+    rows = {}
+    for name, want_n, plain in (("brute_closest", False, CH.brute_closest_plain),
+                                ("brute_closest_n", True, CH.brute_closest_n_plain)):
+        def call(sched):
+            return CH.brute_closest_variant(rays, table, ranges, motion, want_n, schedule=sched)
+
+        new, old = call("warp"), call("lane")
+        equal = all(bool(torch.equal(x, y)) for x, y in zip(new, old))
+        del old
+        torch.cuda.synchronize()
+        t0 = time.time()
+        b = plain(sub, table, ranges, motion)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        plain_equal = all(bool(torch.equal(x[..., idx], y)) for x, y in zip(new, b))
+        del new
+        t = {}
+        for turn, sched in (("lane", "lane"), ("warp", "warp"), ("warp_again", "warp"),
+                            ("lane_again", "lane")):
+            t[turn] = cuda_ms(lambda: call(sched), 3)
+        row = dict(case=case, kernel=name, lanes=n, live=live, geoms=g,
+                   ms=(t["warp"] + t["warp_again"]) / 2,
+                   warp_ms=[t["warp"], t["warp_again"]], lane_ms=[t["lane"], t["lane_again"]],
+                   old_schedule_ms=(t["lane"] + t["lane_again"]) / 2,
+                   plain_ms=plain_ms, plain_lanes=sub.shape[1],
+                   hits_in_sample=int((b[1] >= 0).sum()),
+                   warp_equals_lane=equal, equals_plain_on_sample=plain_equal,
+                   max_abs_err=0.0 if plain_equal else float("inf"),
+                   **CH.brute_closest_plan(g, want_n),
+                   ptxas=ptxas_report(_build, f"brute_warp_kernelILb{int(want_n)}E"),
+                   old_schedule_ptxas=ptxas_report(_build, f"{name}_kernel"),
+                   **brute_bound(n, live, live * g, ranges, g, 7, 20 if want_n else 8))
+        say("brute_redesign_ab", **row)
+        if _build.last_build["compiled"] and not (row["ptxas"] and row["old_schedule_ptxas"]):
+            fail(f"ptxas reported nothing for the two kernels of {name}")
+        if not equal:
+            fail(f"the two schedules of {name} differ on {case}")
+        if not plain_equal:
+            fail(f"{name} and its plain version disagree on {case}")
+        rows[name] = row
+        del b
+    return rows
+
+
 def sweep_plan_phase(CS, _build, scene):
     """Phase sweep_plan: what ptxas reports for the warp schedule's kernels
     and the plan each launches with on this card for `scene`'s chunk table."""
@@ -635,15 +694,15 @@ def accel_tile_breakdown(rt, label, scene, opts, dev, schedule, kernels):
     """Phase accel_tile_breakdown: one frame of `scene` (one tile) through
     render_to_srgb_u8, every launch of `kernels` ({name: module}; the first
     is the closest hit that opens each level) timed by CUDA events, level by
-    level with its live lanes; occlusion_any and the chunk kernels by
-    `schedule` ("warp", the package's; "lane", the one-thread-per-lane
-    kernels they replaced).  Returns (image, row)."""
+    level with its live lanes; the brute closest hits, occlusion_any and the
+    chunk kernels by `schedule` ("warp", the package's; "lane", the
+    one-thread-per-lane kernels they replaced).  Returns (image, row)."""
     from ray_tracying_tpu_torch.kernels import chunk_stream as CS
     from ray_tracying_tpu_torch.kernels import closest_hit as CH
 
     real = {name: getattr(mod, name) for name, mod in kernels.items()}
     opener = next(iter(kernels))
-    launchers = (CS._launch, CH._launch_occlusion)
+    launchers = (CS._launch, CH._launch_occlusion, CH._launch_closest)
     rec = []
     level = [-1]
 
@@ -667,13 +726,14 @@ def accel_tile_breakdown(rt, label, scene, opts, dev, schedule, kernels):
     if schedule == "lane":
         CS._launch = lambda *a: launchers[0](*a, schedule="lane")
         CH._launch_occlusion = lambda *a: launchers[1](*a, schedule="lane")
+        CH._launch_closest = lambda *a: launchers[2](*a, schedule="lane")
     try:
         img, seconds = accel_frame(rt, scene, opts, 5, dev)
     finally:
         for name, mod in kernels.items():
             real[name].launches = getattr(mod, name).launches
             setattr(mod, name, real[name])
-        CS._launch, CH._launch_occlusion = launchers
+        CS._launch, CH._launch_occlusion, CH._launch_closest = launchers
     launches = [dict(level=lv, kernel=name, live=int(n_live), ms=s.elapsed_time(e))
                 for lv, name, s, e, n_live in rec]
     by_kernel = {name: sum(x["ms"] for x in launches if x["kernel"] == name) for name in kernels}
@@ -773,6 +833,7 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
     at_width = {}
     ab_sets = {}
     city_anyhit = {}
+    city_brute = {}
     for sname in ("sphere_field", "cube_city"):
         full = acc[sname]["full"]
         big = full.n_geoms > CH.BRUTE_SMEM_MAX_GEOMS
@@ -822,6 +883,10 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
                 city_anyhit[level] = anyhit_redesign_ab(
                     CH, _build, f"{sname}, {level} shadow rays of light 0", *shadow, table_s,
                     ranges_s, idx)
+            for level, rays_l in (("level 0", rays0), ("level 1", rays1)):
+                city_brute[level] = brute_redesign_ab(
+                    CH, _build, f"{sname}, {level} rays of the full-width tile", rays_l, table_s,
+                    ranges_s, full.has_motion, idx)
         for level, rays_l in (("level 0", rays0), ("level 1", rays1)):
             case = f"{sname}, {level} rays of the full-width tile"
             shadow = cast[0] if big and level == "level 0" else None
@@ -1099,10 +1164,9 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
         if not accel_entries[-1]["launches"]:
             fail(f"the acceleration path never launched {name}")
 
-    city_frames = {label: {sched: breakdown[(label, sched)]["kernel_ms"]["occlusion_any"]
-                           for sched in ("warp", "lane")}
-                   for label in ("cube_city_bvh", "cube_city_brute")}
-    return accel_entries, city_anyhit, city_frames
+    city_frames = {(label, sched): breakdown[(label, sched)]["kernel_ms"]
+                   for label in ("cube_city_bvh", "cube_city_brute") for sched in ("warp", "lane")}
+    return accel_entries, city_anyhit, city_brute, city_frames
 
 
 def wave_plan_phase(W, _build, tables, scene):
@@ -1208,12 +1272,12 @@ def main():
     ptxas = [ln.strip() for ln in _build.last_build["log"].splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     # wave_level (blocks) and its one-thread-per-lane schedule, three brute
-    # kernels and the any-hit's warp kernel, two traversals; seven
-    # one-thread-per-lane sweeps (the chunked brute, and each of the three
-    # chunk kernels with its counting build); six warp sweeps (the three
-    # chunk kernels, each with its counting build)
-    if sum("entry function" in ln for ln in ptxas) != 21 and _build.last_build["compiled"]:
-        fail("the build did not report twenty-one kernels")
+    # kernels by one thread per lane and their three warp kernels, two
+    # traversals; seven one-thread-per-lane sweeps (the chunked brute, and
+    # each of the three chunk kernels with its counting build); six warp
+    # sweeps (the three chunk kernels, each with its counting build)
+    if sum("entry function" in ln for ln in ptxas) != 23 and _build.last_build["compiled"]:
+        fail("the build did not report twenty-three kernels")
     say("build", seconds=round(_build.last_build["seconds"], 2),
         compiled=_build.last_build["compiled"], flags=_build.last_build["flags"],
         library=os.path.relpath(_build.last_build["path"], REPO), ptxas=ptxas)
@@ -1460,7 +1524,10 @@ def main():
     # the measurement behind --fmad=false; the package never runs this
     # variant, so it is swapped in here and out again.
     strict = _build.load()
+    shipped = dict(_build.last_build)
     fused = _build.load_variant(fmad=True)
+    # the ptxas reports of later phases are the shipped build's
+    _build.last_build.update(shipped)
     det = rt.load_scene(os.path.join(REPO, "scenes", "bvh_det.json"),
                         textures_dir=os.path.join(REPO, "golden", "Textures"))
     det_gold = rt.read_ppm(os.path.join(REPO, "golden", "Output", "bvh_det_s1.ppm")).astype(int)
@@ -1508,6 +1575,9 @@ def main():
     flag_anyhit = anyhit_redesign_ab(
         CH, _build, "level-0 shadow rays of light 0 of one full-width flagship tile", *cast[0],
         g_table, g_ranges, torch.arange(0, n, ACCEL_SIZES["stride"], device=dev))
+    flag_brute = brute_redesign_ab(
+        CH, _build, "level 0 of one full-width flagship tile", rays_w, g_table, g_ranges,
+        scene.has_motion, torch.arange(0, n, ACCEL_SIZES["stride"], device=dev))
 
     # Level 0 of that tile, general path against fused path: the same
     # radiance to rtol 1e-4 / atol 1e-5.  The two paths rebuild the texture
@@ -1597,7 +1667,7 @@ def main():
     # ---- phases 9 and 10: the acceleration path
     del o, d, tm, fuzz, levels, boot, g_img, img
     torch.cuda.empty_cache()
-    accel_entries, city_anyhit, city_frames = accel_phases(
+    accel_entries, city_anyhit, city_brute, city_frames = accel_phases(
         rt, dev, ACCEL_SIZES, kinds, k_table, k_ranges, k_n, n_levels)
 
     brute_entries = []
@@ -1627,22 +1697,30 @@ def main():
                              if name == "brute_closest_n" else
                              "; launches counted on two general-path frames"),
         })
-        if name == "occlusion_any":
-            c0, c1 = city_anyhit["level 0"], city_anyhit["level 1"]
+        # the redesign's rows: the flagship tile's, cube_city's levels 0 and 1
+        flag, city = (flag_anyhit, city_anyhit) if name == "occlusion_any" else \
+            (flag_brute[name], {lv: r[name] for lv, r in city_brute.items()})
+        c0, c1 = city["level 0"], city["level 1"]
+        brute_entries[-1].update(
+            old_schedule_ms=flag["old_schedule_ms"],
+            blocks_per_sm=flag["blocks_per_sm"], smem_bytes=flag["smem_bytes"],
+            threads=flag["threads"],
+            cube_city_ms=c0["ms"], cube_city_old_schedule_ms=c0["old_schedule_ms"],
+            cube_city_bound_ms=c0["bound_ms"], cube_city_bound_by=c0["bound_by"],
+            cube_city_live=c0["live"], cube_city_smem_bytes=c0["smem_bytes"],
+            cube_city_blocks_per_sm=c0["blocks_per_sm"],
+            cube_city_level1_ms=c1["ms"],
+            cube_city_level1_old_schedule_ms=c1["old_schedule_ms"],
+            cube_city_level1_bound_ms=c1["bound_ms"])
+        # every launch of the kernel in the cube_city frames that launch it
+        frames = {"occlusion_any": ("cube_city_bvh", "cube_city_brute"),
+                  "brute_closest_n": ("cube_city_brute",)}.get(name, ())
+        if frames:
             brute_entries[-1].update(
-                old_schedule_ms=flag_anyhit["old_schedule_ms"],
-                blocks_per_sm=flag_anyhit["blocks_per_sm"], smem_bytes=flag_anyhit["smem_bytes"],
-                threads=flag_anyhit["threads"],
-                cube_city_ms=c0["ms"], cube_city_old_schedule_ms=c0["old_schedule_ms"],
-                cube_city_bound_ms=c0["bound_ms"], cube_city_bound_by=c0["bound_by"],
-                cube_city_live=c0["live"], cube_city_smem_bytes=c0["smem_bytes"],
-                cube_city_blocks_per_sm=c0["blocks_per_sm"],
-                cube_city_level1_ms=c1["ms"],
-                cube_city_level1_old_schedule_ms=c1["old_schedule_ms"],
-                cube_city_level1_bound_ms=c1["bound_ms"],
-                cube_city_frame_ms_all_launches={k: v["warp"] for k, v in city_frames.items()},
+                cube_city_frame_ms_all_launches={
+                    f: city_frames[(f, "warp")][name] for f in frames},
                 cube_city_frame_ms_all_launches_old_schedule={
-                    k: v["lane"] for k, v in city_frames.items()})
+                    f: city_frames[(f, "lane")][name] for f in frames})
     print(json.dumps({"kernels": [{
         "name": "wave_level",
         "route": "cuda",

@@ -336,6 +336,23 @@ struct Best {
   int row;
 };
 
+// Merge another winner (t, row) into `b`: the lower (t, row).  A total
+// order, so winners of any slices of the rows merge in any order to the
+// winner of a strict-< sweep in ascending row order.
+RTT_DEV void best_merge(Best& b, float t, int row) {
+  if (t < b.t || (t == b.t && row < b.row)) { b.t = t; b.row = row; }
+}
+
+// Normalize a winner's world normal once (Code/shapes.cpp:186) and store it
+// as lane i of the (3, R) rows `n`; a zero normal (no winner) stays zero.
+RTT_DEV void store_unit_normal(float* n, size_t R, size_t i, float nx, float ny, float nz) {
+  float ln = sqrtf(nx * nx + ny * ny + nz * nz);
+  ln = (ln > 0.0f) ? ln : 1.0f;
+  n[0 * R + i] = nx / ln;
+  n[1 * R + i] = ny / ln;
+  n[2 * R + i] = nz / ln;
+}
+
 // Closest hit over rows [start, end) of kind KIND, in table order, with
 // the strict-< first-wins tie-break (Code/acceleration.cpp:112,133).
 template <int KIND, bool MOTION = false>

@@ -115,16 +115,13 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
     for fn in (lib.wave_level_launch, lib.wave_level_lane_launch, lib.wave_level_plan):
         fn.restype = i
     ranges = ctypes.POINTER(ctypes.c_int)
-    lib.brute_closest_launch.argtypes = [
-        p, p, p, p,                          # rays table t id
-        ctypes.c_longlong, i, ranges, i,     # R G ranges n_ranges
-        i, i, p,                             # motion threads stream
-    ]
-    lib.brute_closest_n_launch.argtypes = [
-        p, p, p, p, p,                       # rays table t id n
-        ctypes.c_longlong, i, ranges, i,
-        i, i, p,
-    ]
+    closest = [p, p, p, p, ctypes.c_longlong, i, ranges, i, i]  # rays table t id R G ranges n motion
+    closest_n = [p, p, p, p, p, ctypes.c_longlong, i, ranges, i, i]  # ... t id n ...
+    lib.brute_closest_launch.argtypes = closest + [p, p, p]          # ctr live stream
+    lib.brute_closest_n_launch.argtypes = closest_n + [p, p, p]
+    lib.brute_closest_lane_launch.argtypes = closest + [i, p]        # threads stream
+    lib.brute_closest_n_lane_launch.argtypes = closest_n + [i, p]
+    lib.brute_closest_plan.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]  # G want_n out
     lib.occlusion_any_launch.argtypes = [
         p, p, p, p,                          # rays maxt table blocked
         ctypes.c_longlong, i, ranges, i,
@@ -173,7 +170,8 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
         i, i, p,
     ]
     for fn in (lib.brute_closest_launch, lib.brute_closest_n_launch,
-               lib.bvh_closest_n_launch,
+               lib.brute_closest_lane_launch, lib.brute_closest_n_lane_launch,
+               lib.brute_closest_plan, lib.bvh_closest_n_launch,
                lib.occlusion_any_launch, lib.occlusion_any_lane_launch,
                lib.occlusion_any_plan, lib.brute_closest_chunked_launch,
                lib.chunk_closest_launch, lib.chunk_closest_n_launch,

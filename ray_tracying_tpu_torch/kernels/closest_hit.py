@@ -19,17 +19,19 @@ The three kernels (csrc/closest_hit.cu) replace `_brute_kernel`,
 `_brute_n_kernel` and `_occlusion_kernel` of the JAX package's
 kernels/closest_hit.py.  What bounds them on an H100: operations.  A live
 lane runs G tests of about 80 f32 operations each against 8 rows of 4
-bytes read and 2 to 5 written.  Design of the two closest hits: one thread
-per ray, the (17, G) table staged in shared memory by every block and read
-as broadcasts, one kind-specialized loop per range, and a dead lane retired
-before any test.  The any-hit `occlusion_any` is one cooperative launch of
-persistent blocks of 1,024 threads: each block stages once the 12 columns a
-shadow test reads, as rows of 48 bytes (`occlusion_any_plan`); a scan
-writes the dead lanes and lists the live ones; warps take 32 listed lanes
-at a time and each lane leaves its loop at its first blocker (a short
-list's few lanes a warp have their rows split over helper lanes).  The
-one-thread-per-lane kernel it replaced stays reachable by name
-(`occlusion_any_variant`) for the measurement that compares the two.
+bytes read and 2 to 5 written.  Each is one cooperative launch of
+persistent blocks of 1,024 threads, one an SM: each block stages the table
+once as row-major rows that a test reads as 16-byte broadcasts (a closest
+hit's rows of 64 bytes, columns 0-14 and the id; a shadow test's of 48,
+columns 0-11: `brute_closest_plan`, `occlusion_any_plan`); a scan writes
+the dead lanes' outputs and lists the live ones; warps take 32 listed
+lanes at a time, and a short list's few lanes a warp have their rows split
+over helper lanes.  A closest hit's loop carries (t, row) only, and helpers
+merge by (t, row); the winner's normal is its geom test run once more.  An
+any-hit lane leaves its loop at its first blocker.  The one-thread-per-lane
+kernels they replaced (the (17, G) table staged by every block of 256 rays)
+stay reachable by name (`brute_closest_variant`, `occlusion_any_variant`)
+for the measurement that compares the two.
 
 A fourth kernel, `brute_closest_chunked` (csrc/closest_hit.cu over
 csrc/sweep.cuh), replaces `_brute_chunked_kernel`: the same closest hit for
@@ -69,12 +71,15 @@ _INF = float("inf")
 
 KIND_SPHERE, KIND_CUBE, KIND_RECT = 0, 1, 2
 
-# Threads per block; one thread per ray.
+# Threads per block of the one-thread-per-lane kernels (the chunked brute,
+# and the replaced schedules that `*_variant` reaches); one thread per ray.
 BRUTE_THREADS = 256
-# The block's copy of the (17, G) table lives in dynamic shared memory, up
-# to the 227 KB a block can have on sm_90: 3,418 geoms.  A larger scene
-# takes the chunked kernels (`brute_closest_chunked` here, or the culled
-# sweeps of kernels/chunk_stream.py when the scene carries chunks).
+# The routing's cap: the (17, G) table of the replaced schedules fits the
+# 227 KB of dynamic shared memory a block can have on sm_90 up to 3,418
+# geoms, and so does the warp kernels' staged table (64 bytes a geom).  A
+# larger scene takes the chunked kernels (`brute_closest_chunked` here, or
+# the culled sweeps of kernels/chunk_stream.py when the scene carries
+# chunks).
 BRUTE_MAX_SMEM_BYTES = 232448
 BRUTE_SMEM_MAX_GEOMS = BRUTE_MAX_SMEM_BYTES // (4 * GEOM_COLS)
 # Rows a block of the chunked brute kernel stages at a time: 34 KB, so that
@@ -529,54 +534,61 @@ def _raise_on(err: int, lib, name: str):
         )
 
 
-def _launch_closest(rays, table, ranges, motion, want_n):
-    g, c_ranges = _launch_args(rays, table, ranges)
+def _launch_brute(name, args, rays, schedule):
+    """`name`_launch(*args, ctr, live, stream), the package's cooperative
+    kernel, or with schedule="lane" `name`_lane_launch(*args, threads,
+    stream), the one-thread-per-lane kernel it replaced, on the current
+    stream; raises if it did not launch."""
     lib = _build.load()
+    dev = rays.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if schedule == "lane":
+            err = getattr(lib, f"{name}_lane_launch")(*args, BRUTE_THREADS, stream)
+        else:
+            ctr = _coop.work_counters(dev, stream)
+            # the launch's list of live lanes (scratch, no initial value)
+            live = torch.empty(rays.shape[1], dtype=torch.int32, device=dev)
+            err = getattr(lib, f"{name}_launch")(*args, ctr.data_ptr(), live.data_ptr(), stream)
+    _raise_on(err, lib, name)
+
+
+def _launch_closest(rays, table, ranges, motion, want_n, schedule="warp"):
+    """Launch a closest hit by `schedule` (see `_launch_brute`).  Returns
+    (t, id[, n]); the caller counts the launch."""
+    g, c_ranges = _launch_args(rays, table, ranges)
     r = rays.shape[1]
     dev = rays.device
     t = torch.empty((r,), dtype=torch.float32, device=dev)
     pid = torch.empty((r,), dtype=torch.int32, device=dev)
     n = torch.empty((3, r), dtype=torch.float32, device=dev) if want_n else None
-    fn = lib.brute_closest_n_launch if want_n else lib.brute_closest_launch
-    args = [rays.data_ptr(), table.data_ptr(), t.data_ptr(), pid.data_ptr()]
-    if want_n:
-        args.append(n.data_ptr())
-    with torch.cuda.device(dev):
-        err = fn(
-            *args, r, g, c_ranges, len(ranges), int(bool(motion)),
-            BRUTE_THREADS, torch.cuda.current_stream().cuda_stream,
-        )
-    if want_n:
-        _raise_on(err, lib, "brute_closest_n")
-        brute_closest_n.launches += 1
-        return t, pid, n
-    _raise_on(err, lib, "brute_closest")
-    brute_closest.launches += 1
-    return t, pid
+    outs = (t, pid, n) if want_n else (t, pid)
+    args = [rays.data_ptr(), table.data_ptr(), *(x.data_ptr() for x in outs),
+            r, g, c_ranges, len(ranges), int(bool(motion))]
+    _launch_brute("brute_closest_n" if want_n else "brute_closest", args, rays, schedule)
+    return outs
 
 
 def _launch_occlusion(rays, maxt, table, ranges, schedule="warp"):
-    """Launch the any-hit on the current stream: the package's cooperative
-    kernel or, schedule="lane", the one-thread-per-lane kernel it replaced.
-    Returns blocked; the caller counts the launch."""
+    """Launch the any-hit by `schedule` (see `_launch_brute`).  Returns
+    blocked; the caller counts the launch."""
     g, c_ranges = _launch_args(rays, table, ranges)
-    lib = _build.load()
-    r = rays.shape[1]
-    dev = rays.device
-    blocked = torch.empty((r,), dtype=torch.bool, device=dev)
+    blocked = torch.empty((rays.shape[1],), dtype=torch.bool, device=rays.device)
     args = [rays.data_ptr(), maxt.data_ptr(), table.data_ptr(), blocked.data_ptr(),
-            r, g, c_ranges, len(ranges)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if schedule == "lane":
-            err = lib.occlusion_any_lane_launch(*args, BRUTE_THREADS, stream)
-        else:
-            ctr = _coop.work_counters(dev, stream)
-            # the launch's list of live lanes (scratch, no initial value)
-            live = torch.empty(r, dtype=torch.int32, device=dev)
-            err = lib.occlusion_any_launch(*args, ctr.data_ptr(), live.data_ptr(), stream)
-    _raise_on(err, lib, "occlusion_any")
+            rays.shape[1], g, c_ranges, len(ranges)]
+    _launch_brute("occlusion_any", args, rays, schedule)
     return blocked
+
+
+def _plan(name, *args, device=None) -> dict:
+    """`name`_plan(*args, out) on the current card: shared memory bytes of
+    a block, resident blocks per SM, SMs, threads per block."""
+    lib = _build.load()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        err = getattr(lib, f"{name}_plan")(*args, out)
+    _raise_on(err, lib, f"{name} plan")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "sms", "threads"), list(out)))
 
 
 # ---------------------------------------------------------------------------
@@ -587,18 +599,46 @@ def _launch_occlusion(rays, maxt, table, ranges, schedule="warp"):
 
 def brute_closest(rays, table, ranges, motion: bool = False):
     """(t, id) of the closest hit; see `brute_closest_plain`."""
-    if rays.is_cuda:
-        _check_args(rays, table, ranges)
-        return _launch_closest(rays, table, ranges, motion, want_n=False)
-    return brute_closest_plain(rays, table, ranges, motion)
+    if not rays.is_cuda:
+        return brute_closest_plain(rays, table, ranges, motion)
+    _check_args(rays, table, ranges)
+    out = _launch_closest(rays, table, ranges, motion, False)
+    brute_closest.launches += 1
+    return out
 
 
 def brute_closest_n(rays, table, ranges, motion: bool = False):
     """(t, id, unit normal (3, R)); see `brute_closest_n_plain`."""
-    if rays.is_cuda:
-        _check_args(rays, table, ranges)
-        return _launch_closest(rays, table, ranges, motion, want_n=True)
-    return brute_closest_n_plain(rays, table, ranges, motion)
+    if not rays.is_cuda:
+        return brute_closest_n_plain(rays, table, ranges, motion)
+    _check_args(rays, table, ranges)
+    out = _launch_closest(rays, table, ranges, motion, True)
+    brute_closest_n.launches += 1
+    return out
+
+
+def brute_closest_variant(rays, table, ranges, motion: bool = False, want_n: bool = False,
+                          schedule: str = "warp"):
+    """`brute_closest` (or, want_n, `brute_closest_n`) by the package's
+    kernel or by the one-thread-per-lane kernel it replaced
+    (schedule="lane").  Only for measuring the one against the other
+    (chip_smoke.py); CUDA tensors only.  Its launches count in
+    `brute_closest_variant.launches`, apart from the package's."""
+    if not rays.is_cuda:
+        raise ValueError("brute_closest_variant runs on the card only")
+    if schedule not in ("warp", "lane"):
+        raise ValueError(f"no variant {schedule!r} of brute_closest")
+    _check_args(rays, table, ranges)
+    out = _launch_closest(rays, table, ranges, motion, want_n, schedule)
+    brute_closest_variant.launches += 1
+    return out
+
+
+def brute_closest_plan(g: int, want_n: bool = False, device=None) -> dict:
+    """What `brute_closest` (want_n: `brute_closest_n`) launches with for a
+    table of g geoms on the current card: shared memory bytes of a block,
+    resident blocks per SM, SMs, threads per block."""
+    return _plan("brute_closest", g, int(bool(want_n)), device=device)
 
 
 def occlusion_any(rays, maxt, table, ranges):
@@ -627,15 +667,9 @@ def occlusion_any_variant(rays, maxt, table, ranges, schedule: str = "warp"):
 
 
 def occlusion_any_plan(g: int, device=None) -> dict:
-    """What `occlusion_any` launches with for a table of g geoms on the
-    current card: shared memory bytes of a block, resident blocks per SM,
-    SMs, threads per block."""
-    lib = _build.load()
-    out = (ctypes.c_int * 4)()
-    with torch.cuda.device(device or torch.cuda.current_device()):
-        err = lib.occlusion_any_plan(g, out)
-    _raise_on(err, lib, "occlusion_any plan")
-    return dict(zip(("smem_bytes", "blocks_per_sm", "sms", "threads"), list(out)))
+    """What `occlusion_any` launches with for a table of g geoms; see
+    `brute_closest_plan`."""
+    return _plan("occlusion_any", g, device=device)
 
 
 def brute_closest_chunked(rays, table, motion: bool = False):
@@ -676,6 +710,7 @@ def launch_sweep(name, rays, table, g, chunk, motion):
 
 brute_closest.launches = 0
 brute_closest_n.launches = 0
+brute_closest_variant.launches = 0
 occlusion_any.launches = 0
 occlusion_any_variant.launches = 0
 brute_closest_chunked.launches = 0

@@ -296,6 +296,37 @@ def test_occlusion_variant_is_for_the_card_and_counts_apart(monkeypatch):
         (before[0] + 2, before[1] + 1)
 
 
+def test_brute_variant_is_for_the_card_and_counts_apart(monkeypatch):
+    """The schedule chip_smoke.py measures the package's closest hits
+    against (one thread per lane) is reached by name, for either kernel,
+    refuses a CPU tensor and an unknown schedule, and counts its launches
+    apart from the wrappers'."""
+    _, st = both("blockers")
+    table, ranges = ch.scene_table(st)
+    with pytest.raises(ValueError, match="card"):
+        ch.brute_closest_variant(torch.zeros((8, 8)), table, ranges)
+    called = []
+    monkeypatch.setattr(ch, "_launch_closest", lambda *a: called.append(a) or "launched")
+
+    class FakeCuda(torch.Tensor):
+        is_cuda = True
+
+    r = torch.zeros((8, 8)).as_subclass(FakeCuda)
+    with pytest.raises(ValueError, match="variant"):
+        ch.brute_closest_variant(r, table, ranges, schedule="blocks")
+    counts = (ch.brute_closest_variant, ch.brute_closest, ch.brute_closest_n)
+    before = [fn.launches for fn in counts]
+    assert ch.brute_closest_variant(r, table, ranges, schedule="lane") == "launched"
+    ch.brute_closest_variant(r, table, ranges, True, want_n=True, schedule="lane")
+    ch.brute_closest_variant(r, table, ranges, want_n=True)
+    ch.brute_closest(r, table, ranges)
+    ch.brute_closest_n(r, table, ranges, True)
+    # (motion, want_n[, schedule]) as each call asked
+    assert [a[3:] for a in called] == [(False, False, "lane"), (True, True, "lane"),
+                                       (False, True, "warp"), (False, False), (True, True)]
+    assert [fn.launches for fn in counts] == [before[0] + 3, before[1] + 1, before[2] + 1]
+
+
 def test_launcher_refuses_a_table_beyond_shared_memory():
     """More geoms than one block's shared memory holds: refused by name
     before any build, not sent to a slower route."""

@@ -664,10 +664,10 @@ extern "C" void occlusion_warp_host(
     long long* did) {
   const BruteParams p = make_brute_params(rays, maxt, table, nullptr, nullptr, nullptr, blocked,
                                           R, G, ranges, n_ranges, 0);
-  const SweepParams scan = shadow_scan_params(p);
+  const SweepParams scan = scan_params(p);
   std::vector<F4> buf((shadow_smem_bytes(G) + sizeof(F4) - 1) / sizeof(F4) + 1);
   float* stab = reinterpret_cast<float*>(buf.data());
-  for (int t = 0; t < n_threads; ++t) stage_shadow_rows(table, G, stab, t, n_threads);
+  for (int t = 0; t < n_threads; ++t) stage_rows<kShadowCols>(table, G, stab, t, n_threads);
   std::vector<int> live;
   for (long long base = 0; base < R; base += kWarpScan) {
     for (int lane = 0; lane < 32; ++lane) {
@@ -811,6 +811,285 @@ def test_shadow_smem_formula_is_the_kernels(host_shadow):
     for g in (0, 1, 141, 2049, CH.BRUTE_SMEM_MAX_GEOMS):
         assert host_shadow.smem_bytes(g) == 48 * g == 3 * 16 * g
     assert host_shadow.smem_bytes(CH.BRUTE_SMEM_MAX_GEOMS) <= CH.BRUTE_MAX_SMEM_BYTES
+
+
+# ---------------------------------------------------------------------------
+# The closest hits' warp schedule of csrc/closest_hit.cu (brute_warp_kernel),
+# run on the host from the same steps: the 16-column table staged by the
+# threads of a block, the scan (sweep_scan4 in the closest-hit modes), the
+# list of live lanes, then tasks of warp_task list entries, each an emulated
+# warp whose lanes run brute_best (a short task's rows split over helper
+# lanes, whose winners merge by (t, row) as the kernel's shuffles take them),
+# and brute_end on the group's first lane: t, id and the winner's normal.
+# ---------------------------------------------------------------------------
+
+BRUTE_WARP_HOST = """
+#include "closest_hit.cu"
+#include <string.h>
+#include <vector>
+
+namespace {
+using namespace rtt;
+
+template <bool WANT_N>
+void run(const BruteParams& p, int n_threads, int n_warps, float* rows_out, long long* did) {
+  const int G = p.G;
+  const SweepParams scan = scan_params(p);
+  std::vector<F4> buf((brute_smem_bytes(G) + sizeof(F4) - 1) / sizeof(F4) + 1);
+  float* rows = reinterpret_cast<float*>(buf.data());
+  for (int t = 0; t < n_threads; ++t) stage_rows<kBruteCols>(p.table, G, rows, t, n_threads);
+  std::vector<int> live;
+  for (long long base = 0; base < p.R; base += kWarpScan) {
+    for (int lane = 0; lane < 32; ++lane) {
+      const unsigned live4 = sweep_scan4<WANT_N ? kSweepClosestN : kSweepClosest>(
+          scan, base + 4 * lane);
+      for (int j = 0; j < 4; ++j)
+        if ((live4 >> j) & 1u) live.push_back((int)(base + 4 * lane + j));
+    }
+  }
+  const int n = (int)live.size();
+  const int task = warp_task(n, n_warps);
+  const int g = split_lanes(task);
+  long long warps = 0;
+  for (int first = 0; first < n; first += task, ++warps) {
+    Best best[32];
+    Ray ray[32];
+    for (int lane = 0; lane < 32; ++lane) {
+      const int q = lane / g, e = first + q;
+      const bool mine = q < task && e < n;
+      ray[lane] = brute_ray(p, (size_t)live[mine ? e : first]);
+      best[lane].t = kInf; best[lane].row = -1;
+      if (mine) brute_best(p, rows, ray[lane], lane % g, g, best[lane]);
+    }
+    for (int o = g / 2; o > 0; o >>= 1) {  // the group's merge, as the shuffles take it
+      Best next[32];
+      for (int lane = 0; lane < 32; ++lane) {
+        next[lane] = best[lane];
+        best_merge(next[lane], best[lane ^ o].t, best[lane ^ o].row);
+      }
+      memcpy(best, next, sizeof next);
+    }
+    for (int lane = 0; lane < 32; ++lane) {
+      const int q = lane / g, e = first + q;
+      if (q < task && e < n && lane % g == 0)
+        brute_end<WANT_N>(p, rows, (size_t)live[e], ray[lane], best[lane]);
+    }
+  }
+  memcpy(rows_out, rows, brute_smem_bytes(G));
+  did[0] = n; did[1] = warps; did[2] = task; did[3] = g;
+}
+}  // namespace
+
+// n_threads: the threads of the block that stage the table (entries t,
+// t + n_threads, ...); n_warps: the launch's warps, which a short list is
+// shared over.  rows_out: G x 16 floats, the staged table.  did: live
+// lanes, warps, lanes a warp takes, lanes a listed lane's rows are split
+// over.  n null: brute_closest's outputs, else brute_closest_n's.
+extern "C" void brute_warp_host(
+    const float* rays, const float* table, float* t, int* id, float* n, long long R, int G,
+    const int* ranges, int n_ranges, int motion, int n_threads, int n_warps, float* rows_out,
+    long long* did) {
+  const BruteParams p = make_brute_params(rays, nullptr, table, t, id, n, nullptr, R, G, ranges,
+                                          n_ranges, motion);
+  if (n) run<true>(p, n_threads, n_warps, rows_out, did);
+  else run<false>(p, n_threads, n_warps, rows_out, did);
+}
+
+extern "C" long long brute_smem_bytes_host(int G) { return (long long)brute_smem_bytes(G); }
+
+extern "C" int ranges_ascend_host(int G, const int* ranges, int n_ranges) {
+  return ranges_ascend(make_brute_params(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                         nullptr, 0, G, ranges, n_ranges, 0));
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_brute_warp(tmp_path_factory):
+    """The g++ build of the closest hits' warp schedule behind the
+    signatures of `brute_closest[_n]`: closest(rays, table, ranges, motion,
+    want_n, n_threads=1, n_warps=1, counts=None) -> (t, id[, n]); `counts`
+    receives the live lanes, the warps, the lanes a warp takes, the lanes a
+    listed lane's rows are split over and the staged table.  Every output is
+    written: the buffers start as NaN and 7."""
+    d = tmp_path_factory.mktemp("brute_warp_host")
+    src, out = str(d / "brute_warp_host.cpp"), str(d / "libbrute_warp_host.so")
+    with open(src, "w") as f:
+        f.write(BRUTE_WARP_HOST)
+    subprocess.run(
+        ["g++", "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-I", CSRC,
+         "-shared", "-fPIC", "-o", out, src],
+        check=True,
+    )
+    lib = ctypes.CDLL(out)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    rng_t = ctypes.POINTER(ctypes.c_int)
+    lib.brute_warp_host.argtypes = [p, p, p, p, p, ll, i, rng_t, i, i, i, i, p, p]
+    lib.brute_warp_host.restype = None
+    lib.brute_smem_bytes_host.argtypes = [i]
+    lib.brute_smem_bytes_host.restype = ll
+    lib.ranges_ascend_host.argtypes = [i, rng_t, i]
+    lib.ranges_ascend_host.restype = i
+
+    def c_ranges(ranges):
+        flat = [x for rng in ranges for x in rng]
+        return (ctypes.c_int * 12)(*(flat + [0] * (12 - len(flat))))
+
+    def closest(rays, table, ranges, motion, want_n, n_threads=1, n_warps=1, counts=None):
+        r, g = rays.shape[1], table.shape[1]
+        t = torch.full((r,), float("nan"))
+        pid = torch.full((r,), 7, dtype=torch.int32)
+        n = torch.full((3, r), float("nan")) if want_n else None
+        rows = torch.full((g, 16), float("nan"))
+        did = torch.zeros(4, dtype=torch.int64)
+        lib.brute_warp_host(
+            rays.data_ptr(), table.data_ptr(), t.data_ptr(), pid.data_ptr(),
+            n.data_ptr() if want_n else None, r, g, c_ranges(ranges), len(ranges), int(motion),
+            n_threads, n_warps, rows.data_ptr(), did.data_ptr())
+        if counts is not None:
+            counts.update(live=int(did[0]), warps=int(did[1]), task=int(did[2]),
+                          helpers=int(did[3]), rows=rows)
+        assert not torch.isnan(t).any() and (pid != 7).all()
+        assert not want_n or not torch.isnan(n).any()
+        return (t, pid, n) if want_n else (t, pid)
+
+    closest.smem_bytes = lib.brute_smem_bytes_host
+    closest.ranges_ascend = lambda g, ranges: bool(
+        lib.ranges_ascend_host(g, c_ranges(ranges), len(ranges)))
+    return closest
+
+
+@pytest.mark.parametrize("name", ["all_kinds", "golden/ASCII/scene.json", "scenes/glossy.json"])
+@pytest.mark.parametrize("act", ["case_mask", "few_live", "all_dead"])
+@pytest.mark.parametrize("n_warps", [1, 600])
+@pytest.mark.parametrize("want_n", [False, True], ids=["t_id", "t_id_normal"])
+def test_brute_schedule_equals_lane_and_plain(host_brute_warp, host_brute, name, act, n_warps,
+                                              want_n):
+    """The closest hits' warp schedule (staged 16-column rows, scan, live-lane
+    list, tasks of 32 or, over 600 warps, short equal shares whose rows are
+    split over helper lanes, the winner's normal recomputed) on the scene
+    with every kind (a legacy plane and a moving sphere too), the flagship's
+    141 cubes and rect, and glossy: bit-equal to the one-thread-per-lane
+    function it replaced (both g++ builds of the same arithmetic) and to
+    itself over one warp (tasks of 32, no helper lanes); the plain version's
+    ids, its t to the file's tolerance; every output written, a dead lane a
+    miss with a zero normal."""
+    closest, _ = host_brute
+    scene, rays, _ = brute_case(name)
+    share = {"case_mask": None, "few_live": 0.05, "all_dead": 0.0}[act]
+    if share is not None:
+        rays[7] = random_act(rays.shape[1], share, seed=4)
+    table, ranges = CH.scene_table(scene)
+    mo = scene.has_motion
+    assert name != "all_kinds" or (mo and sorted(k for k, _, _ in ranges) == [0, 1, 2, 3])
+    counts = {}
+    host = host_brute_warp(rays, table, ranges, mo, want_n, n_warps=n_warps, counts=counts)
+    for other in (closest(rays, table, ranges, mo, want_n),
+                  host_brute_warp(rays, table, ranges, mo, want_n, n_warps=1)):
+        assert all(torch.equal(x, y) for x, y in zip(host, other))
+    plain = (CH.brute_closest_n_plain if want_n else CH.brute_closest_plain)(
+        rays, table, ranges, mo)
+    assert torch.equal(host[1], plain[1])
+    hit = plain[1] >= 0
+    assert torch.equal(torch.isinf(host[0]), torch.isinf(plain[0]))
+    np.testing.assert_allclose(host[0][hit].numpy(), plain[0][hit].numpy(), rtol=RTOL, atol=ATOL)
+    if want_n:
+        np.testing.assert_allclose(host[2].numpy(), plain[2].numpy(), rtol=RTOL, atol=ATOL)
+        assert not host[2][:, ~hit].any()
+    dead = rays[7] <= 0
+    assert (host[1][dead] == -1).all() and torch.isinf(host[0][dead]).all()
+    live = int((~dead).sum())
+    task = min(32, max(1, -(-live // n_warps)))
+    assert counts["live"] == live and counts["task"] == task
+    assert counts["warps"] == -(-live // task)
+    # a short task's rows are split so that the warp's lanes stay busy
+    assert counts["helpers"] == max(g for g in (1, 2, 4, 8, 16, 32) if g == 1 or g * task <= 32)
+    assert (counts["helpers"] > 1) == (task <= 16)
+    if act == "all_dead":
+        assert live == 0 and not hit.any()
+    else:
+        assert 0 < int(hit.sum()) <= live  # glossy's room: every live ray hits
+
+
+def tie_case():
+    """Eight spheres in a row, row 6 of the table made row 3's sphere again
+    under its own id, and 64 live rays at row 3's sphere: every ray hits
+    both at the same t.  Rows 3 and 6 lie 3 apart, so every split of the rows
+    over 2, 4, ..., 32 helper lanes puts them in different slices, row 6's
+    the lower."""
+    d = {
+        "cameras": [{"location": [0, 0, 0], "gaze_vector": [0, 1, 0],
+                     "up_vector": [0, 0, 1], "focal_length": 20.0,
+                     "sensor_width": 36, "sensor_height": 24}],
+        "render": {"resolution_x": 8, "resolution_y": 6},
+        "spheres": [{"location": [3.0 * k - 12.0, 20.0, 1.0], "radius": 1.0} for k in range(8)],
+    }
+    scene = rt.load_scene_dict(d, device="cpu")
+    table, ranges = CH.scene_table(scene)
+    table[:16, 6] = table[:16, 3]
+    rng = np.random.default_rng(5)
+    n = 64
+    aim = np.array([-3.0, 20.0, 1.0]) + rng.uniform(-0.4, 0.4, size=(n, 3))
+    d_ = (aim / np.linalg.norm(aim, axis=1, keepdims=True)).astype(np.float32)
+    o = torch.zeros((n, 3))
+    rays = CH.pack_rays(o, torch.from_numpy(d_), torch.zeros(n))
+    return rays, table, ranges
+
+
+@pytest.mark.parametrize("n_warps,helpers", [(1, 1), (4, 2), (8, 4), (16, 8), (32, 16),
+                                             (64, 32)])
+@pytest.mark.parametrize("want_n", [False, True], ids=["t_id", "t_id_normal"])
+def test_brute_schedule_tie_keeps_the_lower_row_under_every_split(host_brute_warp, host_brute,
+                                                                  n_warps, helpers, want_n):
+    """Two rows that hit at the same t in different helper slices: the lower
+    row wins under every split, as in the one-thread-per-lane function and
+    the plain version (strict < in row order)."""
+    closest, _ = host_brute
+    rays, table, ranges = tie_case()
+    counts = {}
+    host = host_brute_warp(rays, table, ranges, False, want_n, n_warps=n_warps, counts=counts)
+    assert counts["helpers"] == helpers
+    assert (host[1] == 3).all()
+    assert all(torch.equal(x, y)
+               for x, y in zip(host, closest(rays, table, ranges, False, want_n)))
+    plain = (CH.brute_closest_n_plain if want_n else CH.brute_closest_plain)(
+        rays, table, ranges)
+    assert torch.equal(host[1], plain[1])
+
+
+@pytest.mark.parametrize("n_threads", [1, 7, 1024])
+def test_brute_table_is_columns_0_to_14_and_the_id(host_brute_warp, n_threads):
+    """However many threads of a block stage it, the closest hits' table is
+    columns 0..14 of the (17, G) table and then column 16 as rows of 16:
+    w2o or a legacy plane's corners, the velocity, the id; not the kind."""
+    scene, rays, _ = brute_case("all_kinds")
+    table, ranges = CH.scene_table(scene)
+    counts = {}
+    host_brute_warp(rays, table, ranges, True, False, n_threads=n_threads, counts=counts)
+    assert torch.equal(counts["rows"], torch.cat([table[:15], table[16:]]).T.contiguous())
+
+
+def test_brute_smem_formula_is_the_kernels(host_brute_warp):
+    """The kernel's shared memory (csrc/closest_hit.cu::brute_smem_bytes,
+    what brute_closest_plan reports) is 64 bytes a geom, rows of four whole
+    16-byte words, and the table of the routing's cap fits a block."""
+    for g in (0, 1, 141, 2049, CH.BRUTE_SMEM_MAX_GEOMS):
+        assert host_brute_warp.smem_bytes(g) == 64 * g == 4 * 16 * g
+    assert host_brute_warp.smem_bytes(CH.BRUTE_SMEM_MAX_GEOMS) <= CH.BRUTE_MAX_SMEM_BYTES
+
+
+def test_launcher_takes_only_ranges_that_ascend(host_brute_warp):
+    """The warp kernels' launcher (csrc/closest_hit.cu::ranges_ascend) takes
+    ranges that lie in the table in ascending order, as scene_table makes
+    them, and refuses ranges that overlap, descend or leave the table."""
+    ok = host_brute_warp.ranges_ascend
+    _, table_ranges = CH.scene_table(all_kinds_scene())
+    assert ok(5, table_ranges)
+    assert ok(9, ((1, 0, 4), (2, 4, 4), (3, 6, 9)))
+    assert not ok(9, ((1, 0, 5), (2, 4, 9)))       # overlap
+    assert not ok(9, ((2, 4, 9), (1, 0, 4)))       # descend
+    assert not ok(9, ((1, 0, 10),))                # past the table
+    assert not ok(9, ((1, 3, 2),))                 # reversed
 
 
 # ---------------------------------------------------------------------------
