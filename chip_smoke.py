@@ -323,8 +323,7 @@ def accel_kernels(CH, CS, BT, scene):
     dict for its counts of needed tests."""
     g = scene.n_geoms
     chunks = (scene.chunk_boxes, scene.chunk_graze, scene.chunk_geoms, g)
-    bvh = (scene.bvh_geoms, scene.bvh_nodes_box, scene.bvh_nodes_topo,
-           scene.bvh_nodes_graze)
+    bvh, packed = bvh_ops(scene)
     ltab = CH.pack_geom_table(scene).contiguous()
     mo = scene.has_motion
 
@@ -339,7 +338,8 @@ def accel_kernels(CH, CS, BT, scene):
 
     return {
         "brute_closest_chunked": (
-            lambda r: CH.brute_closest_chunked(r, ltab, mo), chunked_plain),
+            lambda r: CH.brute_closest_chunked(r, ltab, mo), chunked_plain,
+            lambda r: CH.brute_closest_chunked_variant(r, ltab, mo, schedule="lane")),
         "chunk_closest": (
             lambda r: CS.chunk_closest(r, *chunks, mo),
             lambda r, need: CS.chunk_closest_plain(r, *chunks, mo, stats=need)),
@@ -354,10 +354,38 @@ def accel_kernels(CH, CS, BT, scene):
             lambda rm: CS.chunk_sweep_variant("chunk_occlusion", rm[0], rm[1], *chunks,
                                               schedule="lane")),
         "bvh_closest": (
-            lambda r: BT.bvh_closest(r, *bvh, mo),
-            lambda r, need: BT.bvh_closest_plain(r, *bvh, mo, stats=need)),
-        "bvh_closest_n": (lambda r: BT.bvh_closest_n(r, *bvh, mo), bvh_n_plain),
+            lambda r: BT.bvh_closest(r, *bvh, mo, packed=packed),
+            lambda r, need: BT.bvh_closest_plain(r, *bvh, mo, stats=need),
+            lambda r: BT.bvh_closest_variant(r, *bvh, mo, schedule="lane")),
+        "bvh_closest_n": (
+            lambda r: BT.bvh_closest_n(r, *bvh, mo, packed=packed), bvh_n_plain,
+            lambda r: BT.bvh_closest_variant(r, *bvh, mo, want_n=True, schedule="lane")),
     }
+
+
+def bvh_ops(scene):
+    """The traversal's operands of `scene`: the tree's (table, boxes, topo,
+    graze) and the kernel's packed copy (inner records, rows)."""
+    return ((scene.bvh_geoms, scene.bvh_nodes_box, scene.bvh_nodes_topo,
+             scene.bvh_nodes_graze), (scene.bvh_inner, scene.bvh_rows))
+
+
+def flops_per_test(scene):
+    """f32 operations of the mean geom test of `scene`'s table."""
+    counts = (*scene.kind_counts, scene.n_planes)
+    return sum(FLOPS_PER_TEST[k] * c for k, c in enumerate(counts)) / scene.n_geoms
+
+
+def struct_bytes(scene, family):
+    """Bytes of the structure a kernel of `family` reads besides the rays,
+    each once: the chunk table and its boxes; the traversal's inner records,
+    rows and the root's box, topo and slack; the brute's (17, G) table."""
+    g = scene.n_geoms
+    if family == "chunk":
+        return 4 * 17 * g + 4 * scene.chunk_boxes.numel()
+    if family == "bvh":
+        return 4 * (scene.bvh_inner.numel() + scene.bvh_rows.numel()) + 24 + 16 + 4
+    return 4 * 17 * g
 
 
 def accel_vs_plain(kernels, case, rays, shadow, names=None):
@@ -421,16 +449,17 @@ def same_hit_set(case, a, b, name_a, name_b):
         fail(f"{name_a} and {name_b} report different distances on {case}")
 
 
-def accel_bound(n, live, need, sample_live, per_test, g, rows_in, bytes_out, extra_bytes):
+def accel_bound(n, live, need, sample_live, per_test, rows_in, bytes_out, structure):
     """Least time of one launch at this width.  Bytes: the act row of every
-    lane, `rows_in` more rows of the live lanes, the outputs, the table and
-    its boxes once.  Operations: the geom and box tests a per-ray cull or
-    traversal cannot avoid, counted by the plain version on a strided
-    sample of these rays (`need`, over `sample_live` live lanes) and scaled
-    to this launch's live lanes."""
+    lane, `rows_in` more rows of the live lanes, the outputs, and the
+    `structure` bytes the kernel reads besides (struct_bytes) once.
+    Operations: the geom and box tests a per-ray cull or traversal cannot
+    avoid, counted by the plain version on a strided sample of these rays
+    (`need`, over `sample_live` live lanes) and scaled to this launch's live
+    lanes."""
     scale = live / max(sample_live, 1)
     tests, box_tests = need["tests"] * scale, need.get("box_tests", 0) * scale
-    n_bytes = 4 * n + 4 * rows_in * live + bytes_out * n + 4 * 17 * g + extra_bytes
+    n_bytes = 4 * n + 4 * rows_in * live + bytes_out * n + structure
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = (per_test * tests + FLOPS_PER_BOX_TEST * box_tests) / PEAK_F32_FLOPS * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
@@ -445,11 +474,7 @@ def accel_at_width(kernels, checked, scene, case, rays, shadow, names):
     bound; `checked` holds the plain version's time and counts on the
     strided sample of the same rays."""
     g = scene.n_geoms
-    counts = torch.bincount(scene.chunk_geoms[:g, 15].round().long(), minlength=4).tolist()
-    per_test = sum(FLOPS_PER_TEST[k] * c for k, c in enumerate(counts)) / g
-    box_bytes = {"chunk": scene.chunk_boxes.numel() * 4,
-                 "bvh": scene.bvh_nodes_box.numel() * 4 + scene.bvh_nodes_topo.numel() * 4,
-                 "brute": 0}
+    per_test = flops_per_test(scene)
     out = {}
     for name in names:
         fn = kernels[name][0]
@@ -463,10 +488,10 @@ def accel_at_width(kernels, checked, scene, case, rays, shadow, names):
             case=case, kernel=name, lanes=n, live=live, geoms=g, ms=ms,
             plain_ms=checked[name]["plain_ms"], plain_lanes=checked[name]["lanes"],
             max_abs_err=checked[name]["max_abs_err"],
-            **accel_bound(n, live, need, need["live"], per_test, g,
+            **accel_bound(n, live, need, need["live"], per_test,
                           7, {"chunk_occlusion": 1, "chunk_closest_n": 20,
                            "bvh_closest_n": 20}.get(name, 8),
-                          box_bytes[name.split("_")[0]]))
+                          struct_bytes(scene, name.split("_")[0])))
         say("accel_at_width", **out[name])
     return out
 
@@ -690,19 +715,130 @@ def sweep_redesign_ab(CS, scene, sets):
     return rows
 
 
+def in_turns(calls, reps):
+    """ms of each of calls ({label: fn}) by CUDA events, in turns: each once
+    in the order given, then once in the reverse order.  {label: [ms, ms]}."""
+    out = {k: [] for k in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for k in order:
+            out[k].append(cuda_ms(calls[k], reps))
+    return out
+
+
+def bvh_plan_phase(BT, _build):
+    """Phase bvh_plan: what ptxas reports for the traversal's warp kernel (the
+    shipped build's record) and the plan it launches with on this card."""
+    report = ptxas_report(_build, "bvh_warp_kernel")
+    plans = {name: BT.bvh_closest_plan(want_n) for name, want_n in
+             (("bvh_closest", False), ("bvh_closest_n", True))}
+    say("bvh_plan", kernel="bvh_warp_kernel", ptxas=report, **plans)
+    if _build.last_build["compiled"] and not report:
+        fail("ptxas reported nothing for bvh_warp_kernel")
+    return plans
+
+
+def bvh_redesign_ab(BT, case, scene, rays, checked, plans):
+    """Phase bvh_redesign_ab: bvh_closest and bvh_closest_n by the package's
+    warp kernel (live-lane list, both children's boxes in the parent's
+    record, order by entry distance, while-while) against the
+    one-thread-per-lane kernel they replaced, on the same full-width rays:
+    torch.equal at full width (the sample against the plain version is
+    `checked`, accel_vs_plain's rows); ms of each by CUDA events in turns
+    (lane, warp, warp, lane); what the counting build ran a live lane (inner
+    nodes visited, box tests, geom tests, the share of lane slots that ran a
+    visit or a test) beside what the plain version counts as needed on the
+    sample; the bound.  Returns {name: row}."""
+    tree, packed = bvh_ops(scene)
+    mo = scene.has_motion
+    n, live = rays.shape[1], int((rays[7] > 0).sum())
+    need = checked["bvh_closest"]["needed"]
+    rows = {}
+    for name, want_n in (("bvh_closest", False), ("bvh_closest_n", True)):
+        def call(sched, work=None):
+            return BT.bvh_closest_variant(rays, *tree, mo, want_n, schedule=sched, work=work,
+                                          packed=packed)
+
+        new, old = call("warp"), call("lane")
+        equal = all(bool(torch.equal(x, y)) for x, y in zip(new, old))
+        del old
+        work = torch.zeros(4, dtype=torch.int64, device=rays.device)
+        counted = call("warp", work)
+        equal = equal and all(bool(torch.equal(x, y)) for x, y in zip(new, counted))
+        del new, counted
+        visits, boxes, tests, slots = work.tolist()
+        # a lane slot runs at most one visit or one test
+        counted_ok = 0 < visits + tests <= slots
+        t = in_turns({"lane": lambda: call("lane"), "warp": lambda: call("warp")}, 3)
+        row = dict(case=case, kernel=name, lanes=n, live=live, geoms=scene.n_geoms,
+                   nodes=scene.bvh_nodes_topo.shape[0], ms=sum(t["warp"]) / 2,
+                   warp_ms=t["warp"], lane_ms=t["lane"],
+                   old_schedule_ms=sum(t["lane"]) / 2,
+                   plain_ms=checked[name]["plain_ms"], plain_lanes=checked[name]["lanes"],
+                   max_abs_err=checked[name]["max_abs_err"], warp_equals_lane=equal,
+                   ran=dict(visits_per_live_lane=visits / max(live, 1),
+                            box_tests_per_live_lane=boxes / max(live, 1),
+                            tests_per_live_lane=tests / max(live, 1),
+                            lane_slots_used=(visits + tests) / max(slots, 1)),
+                   needed=dict(box_tests_per_live_lane=need["box_tests"] / max(need["live"], 1),
+                               tests_per_live_lane=need["tests"] / max(need["live"], 1)),
+                   **plans[name],
+                   **accel_bound(n, live, need, need["live"], flops_per_test(scene), 7,
+                                 20 if want_n else 8, struct_bytes(scene, "bvh")))
+        say("bvh_redesign_ab", **row)
+        if not equal:
+            fail(f"the schedules of {name} differ on {case}")
+        if not counted_ok:
+            fail(f"the counting build of {name} counted more visits and tests than lane "
+                 f"slots on {case}: {work.tolist()}")
+        rows[name] = row
+    return rows
+
+
+def chunked_redesign_ab(CH, case, scene, rays, checked):
+    """Phase chunked_redesign_ab: brute_closest_chunked by the package's warp
+    schedule without boxes against the one-thread-per-lane sweep it replaced,
+    on the same full-width rays of `scene`'s load-order table: torch.equal;
+    ms of each by CUDA events in turns (lane, warp, warp, lane); the bound
+    (every live ray runs every row) and the launch plan.  Returns the row."""
+    ltab = CH.pack_geom_table(scene).contiguous()
+    mo = scene.has_motion
+
+    def call(sched):
+        return CH.brute_closest_chunked_variant(rays, ltab, mo, schedule=sched)
+
+    new, old = call("warp"), call("lane")
+    equal = all(bool(torch.equal(x, y)) for x, y in zip(new, old))
+    del new, old
+    t = in_turns({"lane": lambda: call("lane"), "warp": lambda: call("warp")}, 1)
+    n, live, g = rays.shape[1], int((rays[7] > 0).sum()), scene.n_geoms
+    row = dict(case=case, kernel="brute_closest_chunked", lanes=n, live=live, geoms=g,
+               ms=sum(t["warp"]) / 2, warp_ms=t["warp"], lane_ms=t["lane"],
+               old_schedule_ms=sum(t["lane"]) / 2, plain_ms=checked["plain_ms"],
+               plain_lanes=checked["lanes"], max_abs_err=checked["max_abs_err"],
+               warp_equals_lane=equal, **CH.brute_closest_chunked_plan(g),
+               **accel_bound(n, live, dict(tests=live * g, live=live), live,
+                             flops_per_test(scene), 7, 8, struct_bytes(scene, "brute")))
+    say("chunked_redesign_ab", **row)
+    if not equal:
+        fail(f"the schedules of brute_closest_chunked differ on {case}")
+    return row
+
+
 def accel_tile_breakdown(rt, label, scene, opts, dev, schedule, kernels):
     """Phase accel_tile_breakdown: one frame of `scene` (one tile) through
     render_to_srgb_u8, every launch of `kernels` ({name: module}; the first
     is the closest hit that opens each level) timed by CUDA events, level by
-    level with its live lanes; the brute closest hits, occlusion_any and the
-    chunk kernels by `schedule` ("warp", the package's; "lane", the
-    one-thread-per-lane kernels they replaced).  Returns (image, row)."""
+    level with its live lanes; the brute closest hits, occlusion_any, the
+    chunk kernels and the traversal by `schedule` ("warp", the package's;
+    "lane", the one-thread-per-lane kernels they replaced).  Returns (image,
+    row)."""
+    from ray_tracying_tpu_torch.kernels import bvh_traverse as BT
     from ray_tracying_tpu_torch.kernels import chunk_stream as CS
     from ray_tracying_tpu_torch.kernels import closest_hit as CH
 
     real = {name: getattr(mod, name) for name, mod in kernels.items()}
     opener = next(iter(kernels))
-    launchers = (CS._launch, CH._launch_occlusion, CH._launch_closest)
+    launchers = (CS._launch, CH._launch_occlusion, CH._launch_closest, BT._launch)
     rec = []
     level = [-1]
 
@@ -727,13 +863,14 @@ def accel_tile_breakdown(rt, label, scene, opts, dev, schedule, kernels):
         CS._launch = lambda *a: launchers[0](*a, schedule="lane")
         CH._launch_occlusion = lambda *a: launchers[1](*a, schedule="lane")
         CH._launch_closest = lambda *a: launchers[2](*a, schedule="lane")
+        BT._launch = lambda *a, packed=None, **k: launchers[3](*a, **k, schedule="lane")
     try:
         img, seconds = accel_frame(rt, scene, opts, 5, dev)
     finally:
         for name, mod in kernels.items():
             real[name].launches = getattr(mod, name).launches
             setattr(mod, name, real[name])
-        CS._launch, CH._launch_occlusion, CH._launch_closest = launchers
+        CS._launch, CH._launch_occlusion, CH._launch_closest, BT._launch = launchers
     launches = [dict(level=lv, kernel=name, live=int(n_live), ms=s.elapsed_time(e))
                 for lv, name, s, e, n_live in rec]
     by_kernel = {name: sum(x["ms"] for x in launches if x["kernel"] == name) for name in kernels}
@@ -747,6 +884,35 @@ def accel_tile_breakdown(rt, label, scene, opts, dev, schedule, kernels):
             len(launches) != (1 + scene.n_lights) * n_levels:
         fail(f"the {label} frame launched {len(launches)} timed kernels over {n_levels} levels")
     return img, row
+
+
+def strip_breakdown(CH, trace_wavefront, scene, o, d, tm, dev, schedule):
+    """The chunkless trace of (o, d, tm) over `scene` with brute_closest_chunked
+    by `schedule`, every launch timed by CUDA events: (radiance, [ms])."""
+    real, launch = CH.brute_closest_chunked, CH.launch_sweep
+    rec = []
+
+    def timed(rays, *a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(rays, *a, **k)
+        end.record()
+        rec.append((start, end))
+        return out
+
+    timed.launches = real.launches
+    CH.brute_closest_chunked = timed
+    if schedule == "lane":
+        CH.launch_sweep = lambda *a: launch(*a, schedule="lane")
+    try:
+        gen = torch.Generator(device=dev).manual_seed(9)
+        rad = trace_wavefront(scene, o, d, tm, generator=gen, fused=False, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        real.launches = timed.launches
+        CH.brute_closest_chunked, CH.launch_sweep = real, launch
+    return rad, [s.elapsed_time(e) for s, e in rec]
 
 
 def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
@@ -829,6 +995,8 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
             >= acc["cube_city"]["full"].n_geoms):
         fail("the two scenes do not straddle the shared-memory cap")
     sweep_plans = sweep_plan_phase(CS, _build, acc["sphere_field"]["full"])
+    bvh_plans = bvh_plan_phase(BT, _build)
+    bvh_ab, chunked_ab = {}, {}
 
     at_width = {}
     ab_sets = {}
@@ -898,6 +1066,13 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
                                      sub_shadow, names_l)
             at_width[(sname, level)] = accel_at_width(
                 kernels, checked, full, case, rays_l, shadow, names_l)
+            # The redesigned kernels against the schedules they replaced.
+            if big:
+                chunked_ab[level] = chunked_redesign_ab(
+                    CH, case, full, rays_l, checked["brute_closest_chunked"])
+            if not big or level == "level 0":
+                bvh_ab[(sname, level)] = bvh_redesign_ab(BT, case, full, rays_l, checked,
+                                                         bvh_plans)
             # One hit set at full width, kernel against kernel: a cull or a
             # traversal that lost a hit to a box that is not conservative
             # in f32 would show here.
@@ -1087,6 +1262,21 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
     if float(off.float().mean()) > 1e-2:
         fail("the chunked brute path and the chunk path disagree")
     accel_launches["brute_closest_chunked"] = got.get("brute_closest_chunked", 0)
+    # The same strip by each schedule of brute_closest_chunked, every launch
+    # timed: the radiance bit-equal.
+    strip = {sched: strip_breakdown(CH, trace_wavefront, bare, o, d, tm, dev, sched)
+             for sched in ("lane", "warp")}
+    strip_equal = bool(torch.equal(strip["lane"][0], strip["warp"][0]))
+    chunked_ab["strip"] = dict(
+        case="sphere_field without chunks, a strip of "
+             f"{sizes['strip_rows']} rows: trace_wavefront", lanes=o.shape[0],
+        launches=len(strip["warp"][1]), warp_ms_all_launches=sum(strip["warp"][1]),
+        lane_ms_all_launches=sum(strip["lane"][1]), warp_ms=strip["warp"][1],
+        lane_ms=strip["lane"][1], radiance_bitwise_equal=strip_equal)
+    say("chunked_redesign_ab", **chunked_ab["strip"])
+    if not strip_equal:
+        fail("the strip by the two schedules of brute_closest_chunked differs")
+    del strip
 
     # The (t, id) chunk sweep is also what `min_hit_t` takes over the cap:
     # through the ops entry point, on the same rows, beside the
@@ -1161,6 +1351,34 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
             accel_entries[-1]["frame_ms_all_launches_old_schedule"] = \
                 breakdown[(frame, "lane")]["kernel_ms"][name]
             accel_entries[-1]["frame"] = frame
+        if name == "brute_closest_chunked":
+            c0, c1 = chunked_ab["level 0"], chunked_ab["level 1"]
+            accel_entries[-1].update(
+                old_schedule_ms=c0["old_schedule_ms"], level1_ms=c1["ms"],
+                level1_old_schedule_ms=c1["old_schedule_ms"],
+                level1_bound_ms=c1["bound_ms"], level1_live=c1["live"],
+                strip_ms_all_launches=chunked_ab["strip"]["warp_ms_all_launches"],
+                strip_ms_all_launches_old_schedule=chunked_ab["strip"]["lane_ms_all_launches"],
+                **{k: c0[k] for k in ("smem_bytes", "blocks_per_sm", "sms", "threads")})
+        if name.startswith("bvh_"):
+            b0, b1 = bvh_ab[("cube_city", "level 0")][name], bvh_ab[("cube_city", "level 1")][name]
+            s0 = bvh_ab[("sphere_field", "level 0")][name]
+            accel_entries[-1].update(
+                old_schedule_ms=b0["old_schedule_ms"], ran=b0["ran"], needed=b0["needed"],
+                level1_ms=b1["ms"], level1_old_schedule_ms=b1["old_schedule_ms"],
+                level1_bound_ms=b1["bound_ms"], level1_live=b1["live"],
+                sphere_field_ms=s0["ms"], sphere_field_old_schedule_ms=s0["old_schedule_ms"],
+                sphere_field_bound_ms=s0["bound_ms"],
+                **{k: b0[k] for k in ("smem_bytes", "blocks_per_sm", "sms", "threads")})
+            if name == "bvh_closest_n":
+                per_level = {sched: [x["ms"] for x in breakdown[("cube_city_bvh", sched)]["launches"]
+                                     if x["kernel"] == name] for sched in ("warp", "lane")}
+                accel_entries[-1].update(
+                    frame="cube_city_bvh",
+                    frame_ms_all_launches=sum(per_level["warp"]),
+                    frame_ms_all_launches_old_schedule=sum(per_level["lane"]),
+                    frame_ms_by_level=per_level["warp"],
+                    frame_ms_by_level_old_schedule=per_level["lane"])
         if not accel_entries[-1]["launches"]:
             fail(f"the acceleration path never launched {name}")
 
@@ -1272,12 +1490,14 @@ def main():
     ptxas = [ln.strip() for ln in _build.last_build["log"].splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     # wave_level (blocks) and its one-thread-per-lane schedule, three brute
-    # kernels by one thread per lane and their three warp kernels, two
-    # traversals; seven one-thread-per-lane sweeps (the chunked brute, and
-    # each of the three chunk kernels with its counting build); six warp
-    # sweeps (the three chunk kernels, each with its counting build)
-    if sum("entry function" in ln for ln in ptxas) != 23 and _build.last_build["compiled"]:
-        fail("the build did not report twenty-three kernels")
+    # kernels by one thread per lane and their three warp kernels; the two
+    # one-thread-per-lane traversals and the traversal's warp kernel (closest
+    # hit, with the normal, each with its counting build); seven
+    # one-thread-per-lane sweeps (the chunked brute, and each of the three
+    # chunk kernels with its counting build); seven warp sweeps (the three
+    # chunk kernels, each with its counting build, and the chunked brute)
+    if sum("entry function" in ln for ln in ptxas) != 28 and _build.last_build["compiled"]:
+        fail("the build did not report twenty-eight kernels")
     say("build", seconds=round(_build.last_build["seconds"], 2),
         compiled=_build.last_build["compiled"], flags=_build.last_build["flags"],
         library=os.path.relpath(_build.last_build["path"], REPO), ptxas=ptxas)

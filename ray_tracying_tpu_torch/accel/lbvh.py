@@ -290,14 +290,76 @@ def with_chunks(scene: Scene, chunk: Optional[int] = None) -> Scene:
     )
 
 
+# The traversal kernel's own copy of the tree (csrc/bvh_traverse.cu): one
+# 64-byte record per inner node holding what a visit needs of both children,
+# and the Morton-ordered table as 64-byte rows.  A child reference is an
+# inner node's record index (>= 0) or a leaf's ~(first << 3 | count) (< 0).
+# A row keeps columns 0-14 and, in slot 15, id * 4 + kind: exact in f32
+# below 2^24, so for tables of at most BVH_MAX_GEOMS geoms (load-order ids).
+LEAF_COUNT_BITS = 3
+BVH_MAX_GEOMS = 1 << 22
+
+
+def leaf_ref(first, count):
+    """The reference of a leaf of `count` rows from `first` (int or array)."""
+    return ~((np.asarray(first, np.int64) << LEAF_COUNT_BITS) | count)
+
+
+def pack_bvh(table: np.ndarray, boxes: np.ndarray, topo: np.ndarray,
+             graze: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """-> (inner (N, 16) f32, rows (G, 16) f32), the traversal kernel's
+    operands for the tree (boxes, topo, graze) over the Morton-ordered
+    (G, 17) `table`.  inner[k], for the k-th inner node in index order (the
+    root first): the left child's box (6), the right child's (6), their
+    slacks (2), their references (2, int32 bits).  rows[g]: columns 0-14 of
+    table[g], then id * 4 + kind."""
+    g = table.shape[0]
+    if g > BVH_MAX_GEOMS:
+        raise ValueError(f"a BVH over {g} geoms: the traversal kernel takes at most "
+                         f"{BVH_MAX_GEOMS}")
+    left, right, first, count = (topo[:, k].astype(np.int64) for k in range(4))
+    if (count[left < 0] >= 1 << LEAF_COUNT_BITS).any():
+        raise ValueError(f"a leaf of {int(count.max())} rows: a reference holds at most "
+                         f"{(1 << LEAF_COUNT_BITS) - 1}")
+    inner = np.nonzero(left >= 0)[0]
+    index = np.full(topo.shape[0], -1, np.int64)
+    index[inner] = np.arange(inner.size)
+    ref = np.where(left < 0, leaf_ref(first, count), index).astype(np.int32)
+    nodes = np.zeros((inner.size, 16), np.float32)
+    for col, child in ((0, left[inner]), (1, right[inner])):
+        nodes[:, 6 * col:6 * col + 6] = boxes[child]
+        nodes[:, 12 + col] = graze[child]
+        nodes[:, 14 + col] = ref[child].view(np.float32)
+    ids = np.rint(table[:, 16]).astype(np.int64)
+    kinds = np.rint(table[:, 15]).astype(np.int64)
+    if ids.size and not (0 <= ids.min() and ids.max() < BVH_MAX_GEOMS):
+        raise ValueError("geom ids outside [0, BVH_MAX_GEOMS)")
+    rows = np.concatenate([table[:, :15], (ids * 4 + kinds)[:, None]], axis=1)
+    return nodes, np.ascontiguousarray(rows, dtype=np.float32)
+
+
+def bvh_fields(table: np.ndarray, boxes: np.ndarray, topo: np.ndarray, dev) -> dict:
+    """What the port keeps beside a tree's arrays, as Scene fields: each
+    node's slack and the traversal kernel's packed copy.  A tree deeper than
+    the kernel's stack is refused here."""
+    check_depth(topo)
+    graze = node_graze(table, topo)
+    nodes, rows = pack_bvh(table, boxes, topo, graze)
+    return dict(
+        bvh_nodes_graze=torch.from_numpy(graze).to(dev),
+        bvh_inner=torch.from_numpy(nodes).to(dev),
+        bvh_rows=torch.from_numpy(rows).to(dev),
+    )
+
+
 def with_bvh(scene: Scene) -> Scene:
-    """Attach LBVH arrays and each node's box-test slack to the scene (host
-    build, device upload).  A scene whose table does not fit a block's
-    shared memory also gets the chunked-stream structures."""
+    """Attach LBVH arrays, each node's box-test slack and the traversal
+    kernel's packed copy to the scene (host build, device upload).  A scene
+    whose table does not fit a block's shared memory also gets the
+    chunked-stream structures."""
     if scene.n_geoms == 0:
         return scene
     boxes, topo, order = build_lbvh(geom_aabbs(scene))
-    check_depth(topo)
     table = np.ascontiguousarray(_np(pack_geom_table(scene))[order])
     dev = scene.device
     scene = dataclasses.replace(
@@ -305,7 +367,7 @@ def with_bvh(scene: Scene) -> Scene:
         bvh_nodes_box=torch.from_numpy(boxes).to(dev),
         bvh_nodes_topo=torch.from_numpy(topo).to(dev),
         bvh_geoms=torch.from_numpy(table).to(dev),
-        bvh_nodes_graze=torch.from_numpy(node_graze(table, topo)).to(dev),
+        **bvh_fields(table, boxes, topo, dev),
     )
     if scene.n_geoms > CH.BRUTE_SMEM_MAX_GEOMS:
         scene = with_chunks(scene)

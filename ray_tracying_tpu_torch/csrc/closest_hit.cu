@@ -46,8 +46,15 @@
 // brute_closest_chunked replaces kernels/closest_hit.py::
 // _brute_chunked_kernel of the JAX package (plain version:
 // brute_closest_chunked_plain): the table does not fit shared memory, so
-// it is swept in chunks (sweep.cuh, without the cull: every live thread
-// runs every chunk); rows stay in load order and are of mixed kinds.
+// it is swept in chunks; rows stay in load order and are of mixed kinds.
+// It is the chunk sweeps' warp schedule without boxes (sweep.cuh::
+// sweep_warp_kernel<closest, COUNT, BOXES = false>): scan and live-lane
+// list, warps of 32 listed lanes, every chunk in row order through the
+// warp's ring of bulk copies, short tasks split over helper lanes that
+// merge by (t, row).  The one-thread-per-lane sweep it replaced
+// (sweep_kernel<closest, no cull>: every block stages each chunk behind two
+// barriers, dead lanes included) is reachable by name
+// (brute_closest_chunked_lane_launch).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC (kernels/_build.py).
@@ -588,7 +595,33 @@ extern "C" int occlusion_any_lane_launch(
   return rtt::launch_brute(rtt::occlusion_any_kernel, p, n_ranges, threads, stream);
 }
 
+// The chunked brute closest hit by the warp schedule without boxes; ctr and
+// live as launch_warp says.  The ring needs a 16-byte aligned table and a
+// chunk of whole 16-byte copies: else cudaErrorInvalidValue.
 extern "C" int brute_closest_chunked_launch(
+    const float* rays, const float* table, float* t, int* id,
+    long long R, int G, int chunk, int motion, int* ctr, int* live, void* stream) {
+  const rtt::SweepParams p = rtt::make_sweep_params(
+      rays, nullptr, nullptr, nullptr, table, t, id, nullptr, nullptr, R, G, chunk, motion);
+  return rtt::launch_sweep_warp(rtt::sweep_warp_kernel<rtt::kSweepClosest, false, false>, p,
+                                ctr, live, stream, false);
+}
+
+// What brute_closest_chunked_launch launches with for G rows in chunks of
+// `chunk`: out[0..3] = shared memory bytes, resident blocks per SM, SMs,
+// threads per block.
+extern "C" int brute_closest_chunked_plan(int G, int chunk, int* out) {
+  using namespace rtt;
+  size_t bytes = 0;
+  int per_sm = 0, sms = 0;
+  const int err = sweep_warp_plan(sweep_warp_kernel<kSweepClosest, false, false>,
+                                  (G + chunk - 1) / chunk, chunk, bytes, per_sm, sms, false);
+  out[0] = (int)bytes; out[1] = per_sm; out[2] = sms; out[3] = kSweepThreads;
+  return err;
+}
+
+// The one-thread-per-lane sweep it replaced.
+extern "C" int brute_closest_chunked_lane_launch(
     const float* rays, const float* table, float* t, int* id,
     long long R, int G, int chunk, int motion, int threads, void* stream) {
   const rtt::SweepParams p = rtt::make_sweep_params(

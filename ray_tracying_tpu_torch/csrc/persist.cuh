@@ -38,6 +38,16 @@ RTT_DEV F4 load4(const float* a) {
 #endif
 }
 
+// Sixteen bytes of global memory that no thread writes during the launch,
+// through the read-only data path on the device.
+RTT_DEV F4 ldg4(const float* a) {
+#ifdef __CUDACC__
+  return __ldg(reinterpret_cast<const float4*>(a));
+#else
+  return load4(a);
+#endif
+}
+
 RTT_DEV void store4(float* a, const F4& v) {
 #ifdef __CUDACC__
   *reinterpret_cast<float4*>(a) = v;

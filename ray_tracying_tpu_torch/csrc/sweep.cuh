@@ -13,9 +13,9 @@
 //
 // Two schedules over the same lane functions:
 //
-// sweep_kernel, one thread per lane over every lane of the tile
-// (brute_closest_chunked; for the three chunk kernels the oracle and A/B
-// baseline of the schedule below, which the package does not launch).  Per
+// sweep_kernel, one thread per lane over every lane of the tile (the oracle
+// and A/B baseline of the schedule below, which the package does not
+// launch).  Per
 // chunk, in row order: each thread decides for its own ray
 // whether it wants the chunk (CULL: its ray can hit the chunk's AABB no
 // farther than its best t so far, or its shadow ray's max t; no CULL: it is
@@ -27,8 +27,9 @@
 // the lane slots run a test on level-1 rays); the copy never overlaps
 // compute.
 //
-// sweep_warp_kernel (chunk_closest, chunk_closest_n, chunk_occlusion), one
-// cooperative launch of persistent blocks:
+// sweep_warp_kernel (chunk_closest, chunk_closest_n, chunk_occlusion; and,
+// BOXES false, brute_closest_chunked), one cooperative launch of persistent
+// blocks:
 // - Phase 1, scan.  Warps take steps of kWarpScan lanes from a counter, four
 //   lanes a thread.  A dead lane (act <= 0) gets its outputs there (16-byte
 //   stores where four neighbours are dead); live lanes are appended to one
@@ -61,6 +62,10 @@
 //   normal: the winner's is computed once, after the last chunk.
 // - Any-hit visits chunks in row order; a blocked lane is done, and the
 //   warp leaves once no lane is open (__any_sync).
+// - BOXES false (brute_closest_chunked: a load-order table without chunk
+//   boxes): nothing is staged, keyed or ordered; a warp runs every chunk in
+//   row order on its live lanes, through the same ring and the same split of
+//   short tasks over helper lanes.
 // The cull only removes provable misses (box_hit's slack, geom.cuh), so both
 // schedules equal the plain sweep of the whole table in row order
 // (kernels/closest_hit.py::mixed_closest_plain) bit for bit.
@@ -409,8 +414,8 @@ RTT_HD int ring_rows(int chunk) {
 }
 
 // Byte offsets of one block's shared memory: per warp two mbarriers,
-// kOrderCap keys and kOrderCap order entries, two ring buffers; then the
-// boxes (NC, 6) and slacks (NC,) where they are staged.
+// kOrderCap keys and kOrderCap order entries (with boxes only), two ring
+// buffers; then the boxes (NC, 6) and slacks (NC,) where they are staged.
 struct SweepLayout {
   size_t keys, order, ring, boxes, bytes;
 };
@@ -421,14 +426,14 @@ constexpr int kSweepWarps = kSweepThreads / 32;
 // beyond, the warps read it from global memory.
 constexpr int kStageChunks = 1024;
 
-RTT_HD SweepLayout sweep_layout(int nc, int chunk) {
+RTT_HD SweepLayout sweep_layout(int nc, int chunk, bool boxes = true) {
   SweepLayout o;
   o.keys = 16 * kSweepWarps;
-  o.order = o.keys + 4 * (size_t)kOrderCap * kSweepWarps;
-  o.ring = (o.order + (size_t)kOrderCap * kSweepWarps + 15) & ~(size_t)15;
+  o.order = o.keys + (boxes ? 4 * (size_t)kOrderCap * kSweepWarps : 0);
+  o.ring = (o.order + (boxes ? (size_t)kOrderCap * kSweepWarps : 0) + 15) & ~(size_t)15;
   const size_t ring_bytes = 2 * 4 * (size_t)kGeomCols * ring_rows(chunk);
   o.boxes = o.ring + ring_bytes * kSweepWarps;
-  o.bytes = o.boxes + (nc <= kStageChunks ? 28 * (size_t)nc : 0);
+  o.bytes = o.boxes + (boxes && nc <= kStageChunks ? 28 * (size_t)nc : 0);
   return o;
 }
 
@@ -519,17 +524,23 @@ struct WarpRing {
   int rows;
 };
 
-// Lane 0: start the copy of piece k (of kRingRows rows from table row
-// row0 + k * rows) into buffer k & 1.  The warp has stopped reading that
-// buffer (__syncwarp before); the proxy fence orders those reads before the
-// asynchronous write.
+// Lane 0: start the copy of piece k (the rows from table row row0 + k *
+// rows, at most `rows` of the chunk's n_rows) into buffer k & 1.  The warp
+// has stopped reading that buffer (__syncwarp before); the proxy fence
+// orders those reads and writes before the asynchronous write.  A piece of a
+// table's last rows whose bytes are no multiple of 16 gets its last one to
+// three floats by plain stores, which the warp sees after its next
+// __syncwarp: no byte past the table's last row is read.
 __device__ __forceinline__ void ring_issue(const WarpRing& rg, const float* table, int row0,
-                                           int k) {
+                                           int n_rows, int k) {
   const int b = k & 1;
-  const uint32_t bytes = 4u * kGeomCols * rg.rows;
+  const int floats = kGeomCols * min(rg.rows, n_rows - k * rg.rows);
+  const uint32_t bytes = (4u * floats) & ~15u;
+  float* dst = rg.buf + (size_t)b * kGeomCols * rg.rows;
+  const float* src = table + (size_t)kGeomCols * (row0 + k * rg.rows);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  bulk_copy(smem_u32(rg.buf + (size_t)b * kGeomCols * rg.rows),
-            table + (size_t)kGeomCols * (row0 + k * rg.rows), bytes, rg.bar + 8 * b);
+  bulk_copy(smem_u32(dst), src, bytes, rg.bar + 8 * b);
+  for (int j = bytes / 4; j < floats; ++j) dst[j] = src[j];
 }
 
 // Rows of chunk c for lane state `s`: rows first, first + step, ... of the
@@ -545,9 +556,10 @@ __device__ __forceinline__ int warp_rows(const SweepParams& p, SweepLane& s, War
   int ran = 0;
   const int n_pieces = (n_rows + rg.rows - 1) / rg.rows;
   if (lane == 0) {
-    ring_issue(rg, p.table, row0, 0);
-    if (n_pieces > 1) ring_issue(rg, p.table, row0, 1);
+    ring_issue(rg, p.table, row0, n_rows, 0);
+    if (n_pieces > 1) ring_issue(rg, p.table, row0, n_rows, 1);
   }
+  __syncwarp();
   for (int k = 0; k < n_pieces; ++k) {
     const int b = k & 1;
     mbar_wait(rg.bar + 8 * b, (rg.parity >> b) & 1u);
@@ -559,7 +571,7 @@ __device__ __forceinline__ int warp_rows(const SweepParams& p, SweepLane& s, War
                                                step);
     }
     __syncwarp();
-    if (lane == 0 && k + 2 < n_pieces) ring_issue(rg, p.table, row0, k + 2);
+    if (lane == 0 && k + 2 < n_pieces) ring_issue(rg, p.table, row0, n_rows, k + 2);
   }
   return ran;
 }
@@ -671,6 +683,16 @@ __device__ void warp_any_hit(const SweepParams& p, SweepLane& s, WarpRing& rg, c
   }
 }
 
+// Phase 2 of one warp's 32 lanes without boxes: every chunk in row order,
+// on the lanes that are live.
+template <int MODE, bool COUNT>
+__device__ void warp_sweep_all(const SweepParams& p, SweepLane& s, WarpRing& rg, int nc,
+                               SweepWork& w) {
+  const unsigned ball = __ballot_sync(kFull, s.open);
+  if (!ball) return;
+  for (int c = 0; c < nc; ++c) warp_chunk<MODE, COUNT>(p, s, rg, s.open, ball, c, w);
+}
+
 // Phase 1 of a cooperative launch, scan: warps take steps of kWarpScan
 // lanes from ctr[0]; dead lanes get their outputs here (sweep_scan4), live
 // ones are appended to `live` (warp prefix sums of popc, one atomic on
@@ -720,16 +742,16 @@ __device__ __forceinline__ void coop_release(int* ctr) {
 // [3] next lane of the list to take, [4] blocks done.  live: R ints, the
 // launch's list of live lanes.  Launched cooperatively: every block is
 // resident, so the grid barrier cannot wait on a block that never runs.
-template <int MODE, bool COUNT>
+template <int MODE, bool COUNT, bool BOXES = true>
 __global__ void __launch_bounds__(kSweepThreads, kSweepMinBlocks)
 sweep_warp_kernel(const SweepParams p, int* ctr, int* live) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nc = (p.G + p.chunk - 1) / p.chunk;
-  const SweepLayout lay = sweep_layout(nc, p.chunk);
+  const SweepLayout lay = sweep_layout(nc, p.chunk, BOXES);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // The boxes and slacks, once a block.
-  const bool staged = nc <= kStageChunks;
+  const bool staged = BOXES && nc <= kStageChunks;
   float* sbox = reinterpret_cast<float*>(smem_raw + lay.boxes);
   if (staged) {
     for (int k = tid; k < 6 * nc; k += kSweepThreads) sbox[k] = p.boxes[k];
@@ -768,7 +790,9 @@ sweep_warp_kernel(const SweepParams p, int* ctr, int* live) {
     sweep_idle(s);
     const size_t i = mine ? (size_t)live[e] : 0;
     if (mine) sweep_begin<MODE>(p, i, s);
-    if constexpr (MODE == kSweepAnyHit) {
+    if constexpr (!BOXES) {
+      warp_sweep_all<MODE, COUNT>(p, s, rg, nc, w);
+    } else if constexpr (MODE == kSweepAnyHit) {
       warp_any_hit<COUNT>(p, s, rg, bx, gz, nc, w);
     } else {
       warp_closest<MODE, COUNT>(p, s, rg, bx, gz, keys, order, nc, w);
@@ -811,8 +835,9 @@ inline int coop_plan(K kernel, int threads, size_t bytes, int& per_sm, int& sms)
 
 // The warp kernel's shared memory for this table and coop_plan's answer.
 template <typename K>
-inline int sweep_warp_plan(K kernel, int nc, int chunk, size_t& bytes, int& per_sm, int& sms) {
-  bytes = sweep_layout(nc, chunk).bytes;
+inline int sweep_warp_plan(K kernel, int nc, int chunk, size_t& bytes, int& per_sm, int& sms,
+                           bool boxes = true) {
+  bytes = sweep_layout(nc, chunk, boxes).bytes;
   if (ring_rows(chunk) == 0) return (int)cudaErrorInvalidValue;
   return coop_plan(kernel, kSweepThreads, bytes, per_sm, sms);
 }
@@ -821,9 +846,10 @@ inline int sweep_warp_plan(K kernel, int nc, int chunk, size_t& bytes, int& per_
 // synchronizing; returns cudaGetLastError() (0 = launched).  The ring's
 // bulk copies need a 16-byte aligned table and a chunk of whole 16-byte
 // copies (ring_rows > 0, checked by the plan): else cudaErrorInvalidValue.
+// boxes: the kernel's BOXES.
 template <typename K>
 static int launch_sweep_warp(K kernel, const SweepParams& p, int* ctr, int* live,
-                             void* stream) {
+                             void* stream, bool boxes = true) {
   if (p.R < 0 || p.R > INT_MAX / 2 || p.G < 1 || p.chunk < 1 ||
       (uintptr_t)p.table % 16 != 0) {
     return (int)cudaErrorInvalidValue;
@@ -832,7 +858,7 @@ static int launch_sweep_warp(K kernel, const SweepParams& p, int* ctr, int* live
   size_t bytes;
   int per_sm, sms;
   const int nc = (p.G + p.chunk - 1) / p.chunk;
-  const int err = sweep_warp_plan(kernel, nc, p.chunk, bytes, per_sm, sms);
+  const int err = sweep_warp_plan(kernel, nc, p.chunk, bytes, per_sm, sms, boxes);
   if (err) return err;
   SweepParams q = p;
   void* args[] = {&q, &ctr, &live};

@@ -135,8 +135,12 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
     lib.occlusion_any_plan.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
     sizes = [ctypes.c_longlong, i, i]        # R G chunk
     lib.brute_closest_chunked_launch.argtypes = [
+        p, p, p, p, *sizes, i, p, p, p,      # rays table t id | motion ctr live stream
+    ]
+    lib.brute_closest_chunked_lane_launch.argtypes = [
         p, p, p, p, *sizes, i, i, p,         # rays table t id | motion threads stream
     ]
+    lib.brute_closest_chunked_plan.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
     lib.chunk_closest_launch.argtypes = [
         p, p, p, p, p, p, *sizes, i,         # rays boxes graze table t id | motion
         p, p, p, p,                          # work ctr live stream
@@ -160,11 +164,22 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
     ]
     lib.chunk_sweep_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.bvh_closest_launch.argtypes = [
+        p, p, p, p, p, p, p, p,              # rays boxes topo graze inner rows t id
+        ctypes.c_longlong, i, i,             # R G motion
+        p, p, p, p,                          # work ctr live stream
+    ]
+    lib.bvh_closest_n_launch.argtypes = [
+        p, p, p, p, p, p, p, p, p,           # rays boxes topo graze inner rows t id n
+        ctypes.c_longlong, i, i,
+        p, p, p, p,
+    ]
+    lib.bvh_closest_plan.argtypes = [i, ctypes.POINTER(ctypes.c_int)]  # want_n out
+    lib.bvh_closest_lane_launch.argtypes = [
         p, p, p, p, p, p, p,                 # rays table boxes topo graze t id
         ctypes.c_longlong, i, i,             # R G M
         i, i, p,                             # motion threads stream
     ]
-    lib.bvh_closest_n_launch.argtypes = [
+    lib.bvh_closest_n_lane_launch.argtypes = [
         p, p, p, p, p, p, p, p,              # rays table boxes topo graze t id n
         ctypes.c_longlong, i, i,
         i, i, p,
@@ -178,7 +193,9 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
                lib.chunk_occlusion_launch, lib.chunk_closest_lane_launch,
                lib.chunk_closest_n_lane_launch,
                lib.chunk_occlusion_lane_launch, lib.chunk_sweep_plan,
-               lib.bvh_closest_launch):
+               lib.brute_closest_chunked_lane_launch, lib.brute_closest_chunked_plan,
+               lib.bvh_closest_launch, lib.bvh_closest_plan,
+               lib.bvh_closest_lane_launch, lib.bvh_closest_n_lane_launch):
         fn.restype = i
     lib.wave_error_string.argtypes = [i]
     lib.wave_error_string.restype = ctypes.c_char_p

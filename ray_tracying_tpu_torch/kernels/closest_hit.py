@@ -36,10 +36,14 @@ for the measurement that compares the two.
 A fourth kernel, `brute_closest_chunked` (csrc/closest_hit.cu over
 csrc/sweep.cuh), replaces `_brute_chunked_kernel`: the same closest hit for
 a table that does not fit a block's shared memory.  The table stays in load
-order, rows of mixed kinds (the kind is read from column 15), and a block
-stages `GEOM_CHUNK` rows at a time while each thread keeps its (best t,
-row) in registers across the sweep.  Bound: operations, as above; the
-table is re-read from L2 once per block.
+order, rows of mixed kinds (the kind is read from column 15).  It is the
+chunk sweeps' warp schedule without boxes: the scan and live-lane list,
+warps of 32 listed lanes that keep their (best t, row) in registers and
+take the table `GEOM_CHUNK` rows at a time, in row order, through a ring of
+bulk copies of their own, a short task's rows split over helper lanes.
+Bound: operations, as above.  The one-thread-per-lane sweep it replaced
+(each block stages every chunk for its 256 lanes, dead ones too) stays
+reachable by name (`brute_closest_chunked_variant`).
 
 `brute_closest`, `brute_closest_n`, `occlusion_any` and
 `brute_closest_chunked` take the packed operands: for CUDA tensors they
@@ -82,8 +86,9 @@ BRUTE_THREADS = 256
 # chunks).
 BRUTE_MAX_SMEM_BYTES = 232448
 BRUTE_SMEM_MAX_GEOMS = BRUTE_MAX_SMEM_BYTES // (4 * GEOM_COLS)
-# Rows a block of the chunked brute kernel stages at a time: 34 KB, so that
-# several blocks share an SM.
+# Rows of one chunk of the chunked brute kernel: a warp's unit of work (its
+# ring brings them 32 rows a copy); the one-thread-per-lane sweep stages a
+# chunk in 34 KB of a block's shared memory.
 GEOM_CHUNK = 512
 MAX_RANGES = 4
 
@@ -684,27 +689,46 @@ def brute_closest_chunked(rays, table, motion: bool = False):
     return out
 
 
-def launch_sweep(name, rays, table, g, chunk, motion):
-    """Launch the chunk sweep of csrc/sweep.cuh without a cull on the
-    current stream: `name`_launch(rays, table, t, id, R, G, chunk, motion,
-    threads, stream) (brute_closest_chunked).  Returns (t, id); the caller
-    counts the launch."""
+def brute_closest_chunked_variant(rays, table, motion: bool = False, schedule: str = "warp"):
+    """`brute_closest_chunked` by the package's warp schedule or by the
+    one-thread-per-lane sweep it replaced (schedule="lane").  Only for
+    measuring the one against the other (chip_smoke.py); CUDA tensors only.
+    Its launches count in `brute_closest_chunked_variant.launches`, apart
+    from the package's."""
+    if not rays.is_cuda:
+        raise ValueError("brute_closest_chunked_variant runs on the card only")
+    if schedule not in ("warp", "lane"):
+        raise ValueError(f"no variant {schedule!r} of brute_closest_chunked")
+    check_rays(rays, table=table)
+    check_rows_table(table, table.shape[0])
+    out = launch_sweep("brute_closest_chunked", rays, table, table.shape[0], GEOM_CHUNK, motion,
+                       schedule)
+    brute_closest_chunked_variant.launches += 1
+    return out
+
+
+def brute_closest_chunked_plan(g: int, chunk: int = GEOM_CHUNK, device=None) -> dict:
+    """What `brute_closest_chunked` launches with for g rows in chunks of
+    `chunk` on the current card; see `brute_closest_plan`."""
+    return _plan("brute_closest_chunked", g, chunk, device=device)
+
+
+def launch_sweep(name, rays, table, g, chunk, motion, schedule="warp"):
+    """Launch the chunk sweep of csrc/sweep.cuh without boxes on the
+    current stream (brute_closest_chunked), by `schedule` (see
+    `_launch_brute`).  Returns (t, id); the caller counts the launch."""
     if not 0 < chunk <= BRUTE_SMEM_MAX_GEOMS:
         raise ValueError(
             f"a chunk of {chunk} geoms does not fit a block's shared memory "
             f"({BRUTE_SMEM_MAX_GEOMS} geoms)"
         )
-    lib = _build.load()
     r = rays.shape[1]
     dev = rays.device
     t = torch.empty((r,), dtype=torch.float32, device=dev)
     pid = torch.empty((r,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"{name}_launch")(
-            rays.data_ptr(), table.data_ptr(), t.data_ptr(), pid.data_ptr(), r, g, chunk,
-            int(bool(motion)), BRUTE_THREADS, torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(err, lib, name)
+    args = [rays.data_ptr(), table.data_ptr(), t.data_ptr(), pid.data_ptr(), r, g, chunk,
+            int(bool(motion))]
+    _launch_brute(name, args, rays, schedule)
     return t, pid
 
 
@@ -714,6 +738,7 @@ brute_closest_variant.launches = 0
 occlusion_any.launches = 0
 occlusion_any_variant.launches = 0
 brute_closest_chunked.launches = 0
+brute_closest_chunked_variant.launches = 0
 
 
 def closest_hit_tid(scene: Scene, o, d, time, active=None):

@@ -18,7 +18,7 @@ from ray_tracying_tpu_torch.scene import types as T
 
 # Fields of the port's Scene that the JAX package's has not: derived here
 # from the arrays that came across.
-_PORT_ONLY = ("bvh_nodes_graze", "chunk_graze")
+_PORT_ONLY = ("bvh_nodes_graze", "chunk_graze", "bvh_inner", "bvh_rows")
 
 
 def _get(tree, name):
@@ -53,8 +53,9 @@ def scene_from_numpy(tree, device=None) -> T.Scene:
     """Port `Scene` from a numpy-leaved scene tree (attribute object or
     dict) with the JAX package's field names and static facts; the BVH and
     chunk-stream arrays, where the tree holds them, come across too, and
-    get what the port keeps beside them: each box's slack, and the check
-    that the tree fits the traversal kernel's stack.
+    get what the port keeps beside them: each box's slack, the traversal
+    kernel's packed copy of the tree, and the check that the tree fits the
+    traversal kernel's stack.
     device: None = "cuda" (raises without a card), as `load_scene`."""
     from ray_tracying_tpu_torch.accel import lbvh
 
@@ -68,10 +69,9 @@ def scene_from_numpy(tree, device=None) -> T.Scene:
     )
     extra = {}
     if scene.bvh_geoms is not None:
-        topo = np.asarray(_get(tree, "bvh_nodes_topo"))
-        lbvh.check_depth(topo)
-        extra["bvh_nodes_graze"] = torch.from_numpy(
-            lbvh.node_graze(np.asarray(_get(tree, "bvh_geoms")), topo)).to(dev)
+        extra.update(lbvh.bvh_fields(
+            np.asarray(_get(tree, "bvh_geoms")), np.asarray(_get(tree, "bvh_nodes_box")),
+            np.asarray(_get(tree, "bvh_nodes_topo")), dev))
     if scene.chunk_geoms is not None:
         table = np.asarray(_get(tree, "chunk_geoms"))
         chunk = table.shape[0] // np.asarray(_get(tree, "chunk_boxes")).shape[0]

@@ -130,6 +130,11 @@ class Scene:
     chunk_boxes: Optional[torch.Tensor] = None     # (NC, 6) f32
     bvh_nodes_graze: Optional[torch.Tensor] = None  # (M,) f32
     chunk_graze: Optional[torch.Tensor] = None      # (NC,) f32
+    # The traversal kernel's packed copy of the tree (accel/lbvh.py::
+    # pack_bvh): per inner node both children's boxes, slacks and
+    # references; the Morton-ordered table as 64-byte rows.
+    bvh_inner: Optional[torch.Tensor] = None        # (inner nodes, 16) f32
+    bvh_rows: Optional[torch.Tensor] = None         # (G, 16) f32
 
     # --- static facts ---
     n_prims: int = 0

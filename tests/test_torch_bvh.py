@@ -208,3 +208,118 @@ def test_use_bvh_routes_through_the_traversal(monkeypatch):
     monkeypatch.setattr(ch, "BRUTE_SMEM_MAX_GEOMS", 4)
     I.min_hit_t(st, *args, use_bvh=True)
     assert seen == ["closest_hit_tid_n", "closest_hit_tid"]
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_packed_tree_is_the_trees_arrays(name):
+    """accel/lbvh.py::pack_bvh, the traversal kernel's copy of the tree: each
+    inner node's record holds its children's boxes, slacks and references in
+    that order; an inner reference is the child's record index (inner nodes
+    in index order, the root first), a leaf's decodes to its (first, count);
+    every row keeps columns 0-14 and carries id and kind exactly."""
+    sj, st = both(name)
+    boxes, topo, graze = (x.numpy() for x in (st.bvh_nodes_box, st.bvh_nodes_topo,
+                                              st.bvh_nodes_graze))
+    table = st.bvh_geoms.numpy()
+    inner, rows = st.bvh_inner.numpy(), st.bvh_rows.numpy()
+    nodes = np.nonzero(topo[:, 0] >= 0)[0]
+    assert nodes[0] == 0 and inner.shape == (nodes.size, 16) == ((topo.shape[0] - 1) // 2, 16)
+    index = {int(v): k for k, v in enumerate(nodes)}
+    refs = inner[:, 14:].view(np.int32)
+    seen = []
+    for k, node in enumerate(nodes):
+        for side, child in enumerate(topo[node, :2]):
+            np.testing.assert_array_equal(inner[k, 6 * side:6 * side + 6], boxes[child])
+            assert inner[k, 12 + side] == graze[child]
+            ref = int(refs[k, side])
+            if topo[child, 0] >= 0:
+                assert ref == index[int(child)]
+            else:
+                code = ~ref
+                assert ref < 0 and (code >> lbvh.LEAF_COUNT_BITS,
+                                    code & ((1 << lbvh.LEAF_COUNT_BITS) - 1)) == \
+                    tuple(topo[child, 2:])
+                seen.append(tuple(topo[child, 2:]))
+    # the leaves cover the table once, in order
+    assert sorted(seen) == sorted(map(tuple, topo[topo[:, 0] < 0, 2:]))
+    assert sum(c for _, c in seen) == table.shape[0]
+    np.testing.assert_array_equal(rows[:, :15], table[:, :15])
+    code = rows[:, 15].astype(np.int64)
+    assert (rows[:, 15] == code).all()
+    np.testing.assert_array_equal(code >> 2, np.rint(table[:, 16]))
+    np.testing.assert_array_equal(code & 3, np.rint(table[:, 15]))
+    # a scene carried across gets the same copy as the port's own build
+    assert torch.equal(carried(sj).bvh_inner.view(torch.int32), st.bvh_inner.view(torch.int32))
+    assert torch.equal(carried(sj).bvh_rows, st.bvh_rows)
+
+
+def test_pack_refuses_what_the_kernel_cannot_read(monkeypatch):
+    """A table past the last geom whose id * 4 + kind is exact in f32, and a
+    leaf longer than a reference codes, are refused where the tree is
+    packed."""
+    _, st = both("mixed")
+    arrays = [x.numpy() for x in (st.bvh_geoms, st.bvh_nodes_box, st.bvh_nodes_topo,
+                                  st.bvh_nodes_graze)]
+    nodes, rows = lbvh.pack_bvh(*arrays)
+    assert rows.dtype == nodes.dtype == np.float32 and rows.flags.c_contiguous
+    last = (lbvh.BVH_MAX_GEOMS - 1) * 4 + 3        # the last id's code is exact ...
+    assert int(np.float32(last)) == last and int(np.float32(last + 2)) != last + 2  # ... no more
+    monkeypatch.setattr(lbvh, "BVH_MAX_GEOMS", st.n_geoms - 1)
+    with pytest.raises(ValueError, match="at most"):
+        lbvh.pack_bvh(*arrays)
+    monkeypatch.undo()
+    topo = arrays[2].copy()
+    leaf = int(np.nonzero(topo[:, 0] < 0)[0][0])
+    topo[leaf, 3] = 1 << lbvh.LEAF_COUNT_BITS
+    with pytest.raises(ValueError, match="leaf"):
+        lbvh.pack_bvh(arrays[0], arrays[1], topo, arrays[3])
+
+
+def test_variant_and_plan_are_for_the_card_and_count_apart(monkeypatch):
+    """The schedules chip_smoke.py measures the package's against: reached
+    by name, refusing a CPU tensor, a counting build of the replaced kernel
+    and a malformed count buffer, and counting their launches apart."""
+    _, st = both("mixed")
+    ops = (st.bvh_geoms, st.bvh_nodes_box, st.bvh_nodes_topo, st.bvh_nodes_graze)
+    with pytest.raises(ValueError, match="card"):
+        bt.bvh_closest_variant(torch.zeros((8, 8)), *ops)
+    called = []
+    monkeypatch.setattr(bt, "_launch", lambda *a, **k: called.append(a) or "launched")
+
+    class FakeCuda(torch.Tensor):
+        is_cuda = True
+
+    r = torch.zeros((8, 8)).as_subclass(FakeCuda)
+    work = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="variant"):
+        bt.bvh_closest_variant(r, *ops, schedule="blocks")
+    with pytest.raises(ValueError, match="variant"):
+        bt.bvh_closest_variant(r, *ops, schedule="lane", work=work)
+    with pytest.raises(TypeError, match="work"):
+        bt.bvh_closest_variant(r, *ops, work=torch.zeros(3, dtype=torch.int64))
+    before = (bt.bvh_closest_variant.launches, bt.bvh_closest.launches,
+              bt.bvh_closest_n.launches)
+    bt.bvh_closest_variant(r, *ops, want_n=True, schedule="lane")
+    bt.bvh_closest_variant(r, *ops, work=work)
+    assert [a[6:9] for a in called] == [(True, "lane", None), (False, "warp", work)]
+    assert (bt.bvh_closest_variant.launches, bt.bvh_closest.launches,
+            bt.bvh_closest_n.launches) == (before[0] + 2, *before[1:])
+
+
+def test_wrapper_checks_the_packed_tree():
+    """The packed copy the kernel reads must be given, and match the tree it
+    is given: one record per inner node, one row per table row."""
+    _, st = both("mixed")
+    r = torch.zeros((8, 8))
+    ops = (st.bvh_geoms, st.bvh_nodes_box, st.bvh_nodes_topo, st.bvh_nodes_graze)
+    inner, rows = bt._packed(r, *ops, (st.bvh_inner, st.bvh_rows))
+    assert inner is st.bvh_inner and rows is st.bvh_rows
+    with pytest.raises(ValueError, match="bvh_inner"):
+        bt._packed(r, *ops, None)
+    with pytest.raises(TypeError, match="inner"):
+        bt._packed(r, *ops, (st.bvh_inner[:-1], st.bvh_rows))
+    with pytest.raises(TypeError, match="rows"):
+        bt._packed(r, *ops, (st.bvh_inner, st.bvh_rows[:-1].contiguous()))
+    with pytest.raises(ValueError, match="aligned"):
+        bt._packed(r, *ops, (st.bvh_inner, torch.zeros(st.bvh_rows.numel() + 1)[1:].view(
+            st.bvh_rows.shape)))

@@ -298,3 +298,30 @@ def test_wrappers_refuse_malformed_operands():
     with pytest.raises(ValueError, match="shared memory"):
         ch.launch_sweep("brute_closest_chunked", r, table, g, ch.BRUTE_SMEM_MAX_GEOMS + 1,
                         False)
+
+
+def test_chunked_variant_is_for_the_card_and_counts_apart(monkeypatch):
+    """brute_closest_chunked's warp schedule and the one-thread-per-lane
+    sweep it replaced, reached by name only: a CPU tensor and an unknown
+    schedule are refused, and the launches count apart from the wrapper's."""
+    _, st = both()
+    table = st.chunk_geoms
+    with pytest.raises(ValueError, match="card"):
+        ch.brute_closest_chunked_variant(torch.zeros((8, 8)), table)
+    called = []
+    monkeypatch.setattr(ch, "launch_sweep", lambda *a, **k: called.append(a) or "launched")
+
+    class FakeCuda(torch.Tensor):
+        is_cuda = True
+
+    r = torch.zeros((8, 8)).as_subclass(FakeCuda)
+    with pytest.raises(ValueError, match="variant"):
+        ch.brute_closest_chunked_variant(r, table, schedule="blocks")
+    before = (ch.brute_closest_chunked_variant.launches, ch.brute_closest_chunked.launches)
+    ch.brute_closest_chunked_variant(r, table, True, schedule="lane")
+    ch.brute_closest_chunked_variant(r, table)
+    assert [(a[0], a[4], a[5], a[6]) for a in called] == [
+        ("brute_closest_chunked", ch.GEOM_CHUNK, True, "lane"),
+        ("brute_closest_chunked", ch.GEOM_CHUNK, False, "warp")]
+    assert (ch.brute_closest_chunked_variant.launches, ch.brute_closest_chunked.launches) == \
+        (before[0] + 2, before[1])

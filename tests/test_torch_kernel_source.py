@@ -1356,6 +1356,12 @@ void warp_host(const SweepParams& p, SweepLane* s, int nc, int cap, long long* w
     }
     return any(want);
   };
+  if (!p.boxes) {  // BOXES false (warp_sweep_all): every chunk in row order on the live lanes
+    for (int l = 0; l < 32; ++l) want[l] = s[l].open;
+    if (!any(want)) return;
+    for (int c = 0; c < nc; ++c) run(c);
+    return;
+  }
   if (MODE == kSweepAnyHit) {
     for (int c = 0; c < nc; ++c) {
       bool open[32];
@@ -1420,7 +1426,8 @@ void sweep_warps(const SweepParams& p, int cap, int n_warps, long long* work, in
 }
 }  // namespace
 
-// mode: 0 closest, 1 closest + normal, 2 any-hit.
+// mode: 0 closest, 1 closest + normal, 2 any-hit; boxes null: the sweep
+// without boxes (brute_closest_chunked).
 extern "C" void sweep_warp_host(
     int mode, const float* rays, const float* maxt, const float* boxes, const float* graze,
     const float* table, float* t, int* id, float* n, uint8_t* blocked, long long R, int G,
@@ -1432,8 +1439,8 @@ extern "C" void sweep_warp_host(
   else sweep_warps<kSweepAnyHit>(p, cap, n_warps, work, tests, did);
 }
 
-extern "C" void sweep_layout_host(int nc, int chunk, long long* out) {
-  const SweepLayout o = sweep_layout(nc, chunk);
+extern "C" void sweep_layout_host(int nc, int chunk, int boxes, long long* out) {
+  const SweepLayout o = sweep_layout(nc, chunk, boxes != 0);
   out[0] = (long long)o.keys; out[1] = (long long)o.order; out[2] = (long long)o.ring;
   out[3] = (long long)o.boxes; out[4] = (long long)o.bytes; out[5] = ring_rows(chunk);
   out[6] = kSweepWarps; out[7] = kOrderCap; out[8] = kStageChunks;
@@ -1448,7 +1455,8 @@ extern "C" float key_dist_host(unsigned k) { return key_dist(k); }
 def host_warp(tmp_path_factory):
     """The g++ build of the warp schedule behind the chunk wrappers'
     signatures: sweep(mode, rays, maxt, boxes, graze, table, g, chunk,
-    motion, cap=kOrderCap, n_warps=1, counts=None) -> outputs; n_warps: the
+    motion, cap=kOrderCap, n_warps=1, counts=None) -> outputs (boxes None:
+    the sweep without boxes of brute_closest_chunked); n_warps: the
     launch's warps, which a short list is shared over; `counts` receives what
     the schedule ran (lane geom tests, lane box tests, warp lane slots, the
     live lanes, the warps, the chunks a warp ran with rows split over helper
@@ -1466,7 +1474,7 @@ def host_warp(tmp_path_factory):
     lib = ctypes.CDLL(out)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sweep_warp_host.argtypes = [i, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, p, p, p]
-    lib.sweep_layout_host.argtypes = [i, i, ctypes.POINTER(ll)]
+    lib.sweep_layout_host.argtypes = [i, i, i, ctypes.POINTER(ll)]
     lib.order_key_host.argtypes = [ctypes.c_float]
     lib.order_key_host.restype = ctypes.c_uint
     lib.key_dist_host.argtypes = [ctypes.c_uint]
@@ -1485,7 +1493,8 @@ def host_warp(tmp_path_factory):
         did = torch.zeros(4, dtype=torch.int64)
         lib.sweep_warp_host(
             mode, rays.data_ptr(), None if maxt is None else maxt.data_ptr(),
-            boxes.data_ptr(), graze.data_ptr(), table.data_ptr(), t.data_ptr(),
+            None if boxes is None else boxes.data_ptr(),
+            None if boxes is None else graze.data_ptr(), table.data_ptr(), t.data_ptr(),
             pid.data_ptr(), n.data_ptr(), blocked.data_ptr(), r, g, chunk, int(motion),
             cap or layout(1)["order_cap"], n_warps, work.data_ptr(), tests.data_ptr(),
             did.data_ptr(),
@@ -1499,9 +1508,9 @@ def host_warp(tmp_path_factory):
             return blocked.bool()
         return (t, pid, n) if mode == 1 else (t, pid)
 
-    def layout(nc, chunk=256):
+    def layout(nc, chunk=256, boxes=True):
         res = (ll * 9)()
-        lib.sweep_layout_host(nc, chunk, res)
+        lib.sweep_layout_host(nc, chunk, int(boxes), res)
         return dict(zip(("keys", "order", "ring", "boxes", "bytes", "ring_rows", "warps",
                          "order_cap", "stage_chunks"), list(res)))
 
@@ -1719,6 +1728,430 @@ def test_warp_layout_is_aligned_and_stages_boxes_up_to_its_cap(host_warp):
         staged = 28 * nc if nc <= o["stage_chunks"] else 0
         assert o["bytes"] == o["boxes"] + staged
     assert host_warp.layout(79)["bytes"] < 48 * 1024
+
+
+@pytest.mark.parametrize("name", ACCEL_SCENES)
+@pytest.mark.parametrize("act", ["case_mask", "few_live"])
+@pytest.mark.parametrize("n_warps", [1, 600])
+def test_no_box_sweep_equals_plain(host_warp, host_accel, name, act, n_warps):
+    """brute_closest_chunked's warp schedule (the sweep without boxes: scan,
+    live-lane list, warps of 32 or, over 600 warps, short shares whose rows
+    are split over helper lanes, every chunk in row order) over the
+    load-order table, chunks of 4, the last ragged: bit-equal to the
+    one-thread-per-lane sweep it replaced, the plain version's ids and t;
+    every live lane runs every row, no box is tested."""
+    sweep, _ = host_accel
+    scene, rays, _ = accel_case(name)
+    if act == "few_live":
+        rays[7] = random_act(rays.shape[1], 0.05, seed=3)
+    g, mo = scene.n_geoms, scene.has_motion
+    table = CH.pack_geom_table(scene).contiguous()
+    counts = {}
+    host = host_warp(0, rays, None, None, None, table, g, 4, mo, n_warps=n_warps,
+                     counts=counts)
+    lane = sweep(0, rays, None, None, None, table, g, 4, mo)
+    assert all(torch.equal(a, b) for a, b in zip(host, lane))
+    assert_same_hits(host, CH.brute_closest_chunked_plain(rays, table, mo), rays)
+    live = int((rays[7] > 0).sum())
+    task = min(32, max(1, -(-live // n_warps)))
+    assert counts["live"] == live and counts["warps"] == -(-live // task)
+    assert counts["tests"] == live * g and counts["box_tests"] == 0
+    assert not counts["lane_tests"][rays[7] <= 0].any()
+    assert (counts["lane_tests"][rays[7] > 0] == g).all()
+    if task <= 16:
+        assert counts["whole_chunks"] == 0 and counts["split_chunks"] > 0
+
+
+def test_no_box_layout_reserves_no_keys_and_stages_no_boxes(host_warp):
+    """Without boxes the warp kernel's shared memory is the mbarriers and the
+    rings: no keys, no order entries, no staged boxes, whatever the chunks."""
+    for nc, chunk in [(40, 512), (3, 4), (2000, 256)]:
+        o = host_warp.layout(nc, chunk, boxes=False)
+        assert o["order"] == o["keys"] == o["ring"] == 16 * o["warps"]
+        assert o["bytes"] == o["boxes"] == o["ring"] + 2 * 4 * 17 * o["ring_rows"] * o["warps"]
+        assert o["bytes"] < host_warp.layout(nc, chunk)["bytes"]
+
+
+# ---------------------------------------------------------------------------
+# The traversal's warp schedule of csrc/bvh_traverse.cu (bvh_warp_kernel), run
+# on the host from the same steps: the scan (sweep_scan4 in the closest-hit
+# modes), the list of live lanes, then tasks of warp_task list entries, each
+# an emulated warp of 32 lanes in a while-while loop: the root's test
+# (bvh_begin), inner nodes by their packed records (bvh_visit: both children
+# tested, the nearer entered, the other pushed as (node, e)), leaves held
+# back until no lane of the loop lacks one (bvh_postpone), then the leaf step
+# of every open lane (bvh_leaf_step, merging by (t, row)), and the outputs
+# with the winner's normal recomputed (bvh_end).
+# ---------------------------------------------------------------------------
+
+BVH_WARP_HOST = """
+#include "bvh_traverse.cu"
+#include <algorithm>
+#include <vector>
+
+namespace {
+using namespace rtt;
+
+template <bool WANT_N>
+void run(const BvhWarpParams& p, int n_warps, long long* work, int* lane_visits,
+         long long* did) {
+  const SweepParams scan = bvh_scan_params(p);
+  std::vector<int> live;
+  for (long long base = 0; base < p.R; base += kWarpScan) {
+    for (int lane = 0; lane < 32; ++lane) {
+      const unsigned live4 = sweep_scan4<WANT_N ? kSweepClosestN : kSweepClosest>(
+          scan, base + 4 * lane);
+      for (int j = 0; j < 4; ++j)
+        if ((live4 >> j) & 1u) live.push_back((int)(base + 4 * lane + j));
+    }
+  }
+  const int n = (int)live.size();
+  const int task = warp_task(n, n_warps);
+  const bool motion = p.motion != 0;
+  long long warps = 0, most_stack = 0;
+  for (int first = 0; first < n; first += task, ++warps) {
+    BvhLane s[32];
+    BvhStack st[32];
+    BvhWork w[32] = {};
+    for (int l = 0; l < 32; ++l) {
+      const bool mine = l < task && first + l < n;
+      bvh_begin<true>(p, mine ? (size_t)live[first + l] : 0, mine, s[l], w[l]);
+    }
+    for (;;) {
+      bool open = false;
+      for (int l = 0; l < 32; ++l) open = open || bvh_open(s[l]);
+      if (!open) break;
+      bool in[32];
+      for (int l = 0; l < 32; ++l) in[l] = bvh_is_inner(s[l].cur);
+      while (std::any_of(in, in + 32, [](bool b) { return b; })) {
+        work[3] += 32;
+        bool lacking = false;
+        for (int l = 0; l < 32; ++l) {
+          if (!in[l]) continue;
+          bvh_visit<true>(p.inner, s[l], st[l], w[l]);
+          most_stack = std::max(most_stack, (long long)s[l].sp);
+          bvh_postpone(s[l], st[l]);
+          lacking = lacking || s[l].leaf == kBvhNone;
+        }
+        for (int l = 0; l < 32; ++l)
+          if (in[l]) in[l] = lacking && bvh_is_inner(s[l].cur);
+      }
+      int most = 0;
+      for (int l = 0; l < 32; ++l) {
+        if (!bvh_open(s[l])) continue;
+        const int ran = bvh_leaf_step(p.rows, s[l], st[l], motion);
+        w[l].tests += ran;
+        most = std::max(most, ran);
+      }
+      work[3] += 32 * most;
+    }
+    for (int l = 0; l < 32; ++l) {
+      work[0] += w[l].visits; work[1] += w[l].boxes; work[2] += w[l].tests;
+      if (l < task && first + l < n) {
+        bvh_end<WANT_N>(p, (size_t)live[first + l], s[l]);
+        lane_visits[live[first + l]] = (int)w[l].visits;
+      }
+    }
+  }
+  did[0] = n; did[1] = warps; did[2] = task; did[3] = most_stack;
+}
+}  // namespace
+
+// n null: bvh_closest's outputs, else bvh_closest_n's.  work: visits, box
+// tests, geom tests, lane slots; lane_visits:
+// each listed lane's inner-node visits; did: live lanes, warps, lanes a warp
+// takes, the deepest stack.
+extern "C" void bvh_warp_host(
+    const float* rays, const float* boxes, const int* topo, const float* graze,
+    const float* inner, const float* rows, float* t, int* id, float* n, long long R, int G,
+    int motion, int n_warps, long long* work, int* lane_visits, long long* did) {
+  const BvhWarpParams p = make_bvh_warp_params(rays, boxes, topo, graze, inner, rows, t, id, n,
+                                               R, G, motion, nullptr);
+  if (n) run<true>(p, n_warps, work, lane_visits, did);
+  else run<false>(p, n_warps, work, lane_visits, did);
+}
+
+extern "C" void bvh_consts_host(long long* out) {
+  out[0] = kBvhStackMax; out[1] = kLeafCountBits; out[2] = kBvhMaxGeoms; out[3] = kBvhCols;
+  out[4] = kBvhThreads;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_bvh_warp(tmp_path_factory):
+    """The g++ build of the traversal's warp schedule behind the signatures
+    of `bvh_closest[_n]`: bvh(rays, scene_or_arrays, want_n, n_warps=1,
+    counts=None) -> (t, id[, n]), the tree given as (table,
+    boxes, topo, graze) or a scene that carries it; `counts` receives the
+    inner nodes visited, box tests, geom tests and lane slots, the live
+    lanes, warps, the lanes a warp takes, the deepest stack and each lane's
+    visits.  Every output is written: the buffers start as NaN and -7."""
+    from ray_tracying_tpu_torch.accel import lbvh
+
+    d = tmp_path_factory.mktemp("bvh_warp_host")
+    src, out = str(d / "bvh_warp_host.cpp"), str(d / "libbvh_warp_host.so")
+    with open(src, "w") as f:
+        f.write(BVH_WARP_HOST)
+    subprocess.run(
+        ["g++", "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-I", CSRC,
+         "-shared", "-fPIC", "-o", out, src],
+        check=True,
+    )
+    lib = ctypes.CDLL(out)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.bvh_warp_host.argtypes = [p] * 9 + [ll, i, i, i, p, p, p]
+    lib.bvh_warp_host.restype = None
+    lib.bvh_consts_host.argtypes = [p]
+    lib.bvh_consts_host.restype = None
+
+    def bvh(rays, tree, want_n, n_warps=1, counts=None, motion=None):
+        if hasattr(tree, "bvh_geoms"):
+            motion = tree.has_motion if motion is None else motion
+            tree = (tree.bvh_geoms, tree.bvh_nodes_box, tree.bvh_nodes_topo,
+                    tree.bvh_nodes_graze)
+        table, boxes, topo, graze = tree
+        inner, rows = (torch.from_numpy(x) for x in lbvh.pack_bvh(
+            *(x.numpy() for x in tree)))
+        r = rays.shape[1]
+        t = torch.full((r,), float("nan"))
+        pid = torch.full((r,), -7, dtype=torch.int32)
+        n = torch.full((3, r), float("nan")) if want_n else None
+        work = torch.zeros(4, dtype=torch.int64)
+        visits = torch.zeros(r, dtype=torch.int32)
+        did = torch.zeros(4, dtype=torch.int64)
+        lib.bvh_warp_host(
+            rays.data_ptr(), boxes.data_ptr(), topo.data_ptr(), graze.data_ptr(),
+            inner.data_ptr(), rows.data_ptr(), t.data_ptr(), pid.data_ptr(),
+            n.data_ptr() if want_n else None, r, table.shape[0], int(bool(motion)),
+            n_warps, work.data_ptr(), visits.data_ptr(), did.data_ptr())
+        if counts is not None:
+            counts.update(visits=int(work[0]), box_tests=int(work[1]), tests=int(work[2]),
+                          slots=int(work[3]), live=int(did[0]), warps=int(did[1]),
+                          task=int(did[2]), deepest_stack=int(did[3]), lane_visits=visits)
+        assert not torch.isnan(t).any() and (pid != -7).all()
+        assert not want_n or not torch.isnan(n).any()
+        return (t, pid, n) if want_n else (t, pid)
+
+    def consts():
+        res = (ll * 5)()
+        lib.bvh_consts_host(res)
+        return dict(zip(("stack_max", "leaf_count_bits", "max_geoms", "cols", "threads"),
+                        list(res)))
+
+    bvh.consts = consts
+    return bvh
+
+
+def bvh_case(name, seed=8):
+    """(scene with a BVH, (8, R) rays) of accel_case, or a random scene of
+    spheres and cubes of random sizes (a new tree for each seed) seen from
+    its camera and from inside, with a random act mask."""
+    from ray_tracying_tpu_torch.accel import lbvh
+
+    if name != "random":
+        scene, rays, _ = accel_case(name)
+        return scene, rays
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform([-8, 6, -3], [8, 30, 3], (40, 3))
+    scene = rt.load_scene_dict(camera_dict(
+        spheres=[{"location": q.tolist(), "radius": float(rng.uniform(0.2, 2.0))}
+                 for q in pos[:25]],
+        cubes=[{"translation": q.tolist(), "rotation": rng.uniform(0, 90, 3).tolist(),
+                "scale": rng.uniform(0.3, 2.5, 3).tolist()} for q in pos[25:]],
+    ), device="cpu")
+    n = 700
+    d = np.concatenate([rng.uniform([-0.5, 1, -0.2], [0.5, 1, 0.2], (n // 2, 3)),
+                        rng.normal(size=(n - n // 2, 3))])
+    o = np.concatenate([np.zeros((n // 2, 3)), rng.uniform([-8, 6, -3], [8, 30, 3],
+                                                          (n - n // 2, 3))])
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32))
+    rays = CH.pack_rays(torch.from_numpy(o.astype(np.float32)), d, torch.zeros(n),
+                        torch.from_numpy(rng.random(n) < 0.85))
+    return lbvh.with_bvh(scene), rays
+
+
+BVH_CASES = ["all_kinds", "sphere_field", "cube_city", "random"]
+
+
+def assert_bvh_same(host, lane, plain, rays):
+    """The warp schedule against the one-thread-per-lane traversal (g++
+    builds of the same arithmetic: bit-equal) and against the plain version
+    (ids equal, t and normals to the file's tolerance)."""
+    for a, b in zip(host, lane):
+        assert torch.equal(a, b)
+    assert_same_hits(host, plain, rays)
+
+
+@pytest.mark.parametrize("name", BVH_CASES)
+@pytest.mark.parametrize("want_n", [False, True], ids=["t_id", "t_id_normal"])
+@pytest.mark.parametrize("per_warp", [32, 12], ids=["full_tasks", "short_tasks"])
+def test_bvh_warp_schedule_equals_lane_and_plain(host_bvh_warp, host_accel, name, want_n,
+                                                 per_warp):
+    """The traversal's warp schedule (packed records, order by entry
+    distance, the (node, e) stack, a warp in a while-while loop, the
+    winner's normal recomputed) on the scene with every kind and a moving
+    sphere, two zoo scenes and a random tree, with dead lanes: bit-equal to
+    the one-thread-per-lane traversal it replaced, the plain version's ids
+    and t; a dead lane a miss with a zero normal; a lane runs no more geom
+    tests than the table has rows, its stack stays within the tree's depth,
+    and the warp's lane slots hold every visit and test."""
+    from ray_tracying_tpu_torch.accel import lbvh
+    from ray_tracying_tpu_torch.kernels import bvh_traverse as BT
+
+    _, lane_bvh = host_accel
+    scene, rays = bvh_case(name)
+    ops = (scene.bvh_geoms, scene.bvh_nodes_box, scene.bvh_nodes_topo,
+           scene.bvh_nodes_graze)
+    mo = scene.has_motion
+    counts = {}
+    live = int((rays[7] > 0).sum())
+    n_warps = -(-live // per_warp)
+    host = host_bvh_warp(rays, scene, want_n, n_warps, counts=counts)
+    plain = (BT.bvh_closest_n_plain if want_n else BT.bvh_closest_plain)(rays, *ops, mo)
+    assert_bvh_same(host, lane_bvh(rays, *ops, mo, want_n), plain, rays)
+    dead = rays[7] <= 0
+    assert dead.any() and (host[1][dead] == -1).all() and torch.isinf(host[0][dead]).all()
+    assert not want_n or not host[2][:, dead].any()
+    task = min(32, max(1, -(-live // n_warps)))
+    assert counts["live"] == live and counts["task"] == task and task <= per_warp
+    assert counts["warps"] == -(-live // task) and (task == 32) == (per_warp == 32)
+    assert not counts["lane_visits"][dead].any()
+    assert 0 < counts["tests"] < live * scene.n_geoms
+    assert counts["box_tests"] == live + 2 * counts["visits"]
+    assert counts["deepest_stack"] <= lbvh.tree_depth(scene.bvh_nodes_topo.numpy())
+    assert counts["visits"] + counts["tests"] <= counts["slots"]
+
+
+@pytest.mark.parametrize("n_warps", [1, 5, 600])
+def test_bvh_warp_schedule_short_tasks(host_bvh_warp, n_warps):
+    """A short list shared over many warps: tasks of fewer than 32 lanes, the
+    rest of each warp idle; the same answer as one warp of tasks of 32."""
+    scene, rays = bvh_case("sphere_field")
+    rays[7] = random_act(rays.shape[1], 0.05, seed=2)
+    counts = {}
+    host = host_bvh_warp(rays, scene, True, n_warps=n_warps, counts=counts)
+    ref = host_bvh_warp(rays, scene, True)
+    assert all(torch.equal(a, b) for a, b in zip(host, ref))
+    live = int((rays[7] > 0).sum())
+    task = min(32, max(1, -(-live // n_warps)))
+    assert counts["task"] == task and counts["warps"] == -(-live // task)
+
+
+def test_bvh_warp_schedule_root_leaf_and_no_hit(host_bvh_warp, host_accel):
+    """A tree that is one leaf (no inner record: the root's own test, then its
+    rows) and rays that miss the root's box: every lane answered."""
+    from ray_tracying_tpu_torch.accel import lbvh
+    from ray_tracying_tpu_torch.kernels import bvh_traverse as BT
+
+    _, lane_bvh = host_accel
+    scene = lbvh.with_bvh(rt.load_scene_dict(camera_dict(spheres=[
+        {"location": [0.0, 10.0, 0.0], "radius": 1.0},
+        {"location": [2.0, 12.0, 1.0], "radius": 0.5},
+        {"location": [-1.0, 8.0, -0.5], "radius": 0.7}]), device="cpu"))
+    assert scene.bvh_nodes_topo.shape[0] == 1 and scene.bvh_inner.shape[0] == 0
+    rng = np.random.default_rng(3)
+    n = 200
+    d = rng.normal([0, 1, 0], [0.15, 0, 0.15], (n, 3))
+    d[::4] = [0.0, -1.0, 0.0]                              # away: miss the root's box
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32))
+    rays = CH.pack_rays(torch.zeros((n, 3)), d, torch.zeros(n))
+    ops = (scene.bvh_geoms, scene.bvh_nodes_box, scene.bvh_nodes_topo,
+           scene.bvh_nodes_graze)
+    for want_n in (False, True):
+        counts = {}
+        host = host_bvh_warp(rays, scene, want_n, counts=counts)
+        plain = (BT.bvh_closest_n_plain if want_n else BT.bvh_closest_plain)(rays, *ops)
+        assert_bvh_same(host, lane_bvh(rays, *ops, False, want_n), plain, rays)
+        assert counts["visits"] == 0 and (host[1][::4] == -1).all()
+
+
+def tie_tree(scene, a, b):
+    """The tree of `scene` with row b made row a's geom again under its own
+    id: b's leaf box and every box above it grown to hold a's leaf box, and
+    their slacks to a's.  (tree, leaf of a, leaf of b)."""
+    table = scene.bvh_geoms.clone()
+    boxes = scene.bvh_nodes_box.clone()
+    graze = scene.bvh_nodes_graze.clone()
+    topo = scene.bvh_nodes_topo
+    table[b, :16] = table[a, :16]
+    table[b, 16] = scene.bvh_geoms[b, 16]
+    topo_l = topo.tolist()
+    parent = {c: i for i, (l, r, _, _) in enumerate(topo_l) if l >= 0 for c in (l, r)}
+
+    def leaf(row):
+        return next(i for i, (l, _, f, c) in enumerate(topo_l) if l < 0 and f <= row < f + c)
+
+    la, lb = leaf(a), leaf(b)
+    node = lb
+    while True:
+        boxes[node, :3] = torch.minimum(boxes[node, :3], boxes[la, :3])
+        boxes[node, 3:] = torch.maximum(boxes[node, 3:], boxes[la, 3:])
+        graze[node] = torch.maximum(graze[node], graze[la])
+        if node == 0:
+            break
+        node = parent[node]
+    return (table, boxes, topo, graze), la, lb
+
+
+@pytest.mark.parametrize("lower", ["copy_lower", "copy_higher"])
+@pytest.mark.parametrize("want_n", [False, True], ids=["t_id", "t_id_normal"])
+def test_bvh_warp_schedule_tie_across_two_leaves(host_bvh_warp, host_accel, lower, want_n):
+    """One geom twice, in two leaves far apart: every ray that hits it hits
+    both rows at the same t.  Whichever leaf a lane enters first, the lower
+    row wins, as in the row-order sweep: the other leaf's box is still
+    entered at a tie (<=) and the (t, row) merge takes the lower row."""
+    from ray_tracying_tpu_torch.kernels import bvh_traverse as BT
+
+    _, lane_bvh = host_accel
+    scene, rays = bvh_case("sphere_field")
+    g = scene.n_geoms
+    plain0 = BT.bvh_closest_plain(rays, scene.bvh_geoms, scene.bvh_nodes_box,
+                                  scene.bvh_nodes_topo, scene.bvh_nodes_graze)
+    rows, hits = torch.unique(plain0[1][plain0[1] >= 0], return_counts=True)
+    gid = int(rows[hits.argmax()])                         # the geom hit most often
+    a = int((scene.bvh_geoms[:, 16].round() == gid).nonzero()[0, 0])
+    b = 0 if lower == "copy_lower" else g - 1
+    tree, la, lb = tie_tree(scene, a, b)
+    assert la != lb and (b < a) == (lower == "copy_lower")
+    plain = (BT.bvh_closest_n_plain if want_n else BT.bvh_closest_plain)(rays, *tree)
+    won = int(round(float(tree[0][min(a, b), 16])))
+    assert int((plain[1] == won).sum()) >= int(hits.max())  # every such ray ties: lower row
+    for n_warps in (1, rays.shape[1] // 12):
+        host = host_bvh_warp(rays, tree, want_n, n_warps)
+        assert_bvh_same(host, lane_bvh(rays, *tree, False, want_n), plain, rays)
+
+
+def test_bvh_warp_schedule_keeps_the_fuzzy_grazing_hits(host_bvh_warp):
+    """The far grazing spheres of the box-slack test: the warp schedule's
+    child tests carry each child's own slack, so it keeps every fuzzy hit:
+    t and ids bit-equal to the plain sweep, the normals to the file's
+    tolerance (torch's CPU sqrt)."""
+    from ray_tracying_tpu_torch.accel import lbvh
+
+    rng = np.random.default_rng(4)
+    centers = [[0.0, 150.0, 0.0]] + rng.uniform([-40, 100, -20], [40, 160, 20], (8, 3)).tolist()
+    scene = lbvh.with_bvh(rt.load_scene_dict(
+        camera_dict(spheres=[{"location": c, "radius": 0.12} for c in centers]), device="cpu"))
+    rays, rad = silhouette_rays(rng, 60000, centers[0], 0.12)
+    plain = CH.mixed_closest_plain(rays, scene.bvh_geoms, scene.n_geoms, False, want_n=True)
+    assert int(((plain[1] == 0) & torch.from_numpy(rad > 0.12 * 1.02)).sum()) > 100
+    for n_warps in (1, rays.shape[1] // 12):
+        host = host_bvh_warp(rays, scene, True, n_warps)
+        assert torch.equal(host[1], plain[1]) and torch.equal(host[0], plain[0])
+        np.testing.assert_allclose(host[2].numpy(), plain[2].numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_bvh_kernel_constants_are_the_packers(host_bvh_warp):
+    """The kernel's stack, leaf coding, geom limit and record width are
+    accel/lbvh.py's; its blocks are whole warps."""
+    from ray_tracying_tpu_torch.accel import lbvh
+
+    c = host_bvh_warp.consts()
+    assert c["stack_max"] == lbvh.BVH_STACK_MAX
+    assert c["leaf_count_bits"] == lbvh.LEAF_COUNT_BITS
+    assert c["max_geoms"] == lbvh.BVH_MAX_GEOMS and c["cols"] == 16
+    assert c["threads"] % 32 == 0
 
 
 def silhouette_rays(rng, n, centre, radius):
