@@ -25,8 +25,14 @@ and the flagship tile's, bit-equal), the same for the two brute closest hits
 scene's level-0 and level-1 rays, bit-equal), and times every closest-hit and
 any-hit launch of one frame of each large scene by each schedule (phase
 accel_tile_breakdown, the frames byte-equal); it
-checks twelve images against the reference renderer's goldens, and prints
-one JSON line per phase.  Any failure exits non-zero; nothing is caught.
+checks twelve images against the reference renderer's goldens.  The
+differentiable path (diff/): the level kernel in record mode on every level
+of a full-width flagship tile (rows 0..12 equal to the inference launch, the
+record rows to the plain version; phase diff_record), fused against general
+gradients on a strip, the whole frame at 1 spp and the 4x4-spp frame in
+tiles forward and backward, and three steps of fit with a checkpoint resumed
+(phase diff_path).  It prints one JSON line per phase.  Any failure exits
+non-zero; nothing is caught.
 
     python3 chip_smoke.py
 
@@ -1441,7 +1447,7 @@ def wave_redesign_ab(rt, W, scene, tables, inputs, fuzz, opts, n_levels):
     frames = {}
     for name in ("blocks", "lane"):
         if name == "lane":
-            W._launch = lambda q, f, tb, m: W.wave_level_lane(q, f, tb, m)
+            W._launch = lambda q, f, tb, m, record=False: W.wave_level_lane(q, f, tb, m)
         torch.cuda.synchronize()
         t0 = time.time()
         frames[name] = rt.render_to_srgb_u8(scene, opts, torch.Generator(device="cuda").manual_seed(3))
@@ -1456,6 +1462,304 @@ def wave_redesign_ab(rt, W, scene, tables, inputs, fuzz, opts, n_levels):
             summary["levels_1_10_blocks_ms"] > summary["levels_1_10_lane_ms"]:
         say("wave_redesign_ab", warning="the redesign is slower on level 0 or on levels 1-10")
     return rows
+
+
+# The differentiable path (phase diff_path): the flagship at 1920x1080, its
+# six parameter paths (FWDBWD_r5.json's configuration), a 64-row strip for
+# fused-against-general gradients, and the tolerance of the CPU tests
+# (tests/test_torch_diff.py): rtol 2e-4, atol 2e-4 * max|g|.
+DIFF_PATHS = ("materials.diffuse", "materials.roughness", "materials.reflectivity",
+              "lights.position", "lights.intensity", "camera.location")
+DIFF_STRIP_ROWS = 64
+GRAD_RTOL = 2e-4
+
+
+def record_mode_phase(W, scene, tables, inputs, fuzz, n_levels, per_test, stride):
+    """Phase diff_record: the level kernel in record mode on the inputs of
+    every level of one full-width flagship tile.  Rows 0..12 torch.equal to
+    the inference launch on the same input, every row torch.equal to
+    wave_level_plain(record=True) on every `stride`-th lane (the plain
+    version is lane-wise, so a subset of lanes is a plain run of its own);
+    level 0 with and without record in turns by CUDA events, with the
+    record launch's bound; then the backward of one level at that width
+    (WaveLevelFn: the rebuild's forward and autograd, twice to equal bits)
+    and its gather's reduction alone, as shipped (segment_sum) and as an
+    atomic index_add_.  Returns the summary row."""
+    dev = inputs[0].device
+    L = tables.n_lights
+    smi = smi_line()
+    plain_ms = None
+    need0 = None
+    for lv in range(n_levels):
+        prev, fz = inputs[lv], fuzz[lv]
+        inf = W.wave_level(prev, fz, tables)
+        rec = W.wave_level(prev, fz, tables, record=True)
+        head_equal = bool(torch.equal(rec[:13], inf))
+        del inf
+        idx = torch.arange(0, prev.shape[1], stride, device=dev)
+        need = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        plain = W.wave_level_plain(prev[:, idx].contiguous(), fz[:, idx].contiguous(), tables,
+                                   stats=need, record=True)
+        torch.cuda.synchronize()
+        if lv == 0:
+            plain_ms, need0 = (time.time() - t0) * 1e3, need
+            hits = int((rec[12] > 0).sum())
+        sub = rec[:, idx]
+        rec_equal = bool(torch.equal(sub, plain))
+        hit = sub[12] > 0
+        say("diff_record", level=lv, lanes=prev.shape[1], live=int((prev[7] > 0).sum()),
+            rows=rec.shape[0], rows_0_12_equal_inference=head_equal,
+            sampled_lanes=len(idx), record_rows_equal_plain=rec_equal,
+            sampled_hits=int(hit.sum()),
+            sampled_visible=[int(((sub[14 + li] > 0) & hit).sum()) for li in range(L)],
+            sampled_shadow_rays=need["shadow_rays"], nvidia_smi=smi)
+        if not head_equal:
+            fail(f"record mode changed rows 0..12 of level {lv}")
+        if not rec_equal:
+            fail(f"record mode is not bit-equal to its plain version on level {lv}")
+        del rec, plain, sub
+    prev, fz = inputs[0], fuzz[0]
+    n = prev.shape[1]
+    t = {}
+    for turn, record in (("inference", False), ("record", True), ("record_again", True),
+                         ("inference_again", False)):
+        t[turn] = cuda_ms(lambda: W.wave_level(prev, fz, tables, record=record), 5)
+    live = int((prev[7] > 0).sum())
+    scale = n / need0["lanes"]
+    shadow_tests = need0["shadow_tests"] * scale
+    n_bytes = 4 * (n * (1 + W.OUT_ROWS + W.record_rows(L, tables.has_tex))
+                   + live * (W.Q_ROWS - 1 + 3)) \
+        + 4 * (tables.table.numel() + tables.lights.numel()) \
+        + (tables.tex.numel() if tables.has_tex else 0)
+    flops = per_test * (live * tables.table.shape[1] + shadow_tests) + FLOPS_PER_HIT_LANE * hits
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    summary = dict(
+        lanes=n, level0_inference_ms=[t["inference"], t["inference_again"]],
+        level0_record_ms=[t["record"], t["record_again"]],
+        record_over_inference=(t["record"] + t["record_again"]) / (t["inference"] + t["inference_again"]),
+        record_plain_ms_every_nth_lane=plain_ms, stride=stride,
+        record_shadow_rays_estimated=need0["shadow_rays"] * scale,
+        record_shadow_tests_estimated=shadow_tests,
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bytes_ms=bytes_ms, operations_ms=ops_ms, nvidia_smi=smi)
+
+    # The backward of level 0 at full width, and its winner gather's
+    # scatter-add alone (the one atomic pass, into <= G columns).
+    from ray_tracying_tpu_torch.core.segment import segment_sum
+    from ray_tracying_tpu_torch.kernels import wave_ref as WR
+
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (prev, tables.table, tables.lights)]
+    out = W.WaveLevelFn.apply(leaves[0], fz, leaves[1], leaves[2], tables, 0.0)
+    cot = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+
+    def backward():
+        return torch.autograd.grad(out, leaves, cot, retain_graph=True)
+
+    first = backward()  # the first call loads the CUDA modules of its kernels
+    again = backward()
+    summary["level0_backward_ms"] = cuda_ms(backward, 3)
+    summary["level0_backward_bits_repeat"] = all(
+        bool(torch.equal(a, b)) for a, b in zip(first, again))
+    best_id, vis, texel = W.split_record(out.detach(), L, tables.has_tex)
+    summary["level0_rebuild_forward_ms"] = cuda_ms(lambda: WR.wave_level_ref(
+        prev, fz, tables.table, tables.lights, best_id, vis, texel,
+        kinds=[k for k, _, _ in tables.ranges], n_lights=L, glossy=tables.glossy), 3)
+    # The gather's backward (the one reduction onto the table's columns):
+    # segment_sum as shipped, and an atomic index_add_ of the same terms.
+    rows = torch.clamp(WR.winner_rows(tables.table, best_id), min=0)
+    g29 = torch.randn((29, n), generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+    target = torch.zeros((29, tables.table.shape[1]), device=dev)
+    summary["level0_gather_segment_sum_ms"] = cuda_ms(
+        lambda: segment_sum(g29, rows, tables.table.shape[1]), 3)
+    summary["level0_gather_index_add_ms"] = cuda_ms(
+        lambda: target.zero_().index_add_(1, rows, g29), 3)
+    summary["segment_sum_vs_index_add_max_abs_diff"] = float(
+        (segment_sum(g29, rows, tables.table.shape[1]) - target).abs().max())
+    del leaves, out, cot, rows, g29, first, again
+    say("diff_record", **summary)
+    return summary
+
+
+def _grads_ok(grads):
+    return {k: dict(finite=bool(torch.isfinite(g).all()), nonzero=bool((g != 0).any()),
+                    max_abs=float(g.abs().max())) for k, g in grads.items()}
+
+
+def diff_path_phase(rt, W, CH, scene, n_levels, dev):
+    """Phase diff_path: differentiable rendering of the flagship at
+    1920x1080 (FWDBWD_r5.json's configuration), the port's training path.
+    (a) fused against general gradients on a 64-row strip at 1 spp, the six
+    parameter paths; (b) the whole frame at 1 spp through mse_loss: forward
+    seconds (no graph), forward and backward seconds with a synchronize
+    after the gradients are read, peak memory, every gradient finite and
+    not all zero; (c) the same through mse_loss_and_grad_tiled at 4x4 spp;
+    (d) fit(tiled=True) for 3 steps against a target rendered with the
+    diffuse albedo at 0.6 times, the loss falling, a checkpoint after step
+    2 restored and step 3 redone to the same values.  The counts are set
+    to 0 before (b)-(d) and read after."""
+    import shutil
+    import tempfile
+
+    from ray_tracying_tpu_torch.core.sampling import uniform_in_unit_sphere
+    from ray_tracying_tpu_torch.diff import params as P
+    from ray_tracying_tpu_torch.diff import render as DR
+    from ray_tracying_tpu_torch.diff.optimize import fit
+    from ray_tracying_tpu_torch.render.integrator import trace_wavefront
+    from ray_tracying_tpu_torch.render.pipeline import tile_rays
+
+    width, height = scene.camera.resolution
+    smi = smi_line()
+    result = {}
+
+    # (a) the strip, both paths, the same rays and fuzz.
+    n = DIFF_STRIP_ROWS * width
+    gen = torch.Generator(device=dev).manual_seed(21)
+    fuzz = [uniform_in_unit_sphere(gen, (n,)).T.contiguous() for _ in range(n_levels)]
+    weight = torch.rand((n, 3), generator=gen, device=dev) + 0.5
+    y0 = height // 2 - DIFF_STRIP_ROWS // 2
+    strip = {}
+
+    def strip_grads(fused):
+        theta = P.extract(scene, DIFF_PATHS)
+        sc = P.apply(scene, theta)
+        o, d, tm = tile_rays(sc.camera, y0, DIFF_STRIP_ROWS, width, 1,
+                             generator=torch.Generator(device=dev).manual_seed(22))
+        rad = trace_wavefront(sc, o, d, tm, differentiable=True, fused=fused, fuzz=fuzz,
+                              device=dev)
+        return torch.autograd.grad((rad * weight).sum(), list(theta.values()))
+
+    for name, fused in (("fused", True), ("general", False)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        strip_grads(fused)  # the first call loads its kernels' CUDA modules
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        CH.brute_closest.launches = CH.occlusion_any.launches = 0
+        W.wave_level.launches = W.wave_level.record_launches = 0
+        t0 = time.time()
+        grads = strip_grads(fused)
+        torch.cuda.synchronize()
+        strip[name] = dict(zip(DIFF_PATHS, grads))
+        say("diff_path", case="strip", path=name, lanes=n, seconds=time.time() - t0,
+            first_call_seconds=first_s,
+            launches=dict(wave_level=W.wave_level.launches,
+                          wave_level_record=W.wave_level.record_launches,
+                          brute_closest=CH.brute_closest.launches,
+                          occlusion_any=CH.occlusion_any.launches),
+            grads=_grads_ok(strip[name]), nvidia_smi=smi)
+        del grads
+    agree = {}
+    for k in DIFF_PATHS:
+        a, b = strip["fused"][k], strip["general"][k]
+        tol = GRAD_RTOL * b.abs() + GRAD_RTOL * max(1.0, float(b.abs().max()))
+        agree[k] = dict(ok=bool(((a - b).abs() <= tol).all()),
+                        max_abs_diff=float((a - b).abs().max()), max_abs=float(b.abs().max()))
+    say("diff_path", case="strip fused vs general", rtol=GRAD_RTOL,
+        atol=f"{GRAD_RTOL} * max(1, max|g|)", agree=agree, nvidia_smi=smi)
+    if not all(v["ok"] for v in agree.values()):
+        fail("fused and general gradients disagree on the strip")
+    result["strip"] = agree
+    del strip, fuzz, weight
+
+    # The target: the frame at 1 spp with the diffuse albedo at 0.6 times.
+    opts1 = rt.RenderOptions(samples_sqrt=1, light_samples=1)
+    with torch.no_grad():
+        target = DR.render_linear(
+            P.apply(scene, {"materials.diffuse": scene.materials.diffuse * 0.6}), 0, opts1,
+            dev)
+
+    # (b)-(d): the counts set to 0 here and read at the end.
+    CH.brute_closest.launches = CH.occlusion_any.launches = 0
+    W.wave_level.launches = W.wave_level.record_launches = 0
+
+    def step(run, forward, opts, label, rays):
+        theta = P.extract(scene, DIFF_PATHS)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, grads = run(theta, opts)
+        g = {k: grads[k] for k in DIFF_PATHS}
+        checked = _grads_ok(g)  # reads every gradient
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fwd_loss = float(forward(theta, opts))
+            torch.cuda.synchronize()
+            fwd = time.time() - t0
+        row = dict(case=label, primary_rays=rays, forward_seconds=fwd,
+                   forward_backward_seconds=secs, forward_rays_per_s=rays / fwd,
+                   forward_backward_rays_per_s=rays / secs, peak_memory_bytes=peak,
+                   loss=float(loss.detach()), forward_loss=fwd_loss, grads=checked, nvidia_smi=smi)
+        say("diff_path", **row)
+        if not all(c["finite"] and c["nonzero"] for c in checked.values()):
+            fail(f"{label}: a gradient is not finite or is all zero")
+        return row
+
+    def whole(theta, opts):
+        loss = DR.mse_loss(P.apply(scene, theta), target, 0, opts, dev)
+        return loss, dict(zip(theta, torch.autograd.grad(loss, list(theta.values()))))
+
+    def tiled(theta, opts):
+        return DR.mse_loss_and_grad_tiled(scene, theta, target, 0, opts, dev)
+
+    def whole_forward(theta, opts):
+        return DR.mse_loss(P.apply(scene, theta), target, 0, opts, dev)
+
+    def tiled_forward(theta, opts):
+        return DR.mse_loss_tiled(scene, theta, target, 0, opts, dev)
+
+    step(whole, whole_forward, opts1, "whole frame 1 spp, warm-up", width * height)
+    result["whole"] = step(whole, whole_forward, opts1, "whole frame 1 spp", width * height)
+    opts16 = rt.RenderOptions(samples_sqrt=4, light_samples=1)
+    result["tiled"] = step(tiled, tiled_forward, opts16, "tiled 4x4 spp", width * height * 16)
+
+    # (d) fit, tiled, 3 steps; then the checkpoint after step 2 restored
+    # and step 3 redone.
+    ckdir = tempfile.mkdtemp(prefix="rtt_fit_")
+    try:
+        common = dict(steps=3, learning_rate=5e-2, opts=opts1, resample_noise=False,
+                      tiled=True, checkpoint_dir=ckdir, checkpoint_every=2, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, theta3, hist = fit(scene, target, ["materials.diffuse"], **common)
+        torch.cuda.synchronize()
+        fit_s = time.time() - t0
+        # the step-2 checkpoint is the newest: a second fit resumes there
+        # and redoes step 3
+        saved = sorted(os.listdir(ckdir))
+        _, theta_b, hist_b = fit(scene, target, ["materials.diffuse"], **common)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    a, b = theta3["materials.diffuse"], theta_b["materials.diffuse"]
+    fit_row = dict(case="fit tiled 3 steps", history=hist, seconds=fit_s,
+                   checkpoints=saved, resumed_history=hist_b,
+                   resumed_step3_loss_equal=hist_b == hist[2:],
+                   resumed_theta_max_abs_diff=float((a - b).abs().max()),
+                   nvidia_smi=smi)
+    say("diff_path", **fit_row)
+    if not (hist[0] > hist[1] > hist[2]):
+        fail(f"the fit's loss did not fall step on step: {hist}")
+    if len(hist_b) != 1 or hist_b != hist[2:]:
+        fail("the resumed fit did not redo step 3 to the same loss")
+    if not torch.allclose(a, b, rtol=1e-5, atol=1e-7):
+        fail("the resumed fit's theta differs from the uninterrupted one")
+    launches = dict(wave_level=W.wave_level.launches,
+                    wave_level_record=W.wave_level.record_launches,
+                    brute_closest=CH.brute_closest.launches,
+                    occlusion_any=CH.occlusion_any.launches)
+    say("diff_path", case="launches of (b)-(d)", launches=launches, nvidia_smi=smi)
+    if not launches["wave_level_record"]:
+        fail("the differentiable path launched no record-mode level")
+    result["fit"] = fit_row
+    result["launches"] = launches
+    return result
 
 
 def main():
@@ -1769,6 +2073,12 @@ def main():
     # The redesign against the one-thread-per-lane schedule of the same
     # stages (the kernel before the redesign), on one card in one run.
     ab = wave_redesign_ab(rt, W, scene, tables, inputs, fuzz, opts, n_levels)
+    # Record mode (differentiable rendering) of the same kernel on the same
+    # inputs.
+    per_test = sum(FLOPS_PER_TEST[k] * (e - s) for k, s, e in tables.ranges) \
+        / tables.table.shape[1]
+    rec_mode = record_mode_phase(W, scene, tables, inputs, fuzz, n_levels, per_test,
+                                 ACCEL_SIZES["stride"])
     del inputs
     # ---- phase 7: the three brute kernels at the main path's width: the
     # 8,386,560 level-0 rays of that cube-heavy tile, and the tile's
@@ -1889,6 +2199,10 @@ def main():
     torch.cuda.empty_cache()
     accel_entries, city_anyhit, city_brute, city_frames = accel_phases(
         rt, dev, ACCEL_SIZES, kinds, k_table, k_ranges, k_n, n_levels)
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: the differentiable path (record mode, diff/)
+    diff = diff_path_phase(rt, W, CH, scene, n_levels, dev)
 
     brute_entries = []
     for name, line, count in (
@@ -1965,6 +2279,22 @@ def main():
         "lane_schedule_deep_ms": sum(ab[deep]["lane_ms"]) / 2,
         "blocks_per_sm": plan["blocks_per_sm"],
         "smem_bytes": plan["smem_bytes"],
+        "record_mode": {
+            "launches": diff["launches"]["wave_level_record"],
+            "launches_note": "record-mode launches of diff_path (b)-(d): whole frame 1 spp "
+                             "twice, tiled 4x4 spp, the forward-only runs, fit",
+            "max_abs_err": 0.0,
+            "ms": sum(rec_mode["level0_record_ms"]) / 2,
+            "inference_ms_same_turns": sum(rec_mode["level0_inference_ms"]) / 2,
+            "plain_ms_every_nth_lane": rec_mode["record_plain_ms_every_nth_lane"],
+            "stride": rec_mode["stride"],
+            "bound_ms": rec_mode["bound_ms"],
+            "bound_by": rec_mode["bound_by"],
+            "library_ms": None,
+            "level0_backward_ms": rec_mode["level0_backward_ms"],
+            "level0_gather_segment_sum_ms": rec_mode["level0_gather_segment_sum_ms"],
+            "level0_gather_index_add_ms": rec_mode["level0_gather_index_add_ms"],
+        },
     }] + brute_entries + accel_entries}), flush=True)
 
     say("done", seconds=round(time.time() - t_start, 1))

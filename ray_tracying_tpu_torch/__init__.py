@@ -19,6 +19,8 @@ Layout (the same names as the JAX package):
   - render/  : camera ray gen, intersect (two-pass closest hit), materials,
                shade, wavefront integrator (fused and general paths), tiled
                pipeline
+  - diff/    : differentiable rendering: render_linear, mse losses (whole
+               frame and tiled), parameter plumbing, Adam fitting, checkpoints
   - ops/     : the stable op-level API the renderer is built from
   - io/      : PPM P3 codec (byte-compatible with the reference)
   - models/  : the named demo scenes and the procedural large ones
@@ -58,6 +60,10 @@ from ray_tracying_tpu_torch.render.pipeline import (  # noqa: E402
     render_to_srgb_u8,
 )
 from ray_tracying_tpu_torch.io.ppm import read_ppm, write_ppm  # noqa: E402
+# Differentiable rendering, as attributes of the package (the JAX package's
+# diff/ entry points; __all__ stays the JAX package's list).
+from ray_tracying_tpu_torch.diff.render import mse_loss, render_linear  # noqa: E402,F401
+from ray_tracying_tpu_torch.diff.optimize import fit  # noqa: E402,F401
 
 __version__ = "0.1.0"
 

@@ -48,6 +48,12 @@
 // One build serves every scene: kinds, light count, glossy and texture
 // flags are runtime arguments, uniform over the grid.
 //
+// Record mode (`record`, differentiable rendering) writes the level's
+// discrete decisions after the 13 rows (record_none, wave_finish) and casts
+// the shadow ray of every hit lane and light (shadow_cast); rows 0-12 are
+// those of the inference launch, bit for bit.  The record rows go to
+// global memory only: shared memory is what it is without them.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC (kernels/_build.py).
 // No fast-math: misses are true +inf, the specular power is
@@ -99,7 +105,8 @@ struct WaveParams {
   const float* lights;    // (8, L)
   const uint8_t* tex;     // (T, H, W, 4) u8 texels or null
   const float* twh;       // (2, T) true (w, h) per slot or null
-  float* out;             // (13, R)
+  float* out;             // (13, R), or (13 + n_rec, R) in record mode
+  float* rec;             // record rows (out + 13 * R) in record mode, else null
   long long R;
   int G, n_cols, n_lights;
   int n_ranges;
@@ -109,6 +116,21 @@ struct WaveParams {
   float min_tp;
   int vec4;               // R % 4 == 0 and q, out 16-byte aligned
 };
+
+// Record mode (differentiable rendering): after the 13 rows, 1 + n_lights
+// (+ 3 when textured) rows of the level's discrete decisions, which the
+// backward replays (kernels/wave_ref.py): the winner's geom id (table
+// column 16), the raw geometric visibility of each light, the texel rgb
+// the diffuse part was multiplied by.  A lane without a hit (dead or a
+// miss) records id -1, visibility 0, texel 1.
+RTT_DEV void record_none(const WaveParams& p, size_t i) {
+  const size_t R = (size_t)p.R;
+  p.rec[i] = -1.0f;
+  for (int li = 0; li < p.n_lights; ++li) p.rec[(1 + li) * R + i] = 0.0f;
+  if (p.has_tex) {
+    for (int c = 0; c < 3; ++c) p.rec[(1 + p.n_lights + c) * R + i] = 1.0f;
+  }
+}
 
 // The shaded table as the tensor holds it: (n_cols, G), transposed.
 struct TabT {
@@ -158,6 +180,7 @@ RTT_DEV Ray lane_ray(const WaveParams& p, size_t i) {
 RTT_DEV void wave_dead(const WaveParams& p, size_t i) {
   const size_t R = (size_t)p.R;
   for (int row = 0; row < kOutRows; ++row) p.out[row * R + i] = 0.0f;
+  if (p.rec) record_none(p, i);
 }
 
 // ---------------------------------------------------------------- hit stage
@@ -308,7 +331,10 @@ RTT_DEV WaveShade wave_shade(const WaveParams& p, const Tab& tb, size_t i, int r
 
 // Blinn-Phong of one light (Code/raytracer.cpp:244-262) before visibility,
 // and the direction and distance of its shadow ray.  A lane whose products
-// are all zero casts no shadow ray (`needs`).
+// are all zero casts no shadow ray (`needs`), except in record mode, where
+// every hit lane casts one to each light (`shadow_cast`): the recorded
+// visibility is the raw geometric one, so that a term that is zero here
+// still gets its gradient.
 struct LightTerm {
   float pr, pg, pb, qr, qg, qb;
   float lcx, lcy, lcz, dist;
@@ -342,6 +368,11 @@ RTT_DEV LightTerm light_term(const WaveShade& s, const float* lights, int L, int
   o.needs = (o.pr != 0.0f) || (o.pg != 0.0f) || (o.pb != 0.0f) ||
             (o.qr != 0.0f) || (o.qg != 0.0f) || (o.qb != 0.0f);
   return o;
+}
+
+// Whether a hit lane casts the shadow ray of light term lt.
+RTT_DEV bool shadow_cast(const WaveParams& p, const LightTerm& lt) {
+  return lt.needs || p.rec != nullptr;
 }
 
 template <int KIND, class Tab>
@@ -499,6 +530,21 @@ RTT_DEV void wave_finish(const WaveParams& p, const Tab& tb, const float* lights
   out[10 * R + i] = c_g;
   out[11 * R + i] = c_b;
   out[12 * R + i] = s.hit ? 1.0f : 0.0f;
+  if (p.rec) {
+    if (!s.hit) {
+      record_none(p, i);
+    } else {
+      p.rec[i] = tb.col(kIdCol, row);
+      for (int li = 0; li < p.n_lights; ++li) {
+        p.rec[(1 + li) * R + i] = ((blocked >> li) & 1u) ? 0.0f : 1.0f;
+      }
+      if (p.has_tex) {
+        p.rec[(1 + p.n_lights) * R + i] = tr;
+        p.rec[(2 + p.n_lights) * R + i] = tg;
+        p.rec[(3 + p.n_lights) * R + i] = tb_;
+      }
+    }
+  }
 }
 
 // One ray lane of one level, all three stages in one thread: the schedule
@@ -516,7 +562,7 @@ RTT_DEV void wave_lane(const WaveParams& p, const float* tab, const float* light
   if (s.hit) {
     for (int li = 0; li < p.n_lights; ++li) {
       const LightTerm lt = light_term(s, lights, p.n_lights, li);
-      if (lt.needs && wave_blocked(p, tb, s.sox, s.soy, s.soz, lt.lcx, lt.lcy, lt.lcz, lt.dist)) {
+      if (shadow_cast(p, lt) && wave_blocked(p, tb, s.sox, s.soy, s.soz, lt.lcx, lt.lcy, lt.lcz, lt.dist)) {
         blocked |= 1u << li;
       }
     }
@@ -611,6 +657,9 @@ RTT_DEV unsigned scan_group(const WaveParams& p, long long base) {
     if (live == 0) {
       const F4 zero = {0.0f, 0.0f, 0.0f, 0.0f};
       for (int row = 0; row < kOutRows; ++row) store4(p.out + row * R + base, zero);
+      if (p.rec) {
+        for (int j = 0; j < 4; ++j) record_none(p, (size_t)(base + j));
+      }
       return 0;
     }
     for (int j = 0; j < 4; ++j) {
@@ -688,16 +737,17 @@ RTT_DEV void finish_entry(const WaveParams& p, const Tab& tb, const WaveSmem& s,
 }
 
 // Host side: gather one launch's arguments.  ranges: n_ranges triples
-// (kind, start, end).
+// (kind, start, end).  record: out has the record rows after row 12.
 inline WaveParams make_params(
     const float* q, const float* fuzz, const float* table, const float* lights,
     const uint8_t* tex, const float* twh, float* out,
     long long R, int G, int n_cols, int n_lights,
     const int* ranges, int n_ranges, int glossy, int has_tex,
-    int n_tex, int tex_h, int tex_w, float min_tp) {
+    int n_tex, int tex_h, int tex_w, float min_tp, int record = 0) {
   WaveParams p;
   p.q = q; p.fuzz = fuzz; p.table = table; p.lights = lights;
   p.tex = tex; p.twh = twh; p.out = out;
+  p.rec = record ? out + kOutRows * R : nullptr;
   p.R = R; p.G = G; p.n_cols = n_cols; p.n_lights = n_lights;
   p.n_ranges = n_ranges;
   for (int k = 0; k < kMaxRanges; ++k) {
@@ -804,7 +854,7 @@ __device__ void run_list(const WaveParams& p, const TabS& tb, const WaveSmem& s,
       }
       LightTerm lt{};
       if (row >= 0) lt = light_term(sh, s.lights, p.n_lights, li);
-      const bool need = row >= 0 && lt.needs;
+      const bool need = row >= 0 && shadow_cast(p, lt);
       const unsigned ball = __ballot_sync(0xffffffffu, need);
       int* tot = s.queue_tot + (fill & 1) * kWaveWarps;
       if (lane == 0) tot[warp] = __popc(ball);
@@ -956,15 +1006,17 @@ inline int wave_blocks_plan(int G, int n_cols, int n_lights, int& list_cap, int&
 // launched).
 
 // The package's level: persistent blocks (wave_level_blocks_kernel),
-// launched cooperatively.  ctr: five ints of device memory, zero, that no
-// other launch uses meanwhile (the kernel leaves them zero); live: R ints
-// of scratch.
+// launched cooperatively.  record: 1 for record mode (out then holds the
+// record rows after row 12).  ctr: five ints of device memory, zero, that
+// no other launch uses meanwhile (the kernel leaves them zero); live: R
+// ints of scratch.
 extern "C" int wave_level_launch(
     const float* q, const float* fuzz, const float* table, const float* lights,
     const uint8_t* tex, const float* twh, float* out,
     long long R, int G, int n_cols, int n_lights,
     const int* ranges, int n_ranges, int glossy, int has_tex,
-    int n_tex, int tex_h, int tex_w, float min_tp, int* ctr, int* live, void* stream) {
+    int n_tex, int tex_h, int tex_w, float min_tp, int record, int* ctr, int* live,
+    void* stream) {
   if (n_ranges > rtt::kMaxRanges || R < 0 || R > INT_MAX || n_lights > 8 || n_cols < 12 ||
       (uintptr_t)table % 16 != 0) {
     return (int)cudaErrorInvalidValue;
@@ -976,7 +1028,7 @@ extern "C" int wave_level_launch(
   if (err) return err;
   rtt::WaveParams p = rtt::make_params(
       q, fuzz, table, lights, tex, twh, out, R, G, n_cols, n_lights, ranges,
-      n_ranges, glossy, has_tex, n_tex, tex_h, tex_w, min_tp);
+      n_ranges, glossy, has_tex, n_tex, tex_h, tex_w, min_tp, record);
   void* args[] = {&p, &list_cap, &queue_cap, &ctr, &live};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       (const void*)rtt::wave_level_blocks_kernel, dim3((unsigned)(per_sm * sms)),

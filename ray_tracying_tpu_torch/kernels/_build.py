@@ -109,7 +109,7 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
         i, i, i,                             # n_tex tex_h tex_w
         ctypes.c_float,                      # min_tp
     ]
-    lib.wave_level_launch.argtypes = level + [p, p, p]        # ctr live stream
+    lib.wave_level_launch.argtypes = level + [i, p, p, p]     # record ctr live stream
     lib.wave_level_lane_launch.argtypes = level + [i, p]      # threads stream
     lib.wave_level_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     for fn in (lib.wave_level_launch, lib.wave_level_lane_launch, lib.wave_level_plan):

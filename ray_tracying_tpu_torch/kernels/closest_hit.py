@@ -173,7 +173,7 @@ def _plane_t(c, rb: RayBlock, want_normal: bool):
 
 
 def geom_t(c, rb: RayBlock, kind: int, want_normal: bool = False,
-           motion: bool = False):
+           motion: bool = False, miss_t: float = _INF):
     """Hit distance of one geom-table row against the ray block.
 
     c: the row's 17 columns as Python floats (each exactly an f32 value):
@@ -187,7 +187,13 @@ def geom_t(c, rb: RayBlock, kind: int, want_normal: bool = False,
     point, cube = entry face even when the exit t is used
     (Code/shapes.cpp:392-402), rect = +z, plane = face normal; world
     mapping is the inverse-transpose w2o^T (Code/shapes.cpp:178-187), with
-    normalization deferred to the caller)."""
+    normalization deferred to the caller).
+
+    c may also hold (R,) tensors, one value per lane (the columns of each
+    lane's own winner, kernels/wave_ref.py).  miss_t: the distance reported
+    for a miss, +inf as the kernels report it; a differentiable caller
+    passes a large finite value, since an inf primal turns the zero
+    cotangent of a masked lane into NaN (0 * inf)."""
     if kind == KIND_PLANE:
         return _plane_t(c, rb, want_normal)
     ox, oy, oz = rb.ox, rb.oy, rb.oz
@@ -202,7 +208,7 @@ def geom_t(c, rb: RayBlock, kind: int, want_normal: bool = False,
     dlx = rb.dx * c[0] + rb.dy * c[1] + rb.dz * c[2]
     dly = rb.dx * c[4] + rb.dy * c[5] + rb.dz * c[6]
     dlz = rb.dx * c[8] + rb.dy * c[9] + rb.dz * c[10]
-    inf = torch.full_like(rb.ox, _INF)
+    inf = torch.full_like(rb.ox, miss_t)
 
     if kind == KIND_SPHERE:
         # (Code/shapes.cpp:219-232)
@@ -225,13 +231,13 @@ def geom_t(c, rb: RayBlock, kind: int, want_normal: bool = False,
         t_geom = t_loc * rb.dnorm
         if want_normal:
             # n_loc = local hit point (unit sphere, Code/shapes.cpp:241)
-            tl = torch.where(t_loc < _INF, t_loc, 0.0)
+            tl = torch.where(t_loc < miss_t, t_loc, 0.0)
             nlx = olx + tl * dlx
             nly = oly + tl * dly
             nlz = olz + tl * dlz
     elif kind == KIND_CUBE:
         # Slab test with t > 0, no 1e-3 epsilon (Code/shapes.cpp:361-393).
-        t_near = torch.full_like(ox, -_INF)
+        t_near = torch.full_like(ox, -miss_t)
         t_far = inf
         miss = torch.zeros_like(ox, dtype=torch.bool)
         ents = []
@@ -241,8 +247,8 @@ def geom_t(c, rb: RayBlock, kind: int, want_normal: bool = False,
             inv_d = 1.0 / torch.where(par, 1.0, ddc)
             s1 = (-0.5 - oo) * inv_d
             s2 = (0.5 - oo) * inv_d
-            ent = torch.where(par, -_INF, torch.minimum(s1, s2))
-            ext = torch.where(par, _INF, torch.maximum(s1, s2))
+            ent = torch.where(par, -miss_t, torch.minimum(s1, s2))
+            ext = torch.where(par, miss_t, torch.maximum(s1, s2))
             miss = miss | (par & ((oo < -0.5) | (oo > 0.5)))
             t_near = torch.maximum(t_near, ent)
             t_far = torch.minimum(t_far, ext)

@@ -34,6 +34,12 @@ Dataflow (row-major (rows, R) f32; lane i of row r at r * R + i):
                  rows 9..11  contribution (tp-weighted, visibility and
                              texel applied): the level's radiance
                  row  12     act_hit (stats)
+  record mode    row  13     the winner's geom id (table column 16), -1
+                             for none
+                 rows 14..   per-light raw visibility, then (textured)
+                             the texel rgb: the discrete decisions the
+                             backward replays (`WaveLevelFn`,
+                             kernels/wave_ref.py)
 
 The next level reads the previous output tensor directly.  Glossy fuzz is
 sampled OUTSIDE the kernel and fed in as fuzz rows 0..2, so tests can feed
@@ -41,6 +47,12 @@ the same draws to every implementation.
 
 Scope: `wave_refusal` names what this level does not take; such scenes go
 down the integrator's general path.
+
+Differentiable rendering: `WaveLevelFn` runs the level in record mode
+forward, and its backward differentiates `kernels/wave_ref.py::
+wave_level_ref`, the level rebuilt as tensor code from the recorded
+decisions (the JAX package's custom VJP of `wave_level_call`).  Rows 0..12
+of a record-mode launch are those of an inference launch, bit for bit.
 """
 
 from __future__ import annotations
@@ -101,6 +113,19 @@ _M = GEOM_COLS  # first material column
 _SLOT_COL = GEOM_COLS + 14
 
 
+def record_rows(n_lights: int, has_tex: bool) -> int:
+    """Rows a record-mode level appends after row 12."""
+    return 1 + n_lights + (3 if has_tex else 0)
+
+
+def split_record(out: torch.Tensor, n_lights: int, has_tex: bool):
+    """(winner geom id (R,), visibility (L, R), texel (3, R) or None) of a
+    record-mode level output."""
+    vis_end = OUT_ROWS + 1 + n_lights
+    return (out[OUT_ROWS], out[OUT_ROWS + 1 : vis_end],
+            out[vis_end : vis_end + 3] if has_tex else None)
+
+
 @dataclasses.dataclass(frozen=True)
 class WaveTables:
     """Everything one level reads besides the rays: the operands packed by
@@ -153,19 +178,16 @@ def wave_cap_geoms(n_cols: int, n_lights: int) -> int:
     return g
 
 
-def wave_refusal(
-    scene: Scene, use_bvh: bool = False, differentiable: bool = False
-) -> Optional[str]:
+def wave_refusal(scene: Scene, use_bvh: bool = False) -> Optional[str]:
     """Gate of the fused level path, in the form that answers: None for a
     scene (and options) the level takes, else the first feature it does
     not take.  The integrator sends a refused scene down the general path,
-    which takes use_bvh; differentiable is refused there too.
-    (light_samples plays no part: only area lights consume it, and they are
-    refused.)"""
+    which takes use_bvh.  The same gate serves differentiable rendering:
+    textures are always in the kernel here, so record mode takes every
+    scene the level takes.  (light_samples plays no part: only area lights
+    consume it, and they are refused.)"""
     if use_bvh:
         return "use_bvh (BVH traversal)"
-    if differentiable:
-        return "record mode (differentiable rendering)"
     smem = wave_smem_bytes(
         scene.n_geoms, SHADED_COLS + int(scene.has_textures), scene.n_lights
     )
@@ -193,13 +215,11 @@ def wave_refusal(
     return None
 
 
-def wave_supported(
-    scene: Scene, use_bvh: bool = False, differentiable: bool = False
-) -> bool:
+def wave_supported(scene: Scene, use_bvh: bool = False) -> bool:
     """The gate in the form that raises, for a caller that forces the
     fused path: True for a scene the level takes, else NotImplementedError
     naming the first feature `wave_refusal` refuses."""
-    feature = wave_refusal(scene, use_bvh, differentiable)
+    feature = wave_refusal(scene, use_bvh)
     if feature is not None:
         raise NotImplementedError(
             f"the fused wavefront level does not support {feature} yet"
@@ -207,22 +227,30 @@ def wave_supported(
     return True
 
 
-def wave_tables(scene: Scene) -> WaveTables:
+def wave_tables(scene: Scene, differentiable: bool = False) -> WaveTables:
     """Pack the operands of the level for `scene`, on the scene's device.
 
     The shaded table is transposed to (31|32, G): a column of the record
     of every geom is contiguous, so the winner-record reads of a warp
     spread over shared-memory banks.  Kind segments are NOT padded to a
     multiple of 8 as in the JAX package (that served a TPU loop unroll):
-    the table holds the real rows only."""
+    the table holds the real rows only.
+
+    differentiable: the table and the light table keep their autograd
+    graph back to the scene's tensors (materials, transforms, lights), so
+    that `WaveLevelFn`'s cotangents reach them; otherwise both are
+    detached.  The kernel always reads detached views."""
     table, ranges = pack_geom_table_shaded(scene, with_tex=scene.has_textures)
+    lights = pack_light_table(scene)
+    if not differentiable:
+        table, lights = table.detach(), lights.detach()
     tex = twh = None
     if scene.has_textures:
         tex, twh = pack_tex_u8(scene)
     return WaveTables(
         table=table.T.contiguous(),
         ranges=ranges,
-        lights=pack_light_table(scene).contiguous(),
+        lights=lights.contiguous(),
         tex=tex,
         twh=twh,
         n_lights=scene.n_lights,
@@ -261,6 +289,7 @@ def wave_level_plain(
     tables: WaveTables,
     min_tp: float = 0.0,
     stats: Optional[dict] = None,
+    record: bool = False,
 ) -> torch.Tensor:
     """One bounce level in plain PyTorch: the oracle of the CUDA kernel
     and the path of CPU tensors.  Loops over the table rows with (R,)
@@ -268,9 +297,13 @@ def wave_level_plain(
 
     out_prev: the previous level's (rows >= 9, R) output (or the primary
     bootstrap tensor); the queue is its rows 0..8.  fuzz: (>= 3, R)
-    unit-ball rows when the scene is glossy.  Returns (13, R).
+    unit-ball rows when the scene is glossy.  Returns (13, R), or with
+    record (13 + record_rows, R): rows 0..12 unchanged, then the winner's
+    geom id, each light's raw visibility (every hit lane casts every
+    shadow ray), the texel rgb; a lane without a hit records id -1,
+    visibility 0, texel 1.
 
-    Lanes that enter dead (act <= 0) leave with every row zero.
+    Lanes that enter dead (act <= 0) leave with rows 0..12 zero.
 
     stats: optional dict that receives what this call's data needed, for
     the roofline bound: live lanes, geom tests of the closest-hit loops,
@@ -344,6 +377,7 @@ def wave_level_plain(
     soz = pz + nz * C.EPS_NORMAL_OFFSET
     n_shadow = 0
     n_shadow_tests = 0
+    rec_vis = []
     for li in range(tables.n_lights):
         lpx, lpy, lpz, lr, lg, lb, inten, _ = (
             float(x) for x in lights[:, li]
@@ -377,12 +411,13 @@ def wave_level_plain(
         spc = ks * spec_i * scale
         pr, pg, pb = dr * lr * dif, dg * lg * dif, db * lb * dif
         qr, qg, qb = sr * lr * spc, sg * lg * spc, sb * lb * spc
-        # zero-contribution lanes cast no shadow ray (result unchanged)
+        # zero-contribution lanes cast no shadow ray (result unchanged),
+        # except in record mode, which records the raw visibility
         needs = (
             (pr != 0.0) | (pg != 0.0) | (pb != 0.0)
             | (qr != 0.0) | (qg != 0.0) | (qb != 0.0)
         )
-        s_act = hit_f & needs
+        s_act = hit_f if record else hit_f & needs
         # any-hit: blocked iff some geom has t <= dist (visible iff
         # min_t > light_dist, Code/raytracer.cpp:233-235)
         srb = RayBlock(
@@ -395,6 +430,11 @@ def wave_level_plain(
                     n_shadow_tests += int((~blocked).sum())
                 blocked = blocked | (geom_t(rows[g], srb, kind) <= dist)
         vis = torch.where(blocked, 0.0, 1.0)
+        if record:
+            rec_vis.append(torch.where(hit_f, vis, zero))
+            # the terms of the inference launch: visibility 0 where the
+            # products are all zero
+            vis = torch.where(needs, vis, zero)
         if stats is not None:
             n_shadow += int(s_act.sum())
         d_r = d_r + pr * vis
@@ -492,6 +532,7 @@ def wave_level_plain(
         c_r = d_r * tr + s_r
         c_g = d_g * tg + s_g
         c_b = d_b * tb + s_b
+        rec_tex = [tr, tg, tb]
     else:
         c_r = d_r + s_r
         c_g = d_g + s_g
@@ -545,7 +586,13 @@ def wave_level_plain(
             shadow_rays=n_shadow,
             shadow_tests=n_shadow_tests,
         )
-    return torch.where(live[None, :], out, torch.zeros_like(out))
+    out = torch.where(live[None, :], out, torch.zeros_like(out))
+    if not record:
+        return out
+    won_id = torch.where(hit_f, rec[16], -1.0)
+    return torch.cat(
+        [out, torch.stack([won_id] + rec_vis + (rec_tex if tables.has_tex else []))]
+    )
 
 
 def _level_args(out_prev, fuzz, tables: WaveTables, min_tp: float, out):
@@ -598,9 +645,11 @@ def _raise_on(lib, err, what):
         )
 
 
-def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float) -> torch.Tensor:
+def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float,
+            record: bool = False) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (no synchronization)."""
-    out = torch.empty((OUT_ROWS, out_prev.shape[1]), dtype=torch.float32,
+    rows = OUT_ROWS + (record_rows(tables.n_lights, tables.has_tex) if record else 0)
+    out = torch.empty((rows, out_prev.shape[1]), dtype=torch.float32,
                       device=out_prev.device)
     args = _level_args(out_prev, fuzz, tables, min_tp, out)
     lib = _build.load()
@@ -609,9 +658,12 @@ def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float) -> torch.Tensor:
         ctr = _coop.work_counters(out_prev.device, stream)
         # the launch's list of live lanes (scratch, no initial value)
         live = torch.empty(out_prev.shape[1], dtype=torch.int32, device=out_prev.device)
-        err = lib.wave_level_launch(*args, ctr.data_ptr(), live.data_ptr(), stream)
+        err = lib.wave_level_launch(
+            *args, int(record), ctr.data_ptr(), live.data_ptr(), stream)
     _raise_on(lib, err, "wave_level kernel launch")
     wave_level.launches += 1
+    if record:
+        wave_level.record_launches += 1
     return out
 
 
@@ -664,15 +716,69 @@ def wave_level(
     fuzz: Optional[torch.Tensor],
     tables: WaveTables,
     min_tp: float = 0.0,
+    record: bool = False,
 ) -> torch.Tensor:
-    """One bounce level (see `wave_level_plain` for the operands).  A CUDA
-    tensor goes through the hand-written kernel or raises; only a CPU
-    tensor takes the plain version.  `wave_level.launches` counts kernel
-    launches."""
+    """One bounce level (see `wave_level_plain` for the operands and the
+    record rows).  A CUDA tensor goes through the hand-written kernel or
+    raises; only a CPU tensor takes the plain version.
+    `wave_level.launches` counts kernel launches, `wave_level.record_launches`
+    those of them in record mode."""
     if out_prev.is_cuda:
         _check_level_args(out_prev, fuzz, tables)
-        return _launch(out_prev, fuzz, tables, min_tp)
-    return wave_level_plain(out_prev, fuzz, tables, min_tp)
+        return _launch(out_prev, fuzz, tables, min_tp, record)
+    return wave_level_plain(out_prev, fuzz, tables, min_tp, record=record)
 
 
 wave_level.launches = 0
+wave_level.record_launches = 0
+
+
+class WaveLevelFn(torch.autograd.Function):
+    """One differentiable bounce level: the port of the JAX package's custom
+    VJP of `wave_level_call`.
+
+    Forward: `wave_level(..., record=True)` (the kernel for a CUDA tensor,
+    the plain version for a CPU one) on detached views of the tables.
+    Backward: `torch.autograd.grad` of `kernels/wave_ref.py::
+    wave_level_ref`, the level rebuilt from the recorded decisions, with
+    respect to out_prev, table and lights; fuzz and the static operands get
+    no gradient.  The saved tensors are out_prev (the previous level's
+    output, saved there already), fuzz, the two tables and this level's
+    output, whose record rows the backward reads.
+
+    apply(out_prev, fuzz, table, lights, tables, min_tp): table and lights
+    are `tables.table` / `tables.lights` (of `wave_tables(scene,
+    differentiable=True)`), passed apart so that autograd sees them."""
+
+    @staticmethod
+    def forward(ctx, out_prev, fuzz, table, lights, tables: WaveTables, min_tp: float):
+        kt = dataclasses.replace(tables, table=table.detach(), lights=lights.detach())
+        out = wave_level(out_prev.detach(), fuzz, kt, min_tp, record=True)
+        ctx.save_for_backward(out_prev, fuzz, table, lights, out)
+        ctx.static = (tables.ranges, tables.n_lights, tables.glossy, tables.has_tex, min_tp)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        from ray_tracying_tpu_torch.kernels.wave_ref import wave_level_ref
+
+        out_prev, fuzz, table, lights, out = ctx.saved_tensors
+        ranges, n_lights, glossy, has_tex, min_tp = ctx.static
+        best_id, vis, texel = split_record(out, n_lights, has_tex)
+        wanted = ctx.needs_input_grad
+        with torch.enable_grad():
+            xs = [
+                t.detach().requires_grad_(bool(w))
+                for t, w in ((out_prev, wanted[0]), (table, wanted[2]), (lights, wanted[3]))
+            ]
+            recon = wave_level_ref(
+                xs[0], fuzz, xs[1], xs[2], best_id, vis, texel,
+                kinds=[k for k, _, _ in ranges], n_lights=n_lights,
+                glossy=glossy, min_tp=min_tp,
+            )
+            need = [x for x in xs if x.requires_grad]
+            grads = iter(torch.autograd.grad(
+                recon, need, g_out[:OUT_ROWS], allow_unused=True
+            ) if need else ())
+        g_prev, g_table, g_lights = (next(grads) if x.requires_grad else None for x in xs)
+        return g_prev, None, g_table, g_lights, None, None

@@ -43,11 +43,23 @@ Level semantics (identical in all paths, all cited):
   - children spawned at the depth-10 level are never traced: at depth 11
     the reference returns black (raytracer.cpp:290-292).
 
+Differentiable rendering (`differentiable=True`) takes the same two
+paths.  Fused: every level is `kernels/wavefront.py::WaveLevelFn` (the
+kernel in record mode forward, the level rebuilt as tensor code from the
+recorded decisions backward), and the bootstrap queue keeps its graph to
+the origins and directions.  General: pass 2 of the closest hit, the
+materials, shading (with the raw geometric visibility) and the spawn are
+tensor code around the discrete kernels, each level under
+`torch.utils.checkpoint`, so that autograd keeps a level's inputs, not its
+intermediates; the level's random draws are made before it, so that the
+recompute sees the same ones.  Hit decisions and visibility carry no
+gradient on either path.
+
 Not ported: queue shrinking between levels of the fused path (the image is
 the same without it; dead levels just cost more), the JAX package's
-`segments` gating (measured slower there and off by default),
-differentiable rendering.  `use_bvh` belongs to the general path: it sends
-a scene off the fused path, whose level searches its own table.
+`segments` gating (measured slower there and off by default).  `use_bvh`
+belongs to the general path: it sends a scene off the fused path, whose
+level searches its own table.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 
 from ray_tracying_tpu_torch.core import constants as C
 from ray_tracying_tpu_torch.core.sampling import uniform_in_unit_sphere
@@ -62,6 +75,7 @@ from ray_tracying_tpu_torch.core.vecmath import dot, normalize, reflect, refract
 from ray_tracying_tpu_torch.kernels.wavefront import (
     C_BASE,
     HIT_ROW,
+    WaveLevelFn,
     WaveTables,
     wave_level,
     wave_refusal,
@@ -121,9 +135,11 @@ def level_fuzz(
 
 def _trace_wave(
     tables: WaveTables, o, d, times, generator, fuzz, min_tp, return_stats,
-    levels, level_fn, return_levels, return_dropped,
+    levels, level_fn, return_levels, return_dropped, differentiable=False,
 ):
-    """Fused-level path, in-slot, full width on every level."""
+    """Fused-level path, in-slot, full width on every level.  differentiable:
+    every level is a `WaveLevelFn` (record mode), the radiance is summed out
+    of place, and the bootstrap queue keeps its graph."""
     r = o.shape[0]
     dev = o.device
     prev = torch.cat(
@@ -141,8 +157,12 @@ def _trace_wave(
             fz = fuzz[depth]
         else:
             fz = level_fuzz(tables, generator, r, dev)
-        out = level_fn(prev, fz, tables, min_tp)
-        accum += out[C_BASE : C_BASE + 3]
+        if differentiable:
+            out = WaveLevelFn.apply(prev, fz, tables.table, tables.lights, tables, min_tp)
+            accum = accum + out[C_BASE : C_BASE + 3]
+        else:
+            out = level_fn(prev, fz, tables, min_tp)
+            accum += out[C_BASE : C_BASE + 3]
         if return_stats:
             stat_rows.append(
                 torch.stack(
@@ -291,11 +311,14 @@ def _spawn_one_way(scene, q, hit, mrec, act, fuzz, min_tp):
 def _trace_general(
     scene: Scene, o, d, times, generator, fuzz, light_jitter, light_samples,
     queue_mult, do_compact, min_tp, max_depth, return_stats, return_dropped,
-    use_bvh=False,
+    use_bvh=False, differentiable=False,
 ):
     """General path: closest hit -> materials -> shade -> spawn, level by
     level, in-slot or compacted (module docstring).  No host read inside
-    the level loop."""
+    the level loop.  differentiable: pass 2 and shading keep their graph,
+    each level runs under torch.utils.checkpoint, and its draws are made
+    before it (area-light jitter in light order, then the glossy fuzz: the
+    order in which the inference level draws them)."""
     r = o.shape[0]
     dev = o.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -319,18 +342,17 @@ def _trace_general(
     accum = torch.zeros((r + 1 if do_compact else r, 3), **f32)
     zero_count = torch.zeros((), dtype=torch.int64, device=dev)
 
-    levels = (max_depth + 1) if spawn else 1
-    rows = []
-    for depth in range(levels):
+    def level(depth, jitter, fz, accum, *fields):
+        q = _Queue(*fields)
         hit = closest_hit(
-            scene, q.o, q.d, q.time, q.active, use_bvh, differentiable=False
+            scene, q.o, q.d, q.time, q.active, use_bvh, differentiable=differentiable
         )
         act = q.active & hit.valid
         missed = q.active & ~hit.valid
         mrec = gather_materials(scene, hit.geom_id)
         local = shade(
             scene, hit, q.o, generator, light_samples, mrec, act, use_bvh,
-            jitter=None if light_jitter is None else light_jitter[depth],
+            jitter=jitter, differentiable=differentiable,
         )
         local_w = torch.clamp(1.0 - mrec.reflectivity - mrec.transparency, min=0.0)
         w_miss = torch.where(missed, q.tp, 0.0)[:, None]
@@ -346,12 +368,8 @@ def _trace_general(
         live_in = q.active.sum()
         n_hit = act.sum()
 
-        fz = None
-        if spawn and scene.has_glossy:
-            if fuzz is not None:
-                fz = fuzz[depth].T
-            else:
-                fz = uniform_in_unit_sphere(generator, (capacity,), device=dev)
+        if spawn and scene.has_glossy and fz is None:
+            fz = uniform_in_unit_sphere(generator, (capacity,), device=dev)
         dropped = zero_count
         if not spawn:
             spawned = zero_count
@@ -369,7 +387,31 @@ def _trace_general(
             spawned = q.active.sum()
             if do_compact:
                 q, dropped = _compact(q, q.active, capacity)
-        rows.append(torch.stack([live_in, n_hit, spawned, dropped]))
+        return (accum, torch.stack([live_in, n_hit, spawned, dropped])) + tuple(q)
+
+    levels = (max_depth + 1) if spawn else 1
+    rows = []
+    for depth in range(levels):
+        jitter = None if light_jitter is None else light_jitter[depth]
+        fz = None
+        if spawn and scene.has_glossy and fuzz is not None:
+            fz = fuzz[depth].T
+        if differentiable:
+            if jitter is None and any(scene.lights.is_area):
+                jitter = [
+                    uniform_in_unit_sphere(generator, (capacity, light_samples), device=dev)
+                    if area else None
+                    for area in scene.lights.is_area
+                ]
+            if spawn and scene.has_glossy and fz is None:
+                fz = uniform_in_unit_sphere(generator, (capacity,), device=dev)
+            res = torch.utils.checkpoint.checkpoint(
+                level, depth, jitter, fz, accum, *q, use_reentrant=False
+            )
+        else:
+            res = level(depth, jitter, fz, accum, *q)
+        accum, row, q = res[0], res[1], _Queue(*res[2:])
+        rows.append(row)
 
     st = torch.stack(rows, dim=1).to(torch.int32)  # (4, L)
     return _pack_result(
@@ -406,7 +448,8 @@ def trace_wavefront(
     return_stats also a TraceStats of per-level live/hit/spawn/drop
     counters; with return_dropped (and no stats) also the count of dropped
     continuations as a 0-d tensor; with return_levels (fused path only)
-    also the list of every level's (13, R) output.
+    also the list of every level's (13, R) output (with the record rows
+    when differentiable).
 
     device: None = "cuda" (raises without a card); "cpu" runs the plain
     versions on the host.  The scene and the rays are moved there.
@@ -443,15 +486,19 @@ def trace_wavefront(
     tables: the scene's packed `wave_tables`, for a caller that traces many
     tiles of one scene down the fused path.  level_fn: the fused level
     implementation, `wave_level` unless a check wants `wave_level_plain`
-    on the same device.
+    on the same device (differentiable mode always runs `WaveLevelFn`).
 
     use_bvh: closest hits of the general path go through the LBVH
     traversal kernel when the scene carries a BVH (accel.lbvh.with_bvh)
     and fits the brute kernels' cap; the same hit set.  It sends the scene
     off the fused path; with fused=True it raises by name.
 
-    differentiable raises NotImplementedError on both paths: record mode is
-    not ported yet."""
+    differentiable: the radiance keeps its autograd graph to the scene's
+    tensors (materials, transforms, lights) and to the origins and
+    directions (module docstring).  The fused path takes every scene
+    `wave_refusal` lets through (its level in record mode, `tables` packed
+    with their graph when not given), with the inference image bit for
+    bit; the general path the rest, its hits rebuilt by pass 2."""
     dev = torch.device("cuda" if device is None else device)
     origins = origins.to(dev, torch.float32)
     directions = directions.to(dev, torch.float32)
@@ -472,10 +519,9 @@ def trace_wavefront(
             return_levels,
         )
 
-    if differentiable or fused is True:
-        # Record mode is refused by name on both paths; a forced fused
-        # path also raises for what it does not take.
-        wave_supported(scene, use_bvh, differentiable)
+    if fused is True:
+        # A forced fused path raises for what it does not take.
+        wave_supported(scene, use_bvh)
     if fused is True and compact == "always":
         raise ValueError("compact='always' belongs to the general path, not to fused=True")
     spawn = scene.has_reflection or scene.has_refraction
@@ -486,13 +532,14 @@ def trace_wavefront(
         and wave_refusal(scene, use_bvh) is None
     ):
         if tables is None:
-            tables = wave_tables(scene.to(dev))
+            tables = wave_tables(scene.to(dev), differentiable=differentiable)
         if tables.glossy and fuzz is None and generator is None:
             raise ValueError("a glossy scene needs `fuzz` draws or a `generator`")
         levels = (max_depth + 1) if scene.has_reflection else 1
         return _trace_wave(
             tables, origins, directions, times, generator, fuzz, min_throughput,
             return_stats, levels, level_fn, return_levels, return_dropped,
+            differentiable,
         )
 
     if return_levels:
@@ -508,5 +555,5 @@ def trace_wavefront(
     return _trace_general(
         scene.to(dev), origins, directions, times, generator, fuzz,
         light_jitter, light_samples, queue_mult, do_compact, min_throughput,
-        max_depth, return_stats, return_dropped, use_bvh,
+        max_depth, return_stats, return_dropped, use_bvh, differentiable,
     )

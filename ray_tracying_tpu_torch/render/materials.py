@@ -2,7 +2,10 @@
 
 One packed (M, 15) table and a single indexed row load, `packed[gid]`,
 fetch the whole record of each ray's hit geom.  The record is fetched once
-per bounce level and shared by shading and child-ray spawning.
+per bounce level and shared by shading and child-ray spawning.  When the
+table carries a graph (differentiable rendering) the load is
+core/segment.py::gather_columns, the same values with a backward that adds
+each material's lanes up without atomics.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from ray_tracying_tpu_torch.core.segment import gather_columns
 from ray_tracying_tpu_torch.scene.types import Scene
 
 
@@ -51,7 +55,8 @@ def gather_materials(scene: Scene, gid: torch.Tensor) -> MatRec:
     n = packed.shape[0]
     gid = gid.to(torch.int64)
     in_range = (gid >= 0) & (gid < n)
-    rec = packed[torch.clamp(gid, 0, n - 1)]
+    idx = torch.clamp(gid, 0, n - 1)
+    rec = gather_columns(packed.T, idx).T if packed.requires_grad else packed[idx]
     rec = torch.where(in_range[:, None], rec, torch.zeros_like(rec))
     return MatRec(
         diffuse=rec[:, 0:3],

@@ -110,11 +110,13 @@ def tile_rays(
 
 def _render_tile(
     scene: Scene, y0: int, rows: int, width: int, opts: RenderOptions,
-    generator: torch.Generator, tables=None,
+    generator: torch.Generator, tables=None, differentiable: bool = False,
 ):
     """Render a (rows, width) tile -> ((rows, width, 3) linear radiance,
     TraceStats when opts.stats, else the count of dropped continuations
-    as a 0-d tensor).  `scene` is already on its device."""
+    as a 0-d tensor).  `scene` is already on its device.  differentiable:
+    the tile keeps its graph to the scene's tensors, the camera's included
+    (diff/render.py)."""
     spp = opts.samples_sqrt * opts.samples_sqrt if opts.samples_sqrt > 1 else 1
     o, d, times = tile_rays(
         scene.camera, y0, rows, width, opts.samples_sqrt, generator=generator
@@ -124,6 +126,7 @@ def _render_tile(
         generator=generator, use_bvh=opts.use_bvh,
         min_throughput=opts.min_throughput, return_stats=opts.stats,
         return_dropped=not opts.stats, device=scene.device, tables=tables,
+        differentiable=differentiable,
     )
     return colors.reshape(rows, width, spp, 3).mean(dim=2), aux
 

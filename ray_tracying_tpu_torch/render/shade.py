@@ -16,7 +16,11 @@ Texture sampling matches Material::getDiffuseColor (Code/material.hpp:99-134):
 nearest-neighbor, v flipped, multiplied by the base diffuse tint.
 
 Visibility goes through the shadow any-hit kernel (render/intersect.py::
-occluded), one launch per light.
+occluded), one launch per light.  For inference a lane whose Blinn-Phong
+term is exactly zero casts no shadow ray (its visibility cannot change the
+image); differentiable rendering casts every active lane's ray and uses the
+raw geometric visibility, so that such a term still gets its gradient (a
+diffuse albedo of 0 on a lit surface has a non-zero derivative).
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ def shade(
     use_bvh: bool = False,
     *,
     jitter: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    differentiable: bool = False,
 ) -> torch.Tensor:
     """Local color for each hit ray.  view_origin: (R, 3) ray origins
     (the reference builds V from the ray ORIGIN, not -direction, :197).
@@ -86,7 +91,10 @@ def shade(
     Randomness: each area light consumes one (R, light_samples, 3)
     unit-ball tensor.  `jitter` supplies them (a sequence indexed by light;
     entries of point lights are ignored); otherwise they are drawn from
-    `generator`, on the rays' device."""
+    `generator`, on the rays' device.
+
+    differentiable: every active lane casts its shadow rays (raw geometric
+    visibility, module docstring); the image is the same."""
     if mrec is None:
         mrec = gather_materials(scene, hit.geom_id)
     base_diffuse = sample_diffuse_color(scene, mrec, hit.uv)
@@ -150,7 +158,10 @@ def shade(
         l_dir = normalize(lv)
         so = shadow_o[:, None, :].expand(r, s, 3).reshape(r * s, 3)
         sd = l_dir.reshape(r * s, 3)
-        s_act = needs_vis if active is None else (active & needs_vis)
+        if differentiable:
+            s_act = torch.ones_like(needs_vis) if active is None else active
+        else:
+            s_act = needs_vis if active is None else (active & needs_vis)
         s_act = s_act[:, None].expand(r, s).reshape(r * s)
         # Shadow rays carry time = 0 (Ray default member init,
         # Code/shapes.hpp:28) — motion blur does NOT apply to them.

@@ -12,6 +12,7 @@
     queue machinery (`_compact`, `_accumulate_by_dest`).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -305,7 +306,7 @@ def test_stats_zoo_cornell_no_drops_at_default_mult():
     assert int(st.live[1]) > 0
 
 
-def both_ways_scene():
+def both_ways_dict():
     d = minimal_camera()
     d["rectangles"] = [
         {"translation": [0, y, 0], "rotation": [1.5707963, 0, 0], "scale": [40, 40, 1],
@@ -313,7 +314,11 @@ def both_ways_scene():
                       "refractive_index": 1.0, "roughness": 0.0}}
         for y in (5.0, 7.0)
     ]
-    return load(d)
+    return d
+
+
+def both_ways_scene():
+    return load(both_ways_dict())
 
 
 def test_stats_overflow_is_counted():
@@ -399,13 +404,38 @@ def test_accumulate_by_dest_sums_every_slot(max_run):
     ({"use_bvh": True}, "use_bvh"), ({"differentiable": True}, "record mode"),
 ])
 def test_general_path_refuses_options_by_name(kwargs, feature):
-    """Record mode is refused by name on the general path; use_bvh is
-    refused by name only where the fused path is forced."""
+    """use_bvh is refused by name only where the fused path is forced.
+    Record mode (differentiable rendering) is refused no more: this two-way
+    scene, which the fused gate refuses, renders down the general path with
+    differentiable=True (pass 2 of the closest hit), with the radiance and
+    TraceStats of the JAX package's general path, and finite, non-zero
+    gradients to its reflectivity (every pixel is background seen through
+    the two-way rects).  (The port's inference path takes the
+    closest hit's fused normals instead; on this scene of coincident
+    pass-through hits and queue overflow the last-bit difference changes
+    which continuations survive.)"""
     scene = both_ways_scene()
     if "use_bvh" in kwargs:
-        kwargs = dict(kwargs, fused=True)
-    with pytest.raises(NotImplementedError, match=feature):
-        trace_dirs(scene, [[0, 1, 0]], **kwargs)
+        with pytest.raises(NotImplementedError, match=feature):
+            trace_dirs(scene, [[0, 1, 0]], **dict(kwargs, fused=True))
+        return
+    mats = scene.materials
+    refl = mats.reflectivity.clone().requires_grad_(True)
+    sc = dataclasses.replace(scene, materials=dataclasses.replace(mats, reflectivity=refl))
+    dirs = [[0, 1, 0], [0.3, 1, 0.1]]
+    got, stats = trace_dirs(sc, dirs, return_stats=True, **kwargs)
+    ref, st_ref = trace_jax(
+        rt_jax.load_scene_dict(both_ways_dict()), jnp.zeros((2, 3)),
+        jnp.asarray(dirs, jnp.float32), jnp.zeros(2), jax.random.key(0), 1,
+        differentiable=True, return_stats=True,
+    )
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+    for field in ("live", "hits", "spawned", "dropped"):
+        np.testing.assert_array_equal(
+            getattr(stats, field).numpy(), np.asarray(getattr(st_ref, field)), err_msg=field
+        )
+    (g,) = torch.autograd.grad(got.sum(), [refl])
+    assert torch.isfinite(g).all() and g.abs().sum() > 0
 
 
 def test_general_path_takes_use_bvh():

@@ -238,7 +238,7 @@ void run_list(const rtt::WaveParams& p, const rtt::TabS& tb, const rtt::WaveSmem
       for (int t = 0; t < T; ++t) {
         if (row[t] < 0) continue;
         const rtt::LightTerm lt = rtt::light_term(sh[t], s.lights, p.n_lights, li);
-        if (lt.needs) rtt::queue_put(s, qn++, sh[t], lt, seg + t, li);
+        if (rtt::shadow_cast(p, lt)) rtt::queue_put(s, qn++, sh[t], lt, seg + t, li);
       }
     }
   }
@@ -254,10 +254,10 @@ extern "C" void wave_level_blocks_host(
     long long R, int G, int n_cols, int n_lights,
     const int* ranges, int n_ranges, int glossy, int has_tex,
     int n_tex, int tex_h, int tex_w, float min_tp,
-    int n_blocks, int list_cap, int queue_cap, long long* counts) {
+    int n_blocks, int list_cap, int queue_cap, long long* counts, int record) {
   const rtt::WaveParams p = rtt::make_params(
       q, fuzz, table, lights, tex, twh, out, R, G, n_cols, n_lights, ranges,
-      n_ranges, glossy, has_tex, n_tex, tex_h, tex_w, min_tp);
+      n_ranges, glossy, has_tex, n_tex, tex_h, tex_w, min_tp, record);
   const rtt::WaveLayout lay = rtt::wave_layout(G, n_cols, n_lights, list_cap, queue_cap);
   const int T = rtt::kWaveThreads;
   // one shared memory per block; blocks take scan steps in turn
@@ -332,7 +332,7 @@ def host_blocks(tmp_path_factory):
     lib.wave_level_blocks_host.argtypes = [
         p, p, p, p, p, p, p, ll, i, i, i,
         ctypes.POINTER(ctypes.c_int), i, i, i, i, i, i, ctypes.c_float,
-        i, i, i, ctypes.POINTER(ll),
+        i, i, i, ctypes.POINTER(ll), i,
     ]
     lib.wave_plan_host.argtypes = [i, i, i, ll, ctypes.POINTER(ll)]
     lib.wave_level_blocks_host.restype = lib.wave_plan_host.restype = None
@@ -344,11 +344,12 @@ def host_blocks(tmp_path_factory):
                          "queue_min"), list(res)))
 
     def level(out_prev, fuzz, tables, min_tp=0.0, n_blocks=3, list_cap=None,
-              queue_cap=None, counts=None):
+              queue_cap=None, counts=None, record=False):
         r = out_prev.shape[1]
         n_cols, g = tables.table.shape
         chosen = plan(g, n_cols, tables.n_lights)
-        out = torch.full((W.OUT_ROWS, r), float("nan"), dtype=torch.float32)
+        rows = W.OUT_ROWS + (W.record_rows(tables.n_lights, tables.has_tex) if record else 0)
+        out = torch.full((rows, r), float("nan"), dtype=torch.float32)
         flat = [x for rng in tables.ranges for x in rng]
         ranges = (ctypes.c_int * 9)(*(flat + [0] * (9 - len(flat))))
         if tables.has_tex:
@@ -365,6 +366,7 @@ def host_blocks(tmp_path_factory):
             len(tables.ranges), int(tables.glossy), int(tables.has_tex),
             n_tex, th, tw, float(min_tp), n_blocks,
             list_cap or chosen["list_cap"], queue_cap or chosen["queue_cap"], did,
+            int(record),
         )
         if counts is not None:
             counts.update(zip(("lists", "drains", "queued", "max_queue"), list(did)))
@@ -440,6 +442,31 @@ def test_block_schedule_tiles(host_blocks, case):
         assert a[:, act > 0].any() and counts["lists"] >= 1
     if case == "live_not_multiple_of_32":   # three short chunks (13, 13, 11), split
         assert int((act > 0).sum()) % 32 and counts["lists"] == 3
+
+
+@pytest.mark.parametrize("case", ["mixed_mask_vec4", "ragged_width_odd"])
+def test_block_schedule_record_rows_equal_plain(host_blocks, case):
+    """Record mode through the block schedule (every hit lane queues every
+    light's shadow ray, the finish stage writes the record rows, the scan
+    writes a dead lane's) against wave_level_plain(record=True): rows 0..12
+    those of the inference schedule, the winner ids and visibility equal,
+    the texel within float tolerance; every row written."""
+    n = {"ragged_width_odd": 3 * 1024 + 517}.get(case, 4 * 1024)
+    act = random_act(n, 0.6, seed=5)
+    tables, boot, fz = block_case(act, seed=3)
+    counts, again = {}, {}
+    a = host_blocks(boot, fz, tables, counts=counts, record=True)
+    b = W.wave_level_plain(boot, fz, tables, record=True)
+    L = tables.n_lights
+    assert a.shape == b.shape == (13 + 1 + L + 3, n) and not torch.isnan(a).any()
+    assert torch.equal(a[:13], host_blocks(boot, fz, tables, counts=again))
+    assert_same(a[:13], b[:13])
+    assert torch.equal(a[13 : 14 + L], b[13 : 14 + L])
+    np.testing.assert_allclose(a[14 + L :].numpy(), b[14 + L :].numpy(), rtol=RTOL, atol=ATOL)
+    hit = b[12] > 0
+    assert (b[13, ~hit] == -1).all() and hit.any() and (b[14 : 14 + L, hit] == 1).any()
+    # record mode casts a shadow ray per hit lane and light
+    assert counts["queued"] == L * int(hit.sum()) > again["queued"]
 
 
 def test_block_schedule_shadow_queue_fills_in_rounds(host_blocks):

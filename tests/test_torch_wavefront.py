@@ -397,19 +397,27 @@ def test_gate_refuses_by_name(feature):
 def test_gate_refuses_options_by_name(kwargs, feature):
     st = carried(wave_scene())
     assert wf.wave_supported(st) and wf.wave_refusal(st) is None
-    with pytest.raises(NotImplementedError, match=feature):
-        wf.wave_supported(st, **kwargs)
     o, d, tm = cam_rays(n=8)
     rays = [torch.from_numpy(np.array(x)) for x in (o, d, tm)]
-    # use_bvh belongs to the general path: only a forced fused path
-    # refuses it; record mode is refused on both.
-    forced = dict(kwargs, fused=True) if "use_bvh" in kwargs else kwargs
+    if "differentiable" in kwargs:
+        # Record mode is refused no more: the gate that takes the scene
+        # takes it differentiable too, down the fused path (its record-mode
+        # level gives the inference radiance bit for bit), forced or not.
+        ref = trace_wavefront(st, *rays, 1, device="cpu")
+        assert torch.equal(trace_wavefront(st, *rays, 1, device="cpu", **kwargs), ref)
+        assert torch.equal(
+            trace_wavefront(st, *rays, 1, device="cpu", fused=True, **kwargs), ref
+        )
+        return
     with pytest.raises(NotImplementedError, match=feature):
-        trace_wavefront(st, *rays, 1, device="cpu", **forced)
-    if "use_bvh" in kwargs:
-        general = trace_wavefront(st, *rays, 1, device="cpu", fused=False)
-        routed = trace_wavefront(st, *rays, 1, device="cpu", **kwargs)
-        assert torch.equal(routed, general)
+        wf.wave_supported(st, **kwargs)
+    # use_bvh belongs to the general path: only a forced fused path
+    # refuses it.
+    with pytest.raises(NotImplementedError, match=feature):
+        trace_wavefront(st, *rays, 1, device="cpu", **dict(kwargs, fused=True))
+    general = trace_wavefront(st, *rays, 1, device="cpu", fused=False)
+    routed = trace_wavefront(st, *rays, 1, device="cpu", **kwargs)
+    assert torch.equal(routed, general)
 
 
 def test_gate_refuses_committed_scenes_by_name():
