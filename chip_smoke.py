@@ -6,7 +6,8 @@ render (golden/ASCII/scene.json at 1920x1080 with 4x4 samples per pixel, 11
 bounce levels) down the fused level path and, forced with fused=False, down
 the general path (closest hit, pass 2, materials, shading with one shadow
 any-hit launch per light, spawn), and the general path's other branches on
-their own scenes (the two-way queue, area lights), and the acceleration
+their own scenes (the two-way queue; area lights in cornell's general frame),
+and the acceleration
 path: a 20,001-geom procedural scene whose table does not fit a block's
 shared memory (chunk kernels) and a 2,049-geom one rendered with and
 without `use_bvh` (BVH traversal), both at 1920x1080.  It builds the CUDA
@@ -25,11 +26,17 @@ and the flagship tile's, bit-equal), the same for the two brute closest hits
 scene's level-0 and level-1 rays, bit-equal), and times every closest-hit and
 any-hit launch of one frame of each large scene by each schedule (phase
 accel_tile_breakdown, the frames byte-equal); it
-checks twelve images against the reference renderer's goldens.  The
+checks twelve images against the reference renderer's goldens, each down
+the path the routing must take.  Phase fused_widened drives the fused
+level's specialisations at 1920x1080 (cornell: legacy planes, one-way glass,
+an area light at 4 samples; the motion demo; a textured 1,501-geom
+sphere_field: spherical UV): the kernel against its plain version on every
+level of a full-width tile, level 0 against its bound, and one frame down
+each path.  The
 differentiable path (diff/): the level kernel in record mode on every level
 of a full-width flagship tile (rows 0..12 equal to the inference launch, the
 record rows to the plain version; phase diff_record), fused against general
-gradients on a strip, the whole frame at 1 spp and the 4x4-spp frame in
+gradients on a strip (the flagship, cornell, motion), the whole frame at 1 spp and the 4x4-spp frame in
 tiles forward and backward, and three steps of fit with a checkpoint resumed
 (phase diff_path).  It prints one JSON line per phase.  Any failure exits
 non-zero; nothing is caught.
@@ -167,13 +174,17 @@ def golden_diff(rt, img, golden):
 
 
 def golden_check(rt, name, golden, samples_sqrt, contract, seed, light_samples=1,
-                 use_bvh=False, device="cuda"):
+                 use_bvh=False, device="cuda", expect_path=None):
     """Render scenes/<name>.json through the pipeline's own routing and
-    hold it against the reference renderer's golden."""
-    from ray_tracying_tpu_torch.kernels.wavefront import wave_refusal
+    hold it against the reference renderer's golden.  expect_path: "fused"
+    or "general", the path the routing must take (for "fused" the level
+    kernel must also have launched)."""
+    from ray_tracying_tpu_torch.kernels import wavefront as W
 
     scene = load_demo(rt, name, device)
+    path = "general" if W.wave_refusal(scene, use_bvh, light_samples) else "fused"
     gen = torch.Generator(device=device).manual_seed(seed)
+    before = W.wave_level.launches
     img = rt.render_to_srgb_u8(
         scene,
         rt.RenderOptions(samples_sqrt=samples_sqrt, light_samples=light_samples,
@@ -189,11 +200,16 @@ def golden_check(rt, name, golden, samples_sqrt, contract, seed, light_samples=1
         # two Monte-Carlo estimates: mean diff < 1, p99 <= 8
         res = dict(mean_diff=float(diff.mean()), p99=float(np.percentile(diff, 99)))
         ok = res["mean_diff"] < 1.0 and res["p99"] <= 8
+    launched = W.wave_level.launches - before
     say("golden", scene=name, golden=golden, samples_sqrt=samples_sqrt,
         light_samples=light_samples, contract=contract, use_bvh=use_bvh,
-        path="general" if wave_refusal(scene, use_bvh) else "fused", ok=ok, **res)
+        path=path, wave_level_launches=launched, ok=ok, **res)
     if not ok:
         fail(f"{name} is outside the {contract} contract against {golden}")
+    if expect_path is not None and path != expect_path:
+        fail(f"{name} took the {path} path, not the {expect_path} one")
+    if (path == "fused") != (launched > 0):
+        fail(f"{name} on the {path} path launched the level kernel {launched} times")
 
 
 def brute_bound(n, live, tests, ranges, g, rows_in, bytes_out):
@@ -305,14 +321,14 @@ def general_frame(rt, scene, opts, tile_rows, gen):
 
     width, height = scene.camera.resolution
     n = opts.samples_sqrt
-    image = torch.zeros((height, width, 3), dtype=torch.uint8, device="cuda")
+    image = torch.zeros((height, width, 3), dtype=torch.uint8, device=gen.device)
     dropped = []
     for y0 in range(0, height, tile_rows):
         take = min(tile_rows, height - y0)
         o, d, tm = tile_rays(scene.camera, y0, take, width, n, generator=gen)
         rad, drop = trace_wavefront(
             scene, o, d, tm, opts.light_samples, generator=gen, fused=False,
-            return_dropped=True,
+            return_dropped=True, device=gen.device,
         )
         image[y0 : y0 + take] = linear_to_srgb_u8(
             rad.reshape(take, width, n * n, 3).mean(dim=2)
@@ -1589,36 +1605,26 @@ def _grads_ok(grads):
                     max_abs=float(g.abs().max())) for k, g in grads.items()}
 
 
-def diff_path_phase(rt, W, CH, scene, n_levels, dev):
-    """Phase diff_path: differentiable rendering of the flagship at
-    1920x1080 (FWDBWD_r5.json's configuration), the port's training path.
-    (a) fused against general gradients on a 64-row strip at 1 spp, the six
-    parameter paths; (b) the whole frame at 1 spp through mse_loss: forward
-    seconds (no graph), forward and backward seconds with a synchronize
-    after the gradients are read, peak memory, every gradient finite and
-    not all zero; (c) the same through mse_loss_and_grad_tiled at 4x4 spp;
-    (d) fit(tiled=True) for 3 steps against a target rendered with the
-    diffuse albedo at 0.6 times, the loss falling, a checkpoint after step
-    2 restored and step 3 redone to the same values.  The counts are set
-    to 0 before (b)-(d) and read after."""
-    import shutil
-    import tempfile
-
+def strip_agreement(rt, W, CH, scene, label, n_levels, dev, smi):
+    """Fused against general gradients of (radiance * a seeded weight).sum()
+    on a DIFF_STRIP_ROWS-row strip at 1 spp through the middle of `scene`,
+    the six parameter paths, both paths fed the same rays, glossy fuzz and
+    area-light jitter.  Fails past GRAD_RTOL; returns the agreement."""
     from ray_tracying_tpu_torch.core.sampling import uniform_in_unit_sphere
     from ray_tracying_tpu_torch.diff import params as P
-    from ray_tracying_tpu_torch.diff import render as DR
-    from ray_tracying_tpu_torch.diff.optimize import fit
     from ray_tracying_tpu_torch.render.integrator import trace_wavefront
     from ray_tracying_tpu_torch.render.pipeline import tile_rays
 
     width, height = scene.camera.resolution
-    smi = smi_line()
-    result = {}
-
-    # (a) the strip, both paths, the same rays and fuzz.
     n = DIFF_STRIP_ROWS * width
     gen = torch.Generator(device=dev).manual_seed(21)
-    fuzz = [uniform_in_unit_sphere(gen, (n,)).T.contiguous() for _ in range(n_levels)]
+    draws = {}
+    if scene.has_glossy:
+        draws["fuzz"] = [uniform_in_unit_sphere(gen, (n,)).T.contiguous()
+                         for _ in range(n_levels)]
+    if any(scene.lights.is_area):
+        draws["light_jitter"] = [[uniform_in_unit_sphere(gen, (n, 1)) if a else None
+                                  for a in scene.lights.is_area] for _ in range(n_levels)]
     weight = torch.rand((n, 3), generator=gen, device=dev) + 0.5
     y0 = height // 2 - DIFF_STRIP_ROWS // 2
     strip = {}
@@ -1628,8 +1634,8 @@ def diff_path_phase(rt, W, CH, scene, n_levels, dev):
         sc = P.apply(scene, theta)
         o, d, tm = tile_rays(sc.camera, y0, DIFF_STRIP_ROWS, width, 1,
                              generator=torch.Generator(device=dev).manual_seed(22))
-        rad = trace_wavefront(sc, o, d, tm, differentiable=True, fused=fused, fuzz=fuzz,
-                              device=dev)
+        rad = trace_wavefront(sc, o, d, tm, differentiable=True, fused=fused, device=dev,
+                              **draws)
         return torch.autograd.grad((rad * weight).sum(), list(theta.values()))
 
     for name, fused in (("fused", True), ("general", False)):
@@ -1644,13 +1650,15 @@ def diff_path_phase(rt, W, CH, scene, n_levels, dev):
         grads = strip_grads(fused)
         torch.cuda.synchronize()
         strip[name] = dict(zip(DIFF_PATHS, grads))
-        say("diff_path", case="strip", path=name, lanes=n, seconds=time.time() - t0,
-            first_call_seconds=first_s,
+        say("diff_path", case="strip", scene=label, path=name, lanes=n,
+            seconds=time.time() - t0, first_call_seconds=first_s,
             launches=dict(wave_level=W.wave_level.launches,
                           wave_level_record=W.wave_level.record_launches,
                           brute_closest=CH.brute_closest.launches,
                           occlusion_any=CH.occlusion_any.launches),
             grads=_grads_ok(strip[name]), nvidia_smi=smi)
+        if fused and not W.wave_level.record_launches:
+            fail(f"the fused strip of {label} launched no record-mode level")
         del grads
     agree = {}
     for k in DIFF_PATHS:
@@ -1658,12 +1666,44 @@ def diff_path_phase(rt, W, CH, scene, n_levels, dev):
         tol = GRAD_RTOL * b.abs() + GRAD_RTOL * max(1.0, float(b.abs().max()))
         agree[k] = dict(ok=bool(((a - b).abs() <= tol).all()),
                         max_abs_diff=float((a - b).abs().max()), max_abs=float(b.abs().max()))
-    say("diff_path", case="strip fused vs general", rtol=GRAD_RTOL,
+    say("diff_path", case="strip fused vs general", scene=label, rtol=GRAD_RTOL,
         atol=f"{GRAD_RTOL} * max(1, max|g|)", agree=agree, nvidia_smi=smi)
     if not all(v["ok"] for v in agree.values()):
-        fail("fused and general gradients disagree on the strip")
-    result["strip"] = agree
-    del strip, fuzz, weight
+        fail(f"fused and general gradients disagree on the strip of {label}")
+    return agree
+
+
+def diff_path_phase(rt, W, CH, scene, n_levels, dev):
+    """Phase diff_path: differentiable rendering of the flagship at
+    1920x1080 (FWDBWD_r5.json's configuration), the port's training path.
+    (a) fused against general gradients on a 64-row strip at 1 spp, the six
+    parameter paths (`strip_agreement`), of the flagship, of cornell and of
+    the motion demo at its width; (b) the whole frame at 1 spp through
+    mse_loss: forward seconds (no graph), forward and backward seconds with a synchronize
+    after the gradients are read, peak memory, every gradient finite and
+    not all zero; (c) the same through mse_loss_and_grad_tiled at 4x4 spp;
+    (d) fit(tiled=True) for 3 steps against a target rendered with the
+    diffuse albedo at 0.6 times, the loss falling, a checkpoint after step
+    2 restored and step 3 redone to the same values.  The counts are set
+    to 0 before (b)-(d) and read after."""
+    import shutil
+    import tempfile
+
+    from ray_tracying_tpu_torch.diff import params as P
+    from ray_tracying_tpu_torch.diff import render as DR
+    from ray_tracying_tpu_torch.diff.optimize import fit
+
+    width, height = scene.camera.resolution
+    smi = smi_line()
+    result = {}
+
+    # (a) the strip, both paths, the same rays and draws: the flagship,
+    # then cornell (legacy planes, one-way glass, an area light) and motion
+    # (moving spheres) at its width.
+    result["strip"] = strip_agreement(rt, W, CH, scene, "flagship", n_levels, dev, smi)
+    for name in ("cornell", "motion"):
+        result[f"strip_{name}"] = strip_agreement(
+            rt, W, CH, widened_scene(rt, name, dev), name, n_levels, dev, smi)
 
     # The target: the frame at 1 spp with the diffuse albedo at 0.6 times.
     opts1 = rt.RenderOptions(samples_sqrt=1, light_samples=1)
@@ -1760,6 +1800,212 @@ def diff_path_phase(rt, W, CH, scene, n_levels, dev):
     result["fit"] = fit_row
     result["launches"] = launches
     return result
+
+# Phase fused_widened: the fused level's specialisations at the flagship's
+# width, each a scene the JAX package's fused kernel takes: (name, samples
+# per pixel a side, light samples).  cornell: legacy planes, one-way glass,
+# a mirror, an area light; motion: the demo's moving spheres; sphere_field
+# with a texture on every third geom: spherical UV.
+WIDENED_CASES = (("cornell", 4, 4), ("motion", 4, 1), ("sphere_field_textured", 2, 1))
+WIDENED_SPHERES = 1500
+WIDENED_RES = (1920, 1080)
+
+
+def widened_scene(rt, name, dev):
+    import dataclasses
+
+    from ray_tracying_tpu_torch import models
+
+    if name == "cornell":
+        return models.get("cornell", res=WIDENED_RES, device=dev)
+    if name == "motion":
+        scene = load_demo(rt, "motion", dev)
+        return dataclasses.replace(
+            scene, camera=dataclasses.replace(scene.camera, resolution=WIDENED_RES))
+    field = models.get("sphere_field", n=WIDENED_SPHERES, res=WIDENED_RES, device=dev)
+    return with_texture(field, load_demo(rt, "texture", dev))
+
+
+def level_bound(W, tables, n, need, hits):
+    """Least time of one level call, reckoned as the main path's: bytes =
+    every lane's act read and its 13 rows written, a live lane's other 8
+    queue rows and its fuzz rows read, the tables once; operations = the
+    geom tests of the live lanes' closest hits and of the shadow rays cast
+    (each up to its first blocker; an area light's nss a lane), at the
+    table's mean cost of a test, and the shading of the hit lanes."""
+    n_bytes = 4 * (n * (1 + W.OUT_ROWS) + need["live"] * (W.Q_ROWS - 1 + W.fuzz_rows(tables))) \
+        + 4 * (tables.table.numel() + tables.lights.numel()) \
+        + (tables.tex.numel() if tables.has_tex else 0)
+    per_test = sum(FLOPS_PER_TEST[k] * (e - s) for k, s, e in tables.ranges) \
+        / tables.table.shape[1]
+    flops = per_test * (need["closest_tests"] + need["shadow_tests"]) + FLOPS_PER_HIT_LANE * hits
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_ms=bytes_ms, operations_ms=ops_ms, needed_bytes=n_bytes)
+
+
+def plain_on_live(W, prev, fz, tables, need):
+    """wave_level_plain of the lanes that enter live, at full width: the
+    plain version is lane-wise, so it runs on those lanes alone, and a dead
+    lane's rows are zero.  `need` receives its counts for the whole width."""
+    n = prev.shape[1]
+    idx = torch.nonzero(prev[7] > 0).squeeze(1)
+    out = torch.zeros((W.OUT_ROWS, n), dtype=torch.float32, device=prev.device)
+    need.update(lanes=n, live=0, closest_tests=0, shadow_rays=0, shadow_tests=0)
+    if len(idx):
+        out[:, idx] = W.wave_level_plain(
+            prev[:, idx].contiguous(), None if fz is None else fz[:, idx].contiguous(),
+            tables, stats=need)
+        need["lanes"] = n
+    return out
+
+
+def fused_widened_phase(rt, W, CH, dev, n_levels):
+    """Phase fused_widened, for each of WIDENED_CASES at 1920x1080: (a) the
+    kernel against wave_level_plain (`plain_on_live`) on every level of the
+    middle full-width tile, fed by the kernel's own levels (bit-equal, or
+    the share of lanes that differ printed and held to MAX_FLIP_SHARE);
+    level 0's ms against its bound; (b) one frame through render_to_srgb_u8
+    (the fused level) and one with fused=False (the general path's tile
+    loop) from one seed, each with the counts set to 0 just before: timed,
+    their launches, the two images.  Both paths draw the same jitter and
+    times from one seed, and the tile's level-0 winners must be the same
+    (the kernel's record row against the general path's closest hit, at
+    most MAX_FLIP_SHARE of the lanes apart).  The images are held to the
+    stochastic contract, and their deterministic metrics printed: the two
+    paths compute the hit point and the sphere UV by different f32
+    arithmetic (the level's geom test; pass 2), and on sphere_field's 1,500
+    small spheres, up to ~300 radii from the camera, the quadratic's
+    cancellation moves a hit point by more than the 1e-4 normal offset of
+    the shadow ray and a texel lookup across its edge on a few lanes in a
+    thousand.  Returns the rows by case."""
+    from ray_tracying_tpu_torch.render import intersect as I
+    from ray_tracying_tpu_torch.render.integrator import level_fuzz
+    from ray_tracying_tpu_torch.render.pipeline import tile_rays
+
+    smi = smi_line()
+    rows = {}
+    for name, sqrt_spp, samples in WIDENED_CASES:
+        scene = widened_scene(rt, name, dev)
+        refusal = W.wave_refusal(scene, False, samples)
+        if refusal is not None:
+            fail(f"the fused level refuses {name}: {refusal}")
+        tables = W.wave_tables(scene, light_samples=samples)
+        opts = rt.RenderOptions(samples_sqrt=sqrt_spp, light_samples=samples)
+        width, height = scene.camera.resolution
+        spp = sqrt_spp * sqrt_spp
+        tile_rows = min(height, opts.max_rays_per_pass // (width * spp))
+        n_tiles = -(-height // tile_rows)
+        levels = n_levels if (scene.has_reflection or scene.has_refraction) else 1
+
+        # (a) every level of the middle full-width tile
+        gen = torch.Generator(device=dev).manual_seed(31)
+        y0 = max(0, height // 2 - tile_rows // 2)
+        o, d, tm = tile_rays(scene.camera, y0, tile_rows, width, sqrt_spp, generator=gen)
+        n = o.shape[0]
+        prev = torch.cat([o.T, d.T, tm[None], torch.ones((2, n), device=dev)]).contiguous()
+        tainted = None
+        per_level = []
+        row = dict(case=name, geoms=scene.n_geoms, n_cols=tables.table.shape[0],
+                   kinds=[k for k, _, _ in tables.ranges], lights=scene.n_lights,
+                   area=list(tables.area), light_samples=samples, samples_sqrt=sqrt_spp,
+                   lanes=n, levels=levels,
+                   cap_geoms=W.wave_cap_geoms(tables.table.shape[0], scene.n_lights),
+                   nvidia_smi=smi)
+        for lv in range(levels):
+            fz = level_fuzz(tables, gen, n, dev)
+            a = W.wave_level(prev, fz, tables)
+            need = {}
+            torch.cuda.synchronize()
+            t0 = time.time()
+            b = plain_on_live(W, prev, fz, tables, need)
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t0) * 1e3
+            res, tainted = compare_level(a, b, tainted)
+            lvl = dict(level=lv, live=need["live"], hits=int((b[12] > 0).sum()),
+                       spawned=int((b[7] > 0).sum()), shadow_rays=need["shadow_rays"],
+                       plain_ms=plain_ms, **res)
+            if lv == 0:
+                # the level-0 winners against the general path's closest hit
+                won = W.wave_level(prev, fz, tables, record=True)[W.OUT_ROWS]
+                hit = I.closest_hit(scene, o, d, tm, torch.ones(n, dtype=torch.bool, device=dev))
+                other = int((won != torch.where(hit.valid, hit.geom_id, -1).to(won.dtype)).sum())
+                del won, hit
+                row.update(level0_winners_other_than_general=other)
+                if other > MAX_FLIP_SHARE * n:
+                    fail(f"{name}: {other} level-0 winners differ from the general path's")
+                lvl.update(ms=cuda_ms(lambda: W.wave_level(prev, fz, tables), 5),
+                           winners_other_than_general=other,
+                           **level_bound(W, tables, n, need, lvl["hits"]))
+                row.update(level0_ms=lvl["ms"], level0_plain_ms=plain_ms,
+                           level0_bound_ms=lvl["bound_ms"], level0_bound_by=lvl["bound_by"],
+                           level0_live=need["live"], level0_shadow_rays=need["shadow_rays"])
+            say("fused_widened", case=name, lanes=n, rtol=RTOL, atol=ATOL,
+                max_disagreeing_share=MAX_FLIP_SHARE, **lvl)
+            per_level.append(lvl)
+            if not res["ok"]:
+                fail(f"{name}: kernel and plain version disagree on level {lv} "
+                     f"({res['disagreeing_lanes_so_far']} lanes)")
+            del b
+            prev = a
+        row.update(
+            bitwise_equal_levels=sum(lv_["bitwise_equal"] for lv_ in per_level),
+            disagreeing_lanes=per_level[-1]["disagreeing_lanes_so_far"],
+            disagreeing_share=per_level[-1]["disagreeing_lanes_so_far"] / n,
+            max_abs_err=max(lv_["max_abs_err"] for lv_ in per_level))
+        del prev, a, o, d, tm
+
+        # (b) one frame each way from one seed, the counts set to 0 before
+        W.wave_level.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img_f = rt.render_to_srgb_u8(scene, opts, torch.Generator(device=dev).manual_seed(41),
+                                     device=dev)
+        torch.cuda.synchronize()
+        fused_s = time.time() - t0
+        fused_launches = W.wave_level.launches
+        CH.brute_closest.launches = CH.brute_closest_n.launches = 0
+        CH.occlusion_any.launches = W.wave_level.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img_g, dropped = general_frame(rt, scene, opts, tile_rows,
+                                       torch.Generator(device=dev).manual_seed(41))
+        torch.cuda.synchronize()
+        general_s = time.time() - t0
+        general_launches = dict(brute_closest=CH.brute_closest.launches,
+                                brute_closest_n=CH.brute_closest_n.launches,
+                                occlusion_any=CH.occlusion_any.launches,
+                                wave_level=W.wave_level.launches)
+        diff = np.abs(img_f.astype(np.float32) - img_g.astype(np.float32))
+        frame = dict(fused_frame_seconds=fused_s, general_frame_seconds=general_s,
+                     fused_launches=fused_launches, general_launches=general_launches,
+                     tiles=n_tiles, general_dropped=dropped,
+                     frames_max_diff=float(diff.max()), frames_off_share=float((diff > 0).mean()),
+                     frames_far_share=float((diff > 1).mean()),
+                     frames_mean_diff=float(diff.mean()),
+                     frames_p99=float(np.percentile(diff, 99)),
+                     contract="stochastic")
+        row.update(frame)
+        say("fused_widened", case=name, width=width, height=height, spp=spp, **frame,
+            nvidia_smi=smi)
+        if fused_launches != levels * n_tiles:
+            fail(f"{name}: the fused frame launched the level {fused_launches} times, "
+                 f"expected {levels * n_tiles}")
+        if general_launches["wave_level"] or not general_launches["occlusion_any"] or not (
+                general_launches["brute_closest"] or general_launches["brute_closest_n"]):
+            fail(f"{name}: the general frame launched {general_launches}")
+        if img_f.min() == img_f.max():
+            fail(f"{name}: the fused frame is constant")
+        ok = frame["frames_mean_diff"] < 1.0 and frame["frames_p99"] <= 8
+        if not ok:
+            fail(f"{name}: fused and general frames are outside the "
+                 f"{frame['contract']} contract")
+        rows[name] = row
+        del img_f, img_g, diff, tables, scene
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main():
@@ -1883,16 +2129,23 @@ def main():
     # pipeline's own routing (fused level or general path)
     golden_check(rt, "bvh_det", "bvh_det_s1.ppm", 1, "deterministic", 0)
     golden_check(rt, "bvh_glossy", "bvh_glossy_s8.ppm", 8, "stochastic", 7)
-    for name in ("det_basic", "det_mirrors", "det_twoway", "texture"):
-        golden_check(rt, name, f"{name}_s1.ppm", 1, "deterministic", 0)
+    # det_basic (a legacy plane, one-way glass) and texture (a textured
+    # sphere) take the fused level; det_twoway (mirror and glass on one
+    # material) the general path.
+    for name, path in (("det_basic", "fused"), ("det_mirrors", "fused"),
+                       ("det_twoway", "general"), ("texture", "fused")):
+        golden_check(rt, name, f"{name}_s1.ppm", 1, "deterministic", 0, expect_path=path)
     golden_check(rt, "dof", "dof_s6.ppm", 6, "stochastic", 3)
-    golden_check(rt, "motion", "motion_s6.ppm", 6, "stochastic", 3)
+    golden_check(rt, "motion", "motion_s6.ppm", 6, "stochastic", 3, expect_path="fused")
     golden_check(rt, "glossy", "glossy_s6.ppm", 6, "stochastic", 3)
+    golden_check(rt, "softshadow", "softshadow_s4_l16.ppm", 4, "stochastic", 3,
+                 light_samples=16, expect_path="fused")
 
-    # The general path's other two branches, with the counts set to 0 just
+    # The general path's other branch, with the counts set to 0 just
     # before: the compacted two-way queue (det_twoway: untextured, so the
-    # fused-normal kernel; rendered twice at 1 spp, bytes equal, no drop)
-    # and area-light jitter (softshadow, 16 shadow rays per light).
+    # fused-normal kernel; rendered twice at 1 spp, bytes equal, no drop).
+    # Its area-light jitter runs in phase fused_widened (cornell's general
+    # frame).
     CH.brute_closest.launches = CH.brute_closest_n.launches = 0
     CH.occlusion_any.launches = W.wave_level.launches = 0
     twoway = load_demo(rt, "det_twoway")
@@ -1900,16 +2153,15 @@ def main():
     img_a = rt.render_to_srgb_u8(twoway, one)
     img_b = rt.render_to_srgb_u8(twoway, one)
     _, tw_stats = rt.render_image(twoway, rt.RenderOptions(samples_sqrt=1, stats=True))
-    golden_check(rt, "det_twoway", "det_twoway_s6.ppm", 6, "stochastic", 3)
-    golden_check(rt, "softshadow", "softshadow_s4_l16.ppm", 4, "stochastic", 3,
-                 light_samples=16)
+    golden_check(rt, "det_twoway", "det_twoway_s6.ppm", 6, "stochastic", 3,
+                 expect_path="general")
     branch_launches = dict(
         brute_closest=CH.brute_closest.launches,
         brute_closest_n=CH.brute_closest_n.launches,
         occlusion_any=CH.occlusion_any.launches,
         wave_level=W.wave_level.launches,
     )
-    say("general_branches", scenes=["det_twoway", "softshadow"],
+    say("general_branches", scenes=["det_twoway"],
         det_twoway_bytes_equal=bool(np.array_equal(img_a, img_b)),
         det_twoway_total_dropped=tw_stats["total_dropped"],
         det_twoway_live=[lv["live"] for lv in tw_stats["levels"]],
@@ -1919,8 +2171,7 @@ def main():
     if tw_stats["total_dropped"] != 0:
         fail("det_twoway dropped continuations")
     if not (branch_launches["brute_closest_n"] and branch_launches["occlusion_any"]):
-        fail("the two-way and area-light renders did not go through the "
-             "fused-normal and any-hit kernels")
+        fail("the two-way renders did not go through the fused-normal and any-hit kernels")
     if branch_launches["wave_level"] or branch_launches["brute_closest"]:
         fail("untextured general-path scenes launched another kernel")
 
@@ -2194,9 +2445,14 @@ def main():
              "contract against its golden")
 
 
-    # ---- phases 9 and 10: the acceleration path
+    # ---- phase fused_widened: the fused level's specialisations at full
+    # width (legacy planes, one-way refraction, area lights, motion blur,
+    # spherical UV)
     del o, d, tm, fuzz, levels, boot, g_img, img
     torch.cuda.empty_cache()
+    widened = fused_widened_phase(rt, W, CH, dev, n_levels)
+
+    # ---- phases 9 and 10: the acceleration path
     accel_entries, city_anyhit, city_brute, city_frames = accel_phases(
         rt, dev, ACCEL_SIZES, kinds, k_table, k_ranges, k_n, n_levels)
     torch.cuda.empty_cache()
@@ -2226,7 +2482,7 @@ def main():
             "lanes": row["lanes"],
             "shape_note": "level 0 of one full-width flagship tile"
                           + ("'s shadow rays of light 0" if name == "occlusion_any" else "")
-                          + ("; launches counted on det_twoway and softshadow, "
+                          + ("; launches counted on det_twoway, "
                              "the untextured general-path renders"
                              if name == "brute_closest_n" else
                              "; launches counted on two general-path frames"),
@@ -2294,6 +2550,13 @@ def main():
             "level0_backward_ms": rec_mode["level0_backward_ms"],
             "level0_gather_segment_sum_ms": rec_mode["level0_gather_segment_sum_ms"],
             "level0_gather_index_add_ms": rec_mode["level0_gather_index_add_ms"],
+        },
+        "widened": {
+            name: {k: row[k] for k in (
+                "level0_ms", "level0_plain_ms", "level0_bound_ms", "level0_bound_by",
+                "lanes", "geoms", "light_samples", "disagreeing_lanes", "max_abs_err",
+                "fused_frame_seconds", "general_frame_seconds", "fused_launches")}
+            for name, row in widened.items()
         },
     }] + brute_entries + accel_entries}), flush=True)
 

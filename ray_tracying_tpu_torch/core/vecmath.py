@@ -90,7 +90,10 @@ def refract(incident: torch.Tensor, normal: torch.Tensor, n_out: torch.Tensor):
     cos_abs = torch.abs(cos_i)
     disc = 1.0 - eta * eta * (1.0 - cos_abs * cos_abs)
     tir = disc < 0.0
-    cos_t = torch.sqrt(torch.clamp(disc, min=0.0))
+    # safe_sqrt: the same values; a lane in total internal reflection
+    # (disc < 0) gets a zero gradient, not sqrt'(0) = inf times its zero
+    # cotangent (a NaN in the differentiable path)
+    cos_t = safe_sqrt(disc)
     t_dir = incident * eta[..., None] + n_eff * (eta * cos_abs - cos_t)[..., None]
     t_dir = normalize(t_dir)
     t_dir = torch.where(tir[..., None], torch.zeros_like(t_dir), t_dir)

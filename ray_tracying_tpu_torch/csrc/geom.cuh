@@ -115,14 +115,15 @@ RTT_DEV bool plane_edge(float x0, float y0, float z0, float x1, float y1, float 
 }
 
 // Legacy quad, PARAMETRIC t (Code/shapes.cpp:444-483); the 12 matrix slots
-// of the row hold the 4 corners.  The normal is already in world space.
+// of the row (the Xform of its columns 0..11) hold the 4 corners.  The
+// normal is already in world space.
 template <bool WANT_N>
-RTT_DEV float plane_t(const float* tab, int G, int g, const Ray& r,
-                      float& nwx, float& nwy, float& nwz) {
-  const float ax = tab[0 * G + g], ay = tab[1 * G + g], az = tab[2 * G + g];
-  const float bx = tab[3 * G + g], by = tab[4 * G + g], bz = tab[5 * G + g];
-  const float cx = tab[6 * G + g], cy = tab[7 * G + g], cz = tab[8 * G + g];
-  const float ex = tab[9 * G + g], ey = tab[10 * G + g], ez = tab[11 * G + g];
+RTT_DEV float plane_t_x(const Xform& m, const Ray& r, float& nwx, float& nwy, float& nwz) {
+  const float* k = m.c;
+  const float ax = k[0], ay = k[1], az = k[2];
+  const float bx = k[3], by = k[4], bz = k[5];
+  const float cx = k[6], cy = k[7], cz = k[8];
+  const float ex = k[9], ey = k[10], ez = k[11];
   const float e1x = bx - ax, e1y = by - ay, e1z = bz - az;
   const float e2x = cx - ax, e2y = cy - ay, e2z = cz - az;
   float nx = e1y * e2z - e1z * e2y;
@@ -149,6 +150,13 @@ RTT_DEV float plane_t(const float* tab, int G, int g, const Ray& r,
   const bool ok = !degen && !par && (t >= 0.0f) && (in_t1 || in_t2);
   if constexpr (WANT_N) { nwx = nx; nwy = ny; nwz = nz; }
   return ok ? t : kInf;
+}
+
+// plane_t_x of row g of a transposed table.
+template <bool WANT_N>
+RTT_DEV float plane_t(const float* tab, int G, int g, const Ray& r,
+                      float& nwx, float& nwy, float& nwz) {
+  return plane_t_x<WANT_N>(load_xform(tab, G, g), r, nwx, nwy, nwz);
 }
 
 // Hit distance (+inf for a miss) of a transformed prim of kind KIND

@@ -108,6 +108,7 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
         i, i,                                # glossy has_tex
         i, i, i,                             # n_tex tex_h tex_w
         ctypes.c_float,                      # min_tp
+        i, i, i, i,                          # motion refraction area_mask nss
     ]
     lib.wave_level_launch.argtypes = level + [i, p, p, p]     # record ctr live stream
     lib.wave_level_lane_launch.argtypes = level + [i, p]      # threads stream

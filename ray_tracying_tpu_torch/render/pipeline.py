@@ -155,8 +155,8 @@ def _render_tiles(scene, opts, generator, device, post=None, out_dtype=torch.flo
     # The fused level's operands are packed once per frame; a scene the
     # fused gate refuses goes down the integrator's general path.
     tables = None
-    if scene.n_geoms and wave_refusal(scene, opts.use_bvh) is None:
-        tables = wave_tables(scene)
+    if scene.n_geoms and wave_refusal(scene, opts.use_bvh, opts.light_samples) is None:
+        tables = wave_tables(scene, light_samples=opts.light_samples)
 
     image = torch.zeros((height, width, 3), dtype=out_dtype, device=dev)
     level_acc = None

@@ -61,10 +61,11 @@ extern "C" void wave_level_host(
     const uint8_t* tex, const float* twh, float* out,
     long long R, int G, int n_cols, int n_lights,
     const int* ranges, int n_ranges, int glossy, int has_tex,
-    int n_tex, int tex_h, int tex_w, float min_tp) {
+    int n_tex, int tex_h, int tex_w, float min_tp,
+    int motion, int refraction, int area, int nss) {
   const rtt::WaveParams p = rtt::make_params(
       q, fuzz, table, lights, tex, twh, out, R, G, n_cols, n_lights, ranges,
-      n_ranges, glossy, has_tex, n_tex, tex_h, tex_w, min_tp);
+      n_ranges, glossy, has_tex, n_tex, tex_h, tex_w, min_tp, motion, refraction, area, nss);
   for (long long i = 0; i < R; ++i) rtt::wave_lane(p, table, lights, (size_t)i);
 }
 """
@@ -86,7 +87,7 @@ def host_level(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wave_level_host.argtypes = [
         p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i,
-        ctypes.POINTER(ctypes.c_int), i, i, i, i, i, i, ctypes.c_float,
+        ctypes.POINTER(ctypes.c_int), i, i, i, i, i, i, ctypes.c_float, i, i, i, i,
     ]
     lib.wave_level_host.restype = None
 
@@ -94,38 +95,73 @@ def host_level(tmp_path_factory):
         r = out_prev.shape[1]
         n_cols, g = tables.table.shape
         out = torch.empty((W.OUT_ROWS, r), dtype=torch.float32)
-        flat = [x for rng in tables.ranges for x in rng]
-        ranges = (ctypes.c_int * 9)(*(flat + [0] * (9 - len(flat))))
-        if tables.has_tex:
-            n_tex, th, tw, _ = tables.tex.shape
-            tex, twh = tables.tex.data_ptr(), tables.twh.data_ptr()
-        else:
-            n_tex = th = tw = 0
-            tex = twh = None
         lib.wave_level_host(
-            out_prev.data_ptr(), fuzz.data_ptr() if tables.glossy else None,
-            tables.table.data_ptr(), tables.lights.data_ptr(), tex, twh,
-            out.data_ptr(), r, g, n_cols, tables.n_lights, ranges,
-            len(tables.ranges), int(tables.glossy), int(tables.has_tex),
-            n_tex, th, tw, float(min_tp),
+            out_prev.data_ptr(), *host_operands(fuzz, tables), out.data_ptr(), r, g,
+            n_cols, tables.n_lights, *host_flags(tables, min_tp),
         )
         return out
 
     return level
 
 
-def scene_and_rays(path, rows, spp_sqrt, seed):
+def host_operands(fuzz, tables):
+    """(fuzz, table, lights, tex, twh) pointers of a level's operands."""
+    if tables.has_tex:
+        tex, twh = tables.tex.data_ptr(), tables.twh.data_ptr()
+    else:
+        tex = twh = None
+    return (fuzz.data_ptr() if W.fuzz_rows(tables) else None, tables.table.data_ptr(),
+            tables.lights.data_ptr(), tex, twh)
+
+
+def host_flags(tables, min_tp):
+    """The level's arguments after n_lights: ranges ... nss."""
+    flat = [x for rng in tables.ranges for x in rng]
+    ranges = (ctypes.c_int * 12)(*(flat + [0] * (12 - len(flat))))
+    n_tex, th, tw = tables.tex.shape[:3] if tables.has_tex else (0, 0, 0)
+    area = sum(1 << li for li, a in enumerate(tables.area) if a)
+    return (ranges, len(tables.ranges), int(tables.glossy), int(tables.has_tex),
+            n_tex, th, tw, float(min_tp), int(tables.motion), int(tables.refraction),
+            area, tables.nss)
+
+
+# Light samples of the scenes with an area light (softshadow l4; cornell's
+# light has a radius too).
+LIGHT_SAMPLES = {"scenes/softshadow.json": 4, "cornell": 4}
+
+
+def load_case(path):
+    if path == "cornell":
+        from ray_tracying_tpu_torch import models
+
+        return models.get("cornell", res=(48, 48), device="cpu")
     scene = rt.load_scene(
         os.path.join(REPO, path), device="cpu",
         textures_dir=os.path.join(REPO, "golden", "Textures"),
     )
+    return scene
+
+
+def scene_and_rays(path, rows, spp_sqrt, seed):
+    """(scene, o, d, tm, trace keywords: the glossy fuzz and area-light
+    jitter of 11 levels and the light samples) of `rows` rows two thirds
+    down the image."""
+    scene = load_case(path)
     gen = torch.Generator().manual_seed(seed)
     w, h = scene.camera.resolution
     o, d, tm = tile_rays(scene.camera, (2 * h) // 3, rows, w, spp_sqrt, generator=gen)
     n = o.shape[0]
+    ls = LIGHT_SAMPLES.get(path, 1)
     fuzz = [uniform_in_unit_sphere(gen, (n,), device="cpu").T.contiguous()
             for _ in range(11)]
-    return scene, o, d, tm, fuzz
+    jitter = [[uniform_in_unit_sphere(gen, (n, ls), device="cpu") if a else None
+               for a in scene.lights.is_area] for _ in range(11)]
+    return scene, o, d, tm, dict(fuzz=fuzz, light_jitter=jitter, light_samples=ls)
+
+
+def n_levels(scene):
+    """11 levels for a scene that spawns continuations, else 1."""
+    return 11 if (scene.has_reflection or scene.has_refraction) else 1
 
 
 def assert_same(host, plain):
@@ -136,27 +172,40 @@ def assert_same(host, plain):
 
 
 # Cubes + rect, textured: glossy (the flagship's specialisation) and the
-# flagship itself; spheres + rect: glossy and mirror.
-@pytest.mark.parametrize("path,rows,spp_sqrt", [
+# flagship itself; spheres + rect: glossy and mirror; every kind with glass
+# and a plane (det_basic), moving spheres (motion), an area light
+# (softshadow, 4 samples), planes + glass + mirror + area light (cornell),
+# a textured sphere (texture: spherical UV).
+WAVE_CASES = [
     ("scenes/bvh_glossy.json", 3, 2),
     ("golden/ASCII/scene.json", 1, 1),
     ("scenes/glossy.json", 3, 2),
     ("scenes/det_mirrors.json", 3, 2),
-])
+    ("scenes/det_basic.json", 3, 2),
+    ("scenes/motion.json", 3, 2),
+    ("scenes/softshadow.json", 2, 2),
+    ("cornell", 3, 2),
+    ("scenes/texture.json", 3, 2),
+]
+
+
+@pytest.mark.parametrize("path,rows,spp_sqrt", WAVE_CASES)
 def test_lane_function_equals_plain_on_every_level(host_level, path, rows, spp_sqrt):
-    scene, o, d, tm, fuzz = scene_and_rays(path, rows, spp_sqrt, seed=0)
-    common = dict(fuzz=fuzz, device="cpu", return_levels=True)
+    scene, o, d, tm, draws = scene_and_rays(path, rows, spp_sqrt, seed=0)
+    common = dict(draws, device="cpu", return_levels=True)
     _, plain = trace_wavefront(scene, o, d, tm, level_fn=W.wave_level_plain, **common)
     _, host = trace_wavefront(scene, o, d, tm, level_fn=host_level, **common)
-    assert len(host) == len(plain) == 11
-    assert int((plain[0][7] > 0).sum()) > 0  # some rays go on past level 0
+    assert len(host) == len(plain) == n_levels(scene)
+    if len(plain) > 1:
+        assert int((plain[0][7] > 0).sum()) > 0  # some rays go on past level 0
     for a, b in zip(host, plain):
         assert_same(a, b)
 
 
 def test_lane_function_mixed_mask(host_level):
     """Dead and live lanes side by side: a dead lane is all zeros."""
-    scene, o, d, tm, fuzz = scene_and_rays("scenes/bvh_glossy.json", 2, 1, seed=1)
+    scene, o, d, tm, draws = scene_and_rays("scenes/bvh_glossy.json", 2, 1, seed=1)
+    fuzz = draws["fuzz"]
     tables = W.wave_tables(scene)
     n = o.shape[0]
     act = torch.from_numpy(
@@ -198,7 +247,7 @@ void drain(const rtt::WaveParams& p, const rtt::TabS& tb, const rtt::WaveSmem& s
     int e = 0, li = 0;
     bool blocked = false;
     for (int j = 0; j < split; ++j) blocked = rtt::queue_blocked(p, tb, s, q, j, split, e, li) || blocked;
-    if (blocked) s.list_meta[e] |= 1u << (16 + li);
+    if (blocked) s.blocked[rtt::blocked_word(e, li)] += rtt::blocked_one(li);
   }
   c.drains += 1; c.queued += n;
   if (n > c.max_queue) c.max_queue = n;
@@ -208,6 +257,7 @@ void run_list(const rtt::WaveParams& p, const rtt::TabS& tb, const rtt::WaveSmem
               int queue_cap, Counts& c) {
   const int T = rtt::kWaveThreads;
   const int split = rtt::wave_split(n);
+  for (int k = 0; k < 2 * n; ++k) s.blocked[k] = 0u;
   for (int e = 0; e < n && e < T; ++e) {
     if (split == 1 && e + T < n) {  // a thread's two lanes side by side
       rtt::hit_pair(p, tb, s, e, e + T);
@@ -234,11 +284,16 @@ void run_list(const rtt::WaveParams& p, const rtt::TabS& tb, const rtt::WaveSmem
       if (row[t] >= 0) sh[t] = rtt::wave_shade(p, tb, (size_t)s.list_lane[seg + t], row[t]);
     }
     for (int li = 0; li < p.n_lights; ++li) {
-      if (qn + T > queue_cap) { drain(p, tb, s, qn, c); qn = 0; }
-      for (int t = 0; t < T; ++t) {
-        if (row[t] < 0) continue;
-        const rtt::LightTerm lt = rtt::light_term(sh[t], s.lights, p.n_lights, li);
-        if (rtt::shadow_cast(p, lt)) rtt::queue_put(s, qn++, sh[t], lt, seg + t, li);
+      for (int k = 0; k < rtt::light_rays(p, li); ++k) {
+        if (qn + T > queue_cap) { drain(p, tb, s, qn, c); qn = 0; }
+        for (int t = 0; t < T; ++t) {
+          if (row[t] < 0) continue;
+          const rtt::LightTerm lt = rtt::light_term(sh[t], s.lights, p.n_lights, li);
+          if (!rtt::shadow_cast(p, lt)) continue;
+          const size_t i = (size_t)s.list_lane[seg + t];
+          rtt::queue_put(s, qn++, sh[t], rtt::shadow_dir(p, sh[t], lt, s.lights, li, k, i),
+                         seg + t, li);
+        }
       }
     }
   }
@@ -254,10 +309,12 @@ extern "C" void wave_level_blocks_host(
     long long R, int G, int n_cols, int n_lights,
     const int* ranges, int n_ranges, int glossy, int has_tex,
     int n_tex, int tex_h, int tex_w, float min_tp,
+    int motion, int refraction, int area, int nss,
     int n_blocks, int list_cap, int queue_cap, long long* counts, int record) {
   const rtt::WaveParams p = rtt::make_params(
       q, fuzz, table, lights, tex, twh, out, R, G, n_cols, n_lights, ranges,
-      n_ranges, glossy, has_tex, n_tex, tex_h, tex_w, min_tp, record);
+      n_ranges, glossy, has_tex, n_tex, tex_h, tex_w, min_tp, motion, refraction, area, nss,
+      record);
   const rtt::WaveLayout lay = rtt::wave_layout(G, n_cols, n_lights, list_cap, queue_cap);
   const int T = rtt::kWaveThreads;
   // one shared memory per block; blocks take scan steps in turn
@@ -331,7 +388,7 @@ def host_blocks(tmp_path_factory):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.wave_level_blocks_host.argtypes = [
         p, p, p, p, p, p, p, ll, i, i, i,
-        ctypes.POINTER(ctypes.c_int), i, i, i, i, i, i, ctypes.c_float,
+        ctypes.POINTER(ctypes.c_int), i, i, i, i, i, i, ctypes.c_float, i, i, i, i,
         i, i, i, ctypes.POINTER(ll), i,
     ]
     lib.wave_plan_host.argtypes = [i, i, i, ll, ctypes.POINTER(ll)]
@@ -350,21 +407,10 @@ def host_blocks(tmp_path_factory):
         chosen = plan(g, n_cols, tables.n_lights)
         rows = W.OUT_ROWS + (W.record_rows(tables.n_lights, tables.has_tex) if record else 0)
         out = torch.full((rows, r), float("nan"), dtype=torch.float32)
-        flat = [x for rng in tables.ranges for x in rng]
-        ranges = (ctypes.c_int * 9)(*(flat + [0] * (9 - len(flat))))
-        if tables.has_tex:
-            n_tex, th, tw, _ = tables.tex.shape
-            tex, twh = tables.tex.data_ptr(), tables.twh.data_ptr()
-        else:
-            n_tex = th = tw = 0
-            tex = twh = None
         did = (ll * 4)()
         lib.wave_level_blocks_host(
-            out_prev.data_ptr(), fuzz.data_ptr() if tables.glossy else None,
-            tables.table.data_ptr(), tables.lights.data_ptr(), tex, twh,
-            out.data_ptr(), r, g, n_cols, tables.n_lights, ranges,
-            len(tables.ranges), int(tables.glossy), int(tables.has_tex),
-            n_tex, th, tw, float(min_tp), n_blocks,
+            out_prev.data_ptr(), *host_operands(fuzz, tables), out.data_ptr(), r, g,
+            n_cols, tables.n_lights, *host_flags(tables, min_tp), n_blocks,
             list_cap or chosen["list_cap"], queue_cap or chosen["queue_cap"], did,
             int(record),
         )
@@ -376,22 +422,18 @@ def host_blocks(tmp_path_factory):
     return level
 
 
-@pytest.mark.parametrize("path,rows,spp_sqrt", [
-    ("scenes/bvh_glossy.json", 3, 2),
-    ("golden/ASCII/scene.json", 1, 1),
-    ("scenes/glossy.json", 3, 2),
-    ("scenes/det_mirrors.json", 3, 2),
-])
+@pytest.mark.parametrize("path,rows,spp_sqrt", WAVE_CASES)
 def test_block_schedule_equals_plain_on_every_level(host_blocks, path, rows, spp_sqrt):
     """Every level of a trace through the block schedule (three blocks,
     the kernel's capacities) against wave_level_plain; every output row is
     written (the host buffer starts as NaN)."""
-    scene, o, d, tm, fuzz = scene_and_rays(path, rows, spp_sqrt, seed=0)
-    common = dict(fuzz=fuzz, device="cpu", return_levels=True)
+    scene, o, d, tm, draws = scene_and_rays(path, rows, spp_sqrt, seed=0)
+    common = dict(draws, device="cpu", return_levels=True)
     _, plain = trace_wavefront(scene, o, d, tm, level_fn=W.wave_level_plain, **common)
     _, host = trace_wavefront(scene, o, d, tm, level_fn=host_blocks, **common)
-    assert len(host) == len(plain) == 11
-    assert int((plain[0][7] > 0).sum()) > 0
+    assert len(host) == len(plain) == n_levels(scene)
+    if len(plain) > 1:
+        assert int((plain[0][7] > 0).sum()) > 0
     for a, b in zip(host, plain):
         assert not torch.isnan(a).any()
         assert_same(a, b)
@@ -401,7 +443,8 @@ def block_case(act, seed=1, rows=2):
     """(tables, bootstrap tensor with the given act row, fuzz) on
     bvh_glossy (cubes + rect, two lights, textured, glossy); the width is
     act's, rays repeated as needed."""
-    scene, o, d, tm, fuzz = scene_and_rays("scenes/bvh_glossy.json", rows, 1, seed=seed)
+    scene, o, d, tm, draws = scene_and_rays("scenes/bvh_glossy.json", rows, 1, seed=seed)
+    fuzz = draws["fuzz"]
     n = act.shape[0]
     idx = torch.arange(n) % o.shape[0]
     boot = torch.cat([o[idx].T, d[idx].T, tm[idx][None], act[None],

@@ -73,9 +73,9 @@ def test_bvh_det_matches_jax_image(bvh_det_image):
 def test_deterministic_goldens_through_the_routing(name):
     """1 spp against the reference renderer's golden under the
     deterministic contract (max diff <= 1 uint8 step, < 1 % of values
-    off).  det_mirrors takes the fused level; det_basic (a plane, glass),
-    det_twoway (mirror + glass on one material) and texture (a textured
-    sphere) take the general path."""
+    off).  det_mirrors, det_basic (a plane, glass) and texture (a textured
+    sphere) take the fused level; det_twoway (mirror + glass on one
+    material) takes the general path."""
     scene = rt.load_scene(
         os.path.join(REPO, "scenes", f"{name}.json"), textures_dir=TEX, device="cpu"
     )
@@ -88,9 +88,9 @@ def test_deterministic_goldens_through_the_routing(name):
 
 
 @pytest.mark.parametrize("name,path", [
-    ("det_basic", "general"), ("det_mirrors", "fused"), ("det_twoway", "general"),
-    ("dof", "fused"), ("glossy", "fused"), ("motion", "general"),
-    ("softshadow", "general"), ("texture", "general"),
+    ("det_basic", "fused"), ("det_mirrors", "fused"), ("det_twoway", "general"),
+    ("dof", "fused"), ("glossy", "fused"), ("motion", "fused"),
+    ("softshadow", "fused"), ("texture", "fused"),
     ("bvh_det", "fused"), ("bvh_glossy", "fused"), ("flagship", "fused"),
 ])
 def test_every_committed_scene_renders(name, path):
@@ -108,7 +108,7 @@ def test_every_committed_scene_renders(name, path):
     small = dataclasses.replace(
         scene, camera=dataclasses.replace(scene.camera, resolution=(48, 48 * h // w))
     )
-    assert (wave_refusal(small) is None) == (path == "fused")
+    assert (wave_refusal(small, light_samples=2) is None) == (path == "fused")
     img, stats = rt.render_image(
         small, rt.RenderOptions(samples_sqrt=2, light_samples=2, stats=True),
         generator=torch.Generator().manual_seed(0), device="cpu",

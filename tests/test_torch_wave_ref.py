@@ -89,7 +89,7 @@ def rebuild(tables, prev, fuzz, rec_out):
     return wr.wave_level_ref(
         prev, fuzz, tables.table, tables.lights, best_id, vis, texel,
         kinds=[k for k, _, _ in tables.ranges], n_lights=tables.n_lights,
-        glossy=tables.glossy,
+        glossy=tables.glossy, motion=tables.motion, refraction=tables.refraction,
     )
 
 
@@ -298,3 +298,100 @@ def test_gather_columns_gradcheck():
     idx = torch.randint(0, 6, (40,), generator=gen)
     assert torch.equal(gather_columns(table, idx), table.index_select(1, idx))
     assert torch.autograd.gradcheck(lambda t: gather_columns(t, idx), (table,))
+
+
+# ---------------------------------------------------------------- (e)
+# The rebuild of the level's specialisations: one-way refraction and a
+# legacy plane (det_basic), moving spheres (motion), an area light's
+# recorded fraction (softshadow, 4 samples), planes + glass + mirror +
+# area light (cornell); level 1 fed by the port's level 0 where rays spawn.
+FEATURE_CASES = [("det_basic", 0), ("det_basic", 1), ("motion", 0), ("softshadow", 0),
+                 ("cornell", 0), ("cornell", 1)]
+
+
+def jax_feature_scene(name):
+    import os
+
+    import ray_tracying_tpu as rt_jax
+    from ray_tracying_tpu.models import zoo as zoo_jax
+
+    from test_torch_wave_features import REPO, TEX
+
+    if name == "cornell":
+        return zoo_jax.cornell(res=(48, 48))
+    return rt_jax.load_scene(os.path.join(REPO, "scenes", f"{name}.json"), textures_dir=TEX)
+
+
+@pytest.mark.parametrize("name,level", FEATURE_CASES)
+def test_wave_level_ref_matches_jax_on_features(name, level):
+    """wave_level_ref against the JAX rebuild on the port's record-mode
+    level: rows 0..12 at RTOL/ATOL except on lanes whose spawn the two
+    frameworks' roundings (XLA contracts a*b+c here) move by a few 1e-5
+    (at most 3 % of the live lanes, within 1e-3); the VJP with respect to
+    (out_prev, table, lights) at G_RTOL.  WaveLevelFn's backward is the
+    autograd of that rebuild, with the scene's motion and refraction."""
+    from test_torch_wave_features import feature_case, jax_fuzz_rows, level_inputs
+
+    st, o, d, tm, nss = feature_case(name)
+    sj = jax_feature_scene(name)
+    tables = wf.wave_tables(st, light_samples=nss)
+    rows = jax_fuzz_rows(sj, nss, jax.random.key(9))
+    fuzz = None if rows is None else torch.from_numpy(rows)
+    prev = torch.from_numpy(level_inputs(st, o, d, tm))
+    if level == 1:
+        prev = wf.wave_level(prev, fuzz, tables, record=True)
+        assert prev[7].sum() > 5
+    out = wf.wave_level(prev, fuzz, tables, record=True)
+    if st.has_refraction:
+        # The JAX rebuild's VJP is NaN on a lane without a hit in a scene
+        # that refracts (its all-zero record has index 0: eta = 1e20, an
+        # inf, whose zero cotangent is a NaN); the port's rebuild gives
+        # such lanes index 1.  Both are held to each other on the hit lanes.
+        hit = out[12] > 0
+        prev, out = prev[:, hit].contiguous(), out[:, hit].contiguous()
+        fuzz = None if fuzz is None else fuzz[:, hit].contiguous()
+        rows = None if rows is None else rows[:, hit.numpy()]
+        assert out.shape[1] > 3
+    L = tables.n_lights
+    kinds = {k for k, _, _ in tables.ranges}
+
+    def recon(p, t, li):
+        return wr_jax.wave_level_ref(
+            p, jnp.asarray(rows if rows is not None else np.zeros((1, out.shape[1]), np.float32)),
+            t, li, jnp.asarray(out[13].numpy()), jnp.asarray(out[14 : 14 + L].numpy()), None,
+            motion=st.has_motion, n_lights=L, glossy=tables.glossy,
+            refraction=st.has_refraction, min_tp=0.0, ktex=False,
+            kinds_present=tuple(k in kinds for k in range(4)), rows=out.shape[0], hr=12,
+        )
+
+    args = (jnp.asarray(prev.numpy()), jnp.asarray(tables.table.numpy()),
+            jnp.asarray(tables.lights.numpy()))
+    ref, vjp = jax.vjp(recon, *args)
+    ref = np.asarray(ref)[:13]
+    xs = [t.clone().requires_grad_(True) for t in (prev, tables.table, tables.lights)]
+    got = rebuild(dataclasses_replace(tables, xs[1], xs[2]), xs[0], fuzz, out)
+    live = (prev[7] > 0).numpy()
+    g = got.detach().numpy()
+    # the rebuild gives the kernel's rows on the lanes that entered live
+    np.testing.assert_allclose(g[:, live], out[:13, live].numpy(), rtol=RTOL, atol=ATOL)
+    off = live & ~np.isclose(g, ref, rtol=RTOL, atol=ATOL).all(axis=0)
+    assert off.sum() <= 0.03 * live.sum(), (int(off.sum()), int(live.sum()))
+    np.testing.assert_allclose(g[:, live], ref[:, live], rtol=1e-3, atol=1e-3)
+    cot = np.random.default_rng(11).normal(size=out.shape).astype(np.float32)
+    cot[13:] = 0.0
+    g_ref = vjp(jnp.asarray(cot))
+    g_got = torch.autograd.grad(got, xs, torch.from_numpy(cot[:13]))
+    for what, a, b in zip(("out_prev", "table", "lights"), g_got, g_ref):
+        b = np.asarray(b)
+        assert np.isfinite(a.numpy()).all(), what
+        assert np.abs(b).max() > 0, what
+        np.testing.assert_allclose(
+            a.numpy(), b, rtol=G_RTOL, atol=G_RTOL * np.abs(b).max(), err_msg=what
+        )
+    # WaveLevelFn: forward the record level, backward the rebuild's autograd
+    ys = [t.detach().clone().requires_grad_(True) for t in (prev, tables.table, tables.lights)]
+    fn_out = wf.WaveLevelFn.apply(ys[0], fuzz, ys[1], ys[2], tables, 0.0)
+    assert torch.equal(fn_out.detach(), out)
+    g_fn = torch.autograd.grad(fn_out, ys, torch.from_numpy(cot))
+    for a, b in zip(g_fn, g_got):
+        assert torch.equal(a, b)

@@ -25,6 +25,7 @@ from ray_tracying_tpu.core.sampling import uniform_in_unit_sphere as sphere_jax
 from ray_tracying_tpu.kernels import closest_hit as ch_jax
 from ray_tracying_tpu.kernels import wavefront as wf_jax
 from ray_tracying_tpu.render.integrator import trace_wavefront as trace_jax
+from ray_tracying_tpu_torch import models
 from ray_tracying_tpu_torch.kernels import closest_hit as ch
 from ray_tracying_tpu_torch.kernels import wavefront as wf
 from ray_tracying_tpu_torch.render.integrator import trace_wavefront
@@ -358,19 +359,19 @@ def _scene_with(**changes):
     return dataclasses.replace(carried(wave_scene()), **changes)
 
 
+def _area_scene():
+    sc = carried(wave_scene())
+    return dataclasses.replace(sc, lights=dataclasses.replace(sc.lights, is_area=(True, False)))
+
+
+# feature -> (scene, light_samples)
 GATE_CASES = {
-    "motion blur": lambda: _scene_with(has_motion=True),
-    "refraction": lambda: _scene_with(has_refraction=True),
-    "two-way materials": lambda: _scene_with(has_refraction=True, has_two_way=True),
-    "area lights": lambda: dataclasses.replace(
-        carried(wave_scene()),
-        lights=dataclasses.replace(carried(wave_scene()).lights, is_area=(True, False)),
-    ),
-    "legacy planes": lambda: _scene_with(n_planes=1),
-    "textured spheres": lambda: _scene_with(has_textures=True, tex_atlas=torch.zeros(1, 2, 2, 3)),
-    "more than 8 lights": lambda: _scene_with(n_lights=9),
+    "two-way materials": lambda: (_scene_with(has_refraction=True, has_two_way=True), 1),
+    "more than 8 lights": lambda: (_scene_with(n_lights=9), 1),
     # 3000 rows of 31 columns pass the 232,448 bytes a block has.
-    "a shaded table of 3000 geoms": lambda: _scene_with(n_prims=3000),
+    "a shaded table of 3000 geoms": lambda: (_scene_with(n_prims=3000), 1),
+    # 33 jittered shadow rays of one area light: over JAX's fuzz cap
+    "more than 32 area-light samples": lambda: (_area_scene(), 33),
 }
 
 
@@ -378,16 +379,38 @@ GATE_CASES = {
 def test_gate_refuses_by_name(feature):
     """The gate answers with the feature (`wave_refusal`), and raises with
     it for a caller that forces the fused path."""
-    scene = GATE_CASES[feature]()
-    assert feature in wf.wave_refusal(scene)
+    scene, samples = GATE_CASES[feature]()
+    assert feature in wf.wave_refusal(scene, light_samples=samples)
     with pytest.raises(NotImplementedError, match=feature):
-        wf.wave_supported(scene)
+        wf.wave_supported(scene, light_samples=samples)
     o, d, tm = cam_rays(n=8)
     with pytest.raises(NotImplementedError, match=feature):
         trace_wavefront(
-            scene, *(torch.from_numpy(np.array(x)) for x in (o, d, tm)), 1,
+            scene, *(torch.from_numpy(np.array(x)) for x in (o, d, tm)), samples,
             fused=True, device="cpu",
         )
+
+
+def test_gate_takes_what_the_jax_gate_takes():
+    """Motion blur, one-way refraction, legacy planes, area lights (up to
+    32 samples in all) and textured spheres pass the port's gate exactly
+    where they pass the JAX package's `wave_supported`."""
+    cases = {
+        "motion blur": (_scene_with(has_motion=True), 1),
+        "refraction": (_scene_with(has_refraction=True), 1),
+        "legacy planes": (_scene_with(n_planes=1), 1),
+        "area lights, 32 samples": (_area_scene(), 32),
+        "textured spheres": (_scene_with(has_textures=True, tex_atlas=torch.zeros(1, 2, 2, 3)), 1),
+    }
+    for name, (scene, samples) in cases.items():
+        assert wf.wave_refusal(scene, light_samples=samples) is None, name
+        assert wf.wave_supported(scene, light_samples=samples), name
+    sj = rt_jax.load_scene(os.path.join(REPO, "scenes", "softshadow.json"), textures_dir=TEX)
+    st = rt.load_scene(os.path.join(REPO, "scenes", "softshadow.json"), textures_dir=TEX,
+                       device="cpu")
+    for samples in (1, 16, 32, 33, 64):
+        assert (wf.wave_refusal(st, light_samples=samples) is None) == \
+            wf_jax.wave_supported(sj, light_samples=samples), samples
 
 
 @pytest.mark.parametrize(
@@ -427,22 +450,26 @@ def test_gate_refuses_committed_scenes_by_name():
     expect = {
         "bvh_det": None, "bvh_glossy": None, "det_mirrors": None,
         "glossy": None,
-        "det_basic": "refraction", "det_twoway": "two-way",
-        "dof": None, "motion": "motion blur", "softshadow": "area lights",
-        "texture": "textured spheres",
+        "det_basic": None, "det_twoway": "two-way",
+        "dof": None, "motion": None, "softshadow": None,
+        "texture": None,
     }
     for name, feature in expect.items():
         st = rt.load_scene(
             os.path.join(REPO, "scenes", f"{name}.json"), textures_dir=TEX,
             device="cpu",
         )
+        # softshadow at its golden's 16 samples a light
+        samples = 16 if name == "softshadow" else 1
         if feature is None:
-            assert wf.wave_supported(st), name
-            assert wf.wave_refusal(st) is None
+            assert wf.wave_supported(st, light_samples=samples), name
+            assert wf.wave_refusal(st, light_samples=samples) is None
         else:
             assert feature in wf.wave_refusal(st)
             with pytest.raises(NotImplementedError, match=feature):
                 wf.wave_supported(st)
+    assert wf.wave_refusal(models.get("cornell", res=(8, 8), device="cpu"),
+                           light_samples=4) is None
 
 
 def test_gate_keeps_every_fused_scene_under_the_kernels_shared_memory(monkeypatch):
@@ -492,3 +519,4 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     boot = torch.zeros((13, 8)).as_subclass(FakeCuda)
     assert wf.wave_level(boot, None, tables) == "launched"
     assert len(called) == 1
+
