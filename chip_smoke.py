@@ -38,8 +38,14 @@ of a full-width flagship tile (rows 0..12 equal to the inference launch, the
 record rows to the plain version; phase diff_record), fused against general
 gradients on a strip (the flagship, cornell, motion), the whole frame at 1 spp and the 4x4-spp frame in
 tiles forward and backward, and three steps of fit with a checkpoint resumed
-(phase diff_path).  It prints one JSON line per phase.  Any failure exits
-non-zero; nothing is caught.
+(phase diff_path).  Phase shrink takes the fused path's queue shrink apart
+on a full-width flagship tile (the radiance torch.equal with and without it,
+each level's launch at its width against full width, the compactions, the
+frame both ways in turns); phase cli runs `python -m
+ray_tracying_tpu_torch.cli` in a subprocess (its PPM the API's bytes), and
+phase native times the host LBVH build and PPM writer against their plain
+versions.  It prints one JSON line per phase, each with the script's
+seconds so far (t_s).  Any failure exits non-zero; nothing is caught.
 
     python3 chip_smoke.py
 
@@ -48,6 +54,7 @@ and prints no result.  The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -103,8 +110,12 @@ RTOL, ATOL = 2e-5, 2e-6
 MAX_FLIP_SHARE = 1e-6
 
 
+_T0 = time.time()
+
+
 def say(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line of a phase; t_s is the script's seconds so far."""
+    print(json.dumps({"phase": phase, "t_s": round(time.time() - _T0, 1), **kw}), flush=True)
 
 
 def fail(msg):
@@ -168,6 +179,41 @@ def load_demo(rt, name, device="cuda"):
     )
 
 
+def srgb_frame(rt, scene, opts, generator, device="cuda"):
+    """One frame through render_to_srgb_u8 in its stats mode -> (image,
+    stats["total_dropped"]): the continuations the pipeline lost to queue
+    shrink or compacted-queue overflow.  The stats mode synchronizes once
+    a tile and adds three counts a level."""
+    img, stats = rt.render_to_srgb_u8(scene, dataclasses.replace(opts, stats=True),
+                                      generator, device=device)
+    return img, stats["total_dropped"]
+
+
+def witness_check(shrunk, unshrunk, witness):
+    """A frame drawn with the pipeline's queue shrink against the frame
+    drawn without it from the same seed: a shrunk level draws its fuzz and
+    area-light jitter at its width, so the two are two estimates that share
+    only the draws made before the first shrink point.  The limit comes
+    from `witness`, the unshrunk frame from another seed (two independent
+    estimates): mean |diff| at most 1.1 times the witness's and p99 at
+    most one step above it.  -> the readings, ok."""
+    a, b, c = (x.astype(np.float32) for x in (shrunk, unshrunk, witness))
+    d, dw = np.abs(a - b), np.abs(c - b)
+    res = dict(shrunk_vs_unshrunk_bytes_equal=bool(d.max() == 0),
+               shrunk_vs_unshrunk_mean_diff=float(d.mean()),
+               shrunk_vs_unshrunk_signed_mean=float((a - b).mean()),
+               shrunk_vs_unshrunk_p99=float(np.percentile(d, 99)),
+               shrunk_vs_unshrunk_off_share=float((d > 0).mean()),
+               witness_mean_diff=float(dw.mean()), witness_signed_mean=float((c - b).mean()),
+               witness_p99=float(np.percentile(dw, 99)),
+               witness_off_share=float((dw > 0).mean()))
+    res.update(limit_mean_diff=1.1 * res["witness_mean_diff"],
+               limit_p99=res["witness_p99"] + 1)
+    ok = (res["shrunk_vs_unshrunk_mean_diff"] <= res["limit_mean_diff"]
+          and res["shrunk_vs_unshrunk_p99"] <= res["limit_p99"])
+    return res, ok
+
+
 def golden_diff(rt, img, golden):
     gold = rt.read_ppm(os.path.join(REPO, "golden", "Output", golden))
     return np.abs(img.astype(np.float32) - gold.astype(np.float32))
@@ -185,8 +231,8 @@ def golden_check(rt, name, golden, samples_sqrt, contract, seed, light_samples=1
     path = "general" if W.wave_refusal(scene, use_bvh, light_samples) else "fused"
     gen = torch.Generator(device=device).manual_seed(seed)
     before = W.wave_level.launches
-    img = rt.render_to_srgb_u8(
-        scene,
+    img, dropped = srgb_frame(
+        rt, scene,
         rt.RenderOptions(samples_sqrt=samples_sqrt, light_samples=light_samples,
                          use_bvh=use_bvh),
         gen, device=device,
@@ -203,9 +249,11 @@ def golden_check(rt, name, golden, samples_sqrt, contract, seed, light_samples=1
     launched = W.wave_level.launches - before
     say("golden", scene=name, golden=golden, samples_sqrt=samples_sqrt,
         light_samples=light_samples, contract=contract, use_bvh=use_bvh,
-        path=path, wave_level_launches=launched, ok=ok, **res)
+        path=path, wave_level_launches=launched, dropped=dropped, ok=ok, **res)
     if not ok:
         fail(f"{name} is outside the {contract} contract against {golden}")
+    if dropped:
+        fail(f"{name} dropped {dropped} continuations")
     if expect_path is not None and path != expect_path:
         fail(f"{name} took the {path} path, not the {expect_path} one")
     if (path == "fused") != (launched > 0):
@@ -538,8 +586,6 @@ def with_texture(scene, donor):
     textures from golden/Textures) and texture 0 on every third material
     and on the last (the floor's): a large scene whose closest hit takes
     the (t, id) search and then pass 2."""
-    import dataclasses
-
     m = scene.materials.tex_id.shape[0]
     ids = torch.arange(m, device=scene.device)
     tex_id = torch.where((ids % 3 == 0) | (ids == m - 1), 0, -1).to(torch.int32)
@@ -550,12 +596,15 @@ def with_texture(scene, donor):
 
 
 def accel_frame(rt, scene, opts, seed, dev):
-    """One frame through render_to_srgb_u8: (image, seconds)."""
+    """One frame through render_to_srgb_u8: (image, seconds); the run fails
+    if the frame dropped a continuation."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     torch.cuda.synchronize()
     t0 = time.time()
-    img = rt.render_to_srgb_u8(scene, opts, gen, device=dev)
+    img, dropped = srgb_frame(rt, scene, opts, gen, device=dev)
     torch.cuda.synchronize()
+    if dropped:
+        fail(f"a frame of {scene.n_geoms} geoms dropped {dropped} continuations")
     return img, time.time() - t0
 
 
@@ -1192,7 +1241,7 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
             primary_rays_per_s=n_rays / timed_s, kernel_launches=got,
             peak_memory_bytes=torch.cuda.max_memory_allocated(),
             two_frames_bytes_equal=bool(np.array_equal(img_w, img_t)),
-            dropped_at_1spp=st["total_dropped"],
+            dropped=0, dropped_at_1spp=st["total_dropped"],
             live_at_1spp=[lv["live"] for lv in st["levels"]])
         # Two frames at 4 spp and one at 1 spp, one tile each.
         per = n_levels * 3
@@ -1466,10 +1515,14 @@ def wave_redesign_ab(rt, W, scene, tables, inputs, fuzz, opts, n_levels):
             W._launch = lambda q, f, tb, m, record=False: W.wave_level_lane(q, f, tb, m)
         torch.cuda.synchronize()
         t0 = time.time()
-        frames[name] = rt.render_to_srgb_u8(scene, opts, torch.Generator(device="cuda").manual_seed(3))
+        frames[name], dropped = srgb_frame(
+            rt, scene, opts, torch.Generator(device="cuda").manual_seed(3))
         torch.cuda.synchronize()
         summary[f"frame_{name}_seconds"] = time.time() - t0
+        summary[f"frame_{name}_dropped"] = dropped
         W._launch = real
+        if dropped:
+            fail(f"the flagship frame with the {name} schedule dropped {dropped} rays")
     summary["frames_bytes_equal"] = bool(np.array_equal(frames["blocks"], frames["lane"]))
     say("wave_redesign_ab", **summary)
     if not summary["frames_bytes_equal"]:
@@ -1811,9 +1864,234 @@ WIDENED_SPHERES = 1500
 WIDENED_RES = (1920, 1080)
 
 
-def widened_scene(rt, name, dev):
-    import dataclasses
+def shrink_phase(rt, W, G, scene, tables, o, d, tm, fuzz, full_levels, sched, opts,
+                 n_levels):
+    """Phase shrink, on one full-width flagship tile with its fuzz fed in:
+    (a) the trace without shrink and with the main path's schedule: the
+    radiance torch.equal, the live counts equal, nothing dropped, 11
+    launches each; (b) each level's launch at its width (the shrunk levels'
+    inputs rebuilt with the trace's own compaction and their fuzz gathered
+    by dest: the outputs equal the trace's, and bit-equal to the plain
+    version on the live lanes) against the same level at full width, in
+    turns, with the shrunk levels' bounds; the compactions' ms; (c) the
+    tile traced with draws from a generator both ways, in turns; (d) the
+    flagship frame through render_to_srgb_u8 with the pipeline's shrink and
+    with it turned off (tile_shrink patched to ()), in turns, from one seed
+    each: seconds, launches and dropped counts, and the two frames held to
+    the stochastic contract (the shrunk levels draw their fuzz at their
+    width) and to the limit of `witness_check`, set by the unshrunk frame
+    from another seed.  Returns the row for the kernels line."""
+    from ray_tracying_tpu_torch.render import pipeline as PL
 
+    smi = smi_line()
+    n, dev = o.shape[0], o.device
+    # (a)
+    runs = {}
+    for name, s_ in (("unshrunk", ()), ("shrunk", sched)):
+        W.wave_level.launches = 0
+        runs[name] = G.trace_wavefront(scene, o, d, tm, fuzz=fuzz, tables=tables, shrink=s_,
+                                       return_stats=True, return_levels=True)
+        runs[name] += (W.wave_level.launches,)
+    (rad0, st0, _, launches0), (rad1, st1, shrunk, launches1) = runs["unshrunk"], runs["shrunk"]
+    bounds, widths = G.shrink_plan(n, n_levels, sched)
+    row = dict(tile_lanes=n, shrink=sched, stage_levels=bounds, stage_widths=[n] + widths[1:],
+               radiance_equal=bool(torch.equal(rad0, rad1)),
+               live_unshrunk=st0.live.tolist(), live_shrunk=st1.live.tolist(),
+               dropped_shrunk=st1.dropped.tolist(), launches=[launches0, launches1],
+               nvidia_smi=smi)
+    say("shrink", **row)
+    if not row["radiance_equal"] or row["live_unshrunk"] != row["live_shrunk"]:
+        fail("the tile traced with shrink differs from the tile traced without")
+    if any(row["dropped_shrunk"]) or launches0 != n_levels or launches1 != n_levels:
+        fail(f"the shrunk tile dropped {row['dropped_shrunk']}, launched {launches1}")
+    del rad0, rad1
+    # (b)
+    boot = torch.cat([o.T, d.T, tm[None], torch.ones((2, n), device=dev)]).contiguous()
+    levels_rows = []
+    compaction_ms = {}
+    kept_prev = None
+    for lv in range(n_levels):
+        full_in = boot if lv == 0 else full_levels[lv - 1]
+        dest = shrunk.dest[lv]
+        if dest is None:
+            inp, fz = full_in, fuzz[lv]
+        else:
+            width = shrunk[lv].shape[1]
+            kept = dest[dest >= 0]
+            if lv in bounds[1:-1]:
+                inp, kept_again, _ = G._shrink(shrunk[lv - 1], width, kept_prev)
+                compaction_ms[lv] = cuda_ms(lambda: G._shrink(shrunk[lv - 1], width, kept_prev), 3)
+                if not torch.equal(kept_again, kept):
+                    fail(f"the compaction at level {lv} kept other lanes than the trace's")
+            else:
+                inp = shrunk[lv - 1]
+            fz = G._gather_draws(fuzz[lv], kept, width, 1).contiguous()
+            kept_prev = kept
+        lrow = dict(level=lv, width=inp.shape[1], live=int((inp[7] > 0).sum()))
+        if dest is not None:
+            out = W.wave_level(inp, fz, tables)
+            need = {}
+            res, _ = compare_level(out, plain_on_live(W, inp, fz, tables, need))
+            lrow.update(equal_to_trace=bool(torch.equal(out, shrunk[lv])),
+                        bitwise_equal_to_plain=res["bitwise_equal"],
+                        **level_bound(W, tables, inp.shape[1], need, int((out[12] > 0).sum())))
+            if not (lrow["equal_to_trace"] and res["bitwise_equal"]):
+                fail(f"shrunk level {lv}: the kernel differs from the trace or the plain version")
+            del out
+        t = {}
+        for turn, (q, f) in (("full", (full_in, fuzz[lv])), ("at_width", (inp, fz)),
+                             ("at_width_again", (inp, fz)), ("full_again", (full_in, fuzz[lv]))):
+            t[turn] = cuda_ms(lambda: W.wave_level(q, f, tables), 3)
+        lrow.update(ms=[t["at_width"], t["at_width_again"]],
+                    full_width_ms=[t["full"], t["full_again"]])
+        say("shrink", **lrow)
+        levels_rows.append(lrow)
+    row.update(compaction_ms=compaction_ms,
+               levels_ms=sum(sum(r["ms"]) / 2 for r in levels_rows),
+               levels_full_width_ms=sum(sum(r["full_width_ms"]) / 2 for r in levels_rows))
+    # (c)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for turn in ("unshrunk", "shrunk", "shrunk_again", "unshrunk_again"):
+        s_ = () if turn.startswith("unshrunk") else sched
+        row[f"trace_with_draws_ms_{turn}"] = cuda_ms(lambda: G.trace_wavefront(
+            scene, o, d, tm, generator=gen, tables=tables, shrink=s_), 3)
+    # (d)
+    width, height = scene.camera.resolution
+    spp = opts.samples_sqrt ** 2
+    tile_rows = min(height, opts.max_rays_per_pass // (width * spp))
+    n_tiles = -(-height // tile_rows)
+    real = PL.tile_shrink
+    frames, seconds, dropped, launched = {}, {}, {}, {}
+    for turn in ("unshrunk", "shrunk", "shrunk_again", "unshrunk_again"):
+        if turn.startswith("unshrunk"):
+            PL.tile_shrink = lambda lanes, spp_: ()
+        W.wave_level.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        frames[turn], dropped[turn] = srgb_frame(
+            rt, scene, opts, torch.Generator(device=dev).manual_seed(2), device=dev)
+        torch.cuda.synchronize()
+        seconds[turn] = time.time() - t0
+        launched[turn] = W.wave_level.launches
+        PL.tile_shrink = real
+    PL.tile_shrink = lambda lanes, spp_: ()
+    witness, dropped["witness"] = srgb_frame(
+        rt, scene, opts, torch.Generator(device=dev).manual_seed(3), device=dev)
+    PL.tile_shrink = real
+    seen, seen_ok = witness_check(frames["shrunk"], frames["unshrunk"], witness)
+    diff = np.abs(frames["shrunk"].astype(np.float32) - frames["unshrunk"].astype(np.float32))
+    row.update(frame_seconds=seconds, frame_dropped=dropped, frame_launches=launched, **seen,
+               frames_repeat=bool(np.array_equal(frames["shrunk"], frames["shrunk_again"])
+                                  and np.array_equal(frames["unshrunk"],
+                                                     frames["unshrunk_again"])),
+               frames_mean_diff=float(diff.mean()), frames_p99=float(np.percentile(diff, 99)),
+               frames_max_diff=float(diff.max()), frames_off_share=float((diff > 0).mean()))
+    say("shrink", **{k: v for k, v in row.items() if k not in ("live_unshrunk", "live_shrunk")})
+    if any(dropped.values()) or set(launched.values()) != {n_levels * n_tiles}:
+        fail(f"the flagship frames dropped {dropped}, launched {launched}")
+    if not (row["frames_repeat"] and row["frames_mean_diff"] < 1.0 and row["frames_p99"] <= 8):
+        fail("the flagship frames with and without shrink are outside the stochastic "
+             "contract, or do not repeat")
+    if not seen_ok:
+        fail("the flagship frames with and without shrink differ by more than two "
+             "unshrunk frames from two seeds")
+    row["levels"] = levels_rows
+    return row
+
+
+CLI_CASES = (("flagship", "golden/ASCII/scene.json", []),
+             ("bvh_det_bvh", "golden/ASCII/bvh_det.json", ["-bvh", "-s", "1"]))
+
+
+def cli_phase(rt, dev):
+    """Phase cli: `python -m ray_tracying_tpu_torch.cli` in a subprocess on
+    the flagship (its defaults: 4x4 samples) and on bvh_det with -bvh -s 1
+    (the general path's traversal and any-hit), both with --seed 3; the
+    PPM's bytes must equal render_to_srgb_u8 + write_ppm of the same scene,
+    options and seed in this process (in the stats mode, which counts the
+    frame's drops: 0).  Prints the CLI's own rays/s line."""
+    out_dir = os.path.join(REPO, "ray_tracying_tpu_torch", "build", "smoke_cli")
+    os.makedirs(out_dir, exist_ok=True)
+    rows = {}
+    for name, scene_path, flags in CLI_CASES:
+        cli_ppm, api_ppm = (os.path.join(out_dir, f"{name}_{k}.ppm") for k in ("cli", "api"))
+        cmd = [sys.executable, "-m", "ray_tracying_tpu_torch.cli", "-input", scene_path,
+               "-output", os.path.basename(cli_ppm), "--output-dir", out_dir, "--seed", "3",
+               "--device", str(dev), *flags]
+        t0 = time.time()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+        wall = time.time() - t0
+        if proc.returncode != 0:
+            fail(f"the CLI exited {proc.returncode} on {name}: {proc.stderr[-2000:]}")
+        rays_line = [ln for ln in proc.stdout.splitlines() if "Mrays/s" in ln]
+        use_bvh = "-bvh" in flags
+        sqrt_spp = int(flags[flags.index("-s") + 1]) if "-s" in flags else 4
+        img, dropped = srgb_frame(
+            rt, rt.load_scene(os.path.join(REPO, scene_path), device=dev),
+            rt.RenderOptions(samples_sqrt=sqrt_spp, use_bvh=use_bvh),
+            torch.Generator(device=dev).manual_seed(3), device=dev)
+        rt.write_ppm(api_ppm, img)
+        with open(cli_ppm, "rb") as a, open(api_ppm, "rb") as b:
+            equal = a.read() == b.read()
+        rows[name] = dict(argv=cmd[2:], process_seconds=wall, rays_line=rays_line,
+                          bytes_equal=equal, ppm_bytes=os.path.getsize(cli_ppm),
+                          api_dropped=dropped)
+        say("cli", case=name, **rows[name])
+        for path in (cli_ppm, api_ppm):
+            os.remove(path)
+        if not (equal and rays_line):
+            fail(f"the CLI's {name} image differs from the API's bytes")
+        if dropped:
+            fail(f"the API's {name} frame dropped {dropped} continuations")
+    return rows
+
+
+def native_phase(rt, dev):
+    """Phase native: the host LBVH build of the 20,001-geom sphere_field by
+    the native builder and by the numpy build_lbvh, in turns (arrays
+    equal), and the PPM writer on a 1920x1080 frame, native and Python
+    (bytes equal).  Host seconds."""
+    from ray_tracying_tpu_torch import models, native
+    from ray_tracying_tpu_torch.accel import lbvh as L
+    from ray_tracying_tpu_torch.io import ppm
+
+    scene = models.get("sphere_field", n=ACCEL_SIZES["spheres"], res=ACCEL_SIZES["res"],
+                       device="cpu")
+    aabbs = L.geom_aabbs(scene)
+    native.load()
+    row = dict(geoms=scene.n_geoms, build_seconds=native.last_build["seconds"],
+               build_compiled=native.last_build["compiled"])
+    trees = {}
+    for turn in ("native", "numpy", "numpy_again", "native_again"):
+        build = (lambda a: native.lbvh_build(a, L.LEAF_SIZE)) if turn.startswith("native") \
+            else L.build_lbvh
+        t0 = time.time()
+        trees[turn] = build(aabbs)
+        row[f"lbvh_{turn}_seconds"] = time.time() - t0
+    row["lbvh_arrays_equal"] = all(
+        a.tobytes() == b.tobytes() for a, b in zip(trees["native"], trees["numpy"]))
+    img = np.random.default_rng(4).integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+    out_dir = os.path.join(REPO, "ray_tracying_tpu_torch", "build")
+    paths = {k: os.path.join(out_dir, f"smoke_{k}.ppm") for k in ("native", "python")}
+    for k, write in (("native", ppm.write_ppm), ("python", ppm.write_ppm_plain)):
+        t0 = time.time()
+        write(paths[k], img)
+        row[f"ppm_write_{k}_seconds"] = time.time() - t0
+    with open(paths["native"], "rb") as a, open(paths["python"], "rb") as b:
+        row["ppm_bytes_equal"] = a.read() == b.read()
+    t0 = time.time()
+    back = ppm.read_ppm(paths["native"])
+    row["ppm_read_native_seconds"] = time.time() - t0
+    row["ppm_read_back_equal"] = bool(np.array_equal(back, img))
+    for path in paths.values():
+        os.remove(path)
+    say("native", **row)
+    if not (row["lbvh_arrays_equal"] and row["ppm_bytes_equal"] and row["ppm_read_back_equal"]):
+        fail("the native builders differ from their plain versions")
+    return row
+
+
+def widened_scene(rt, name, dev):
     from ray_tracying_tpu_torch import models
 
     if name == "cornell":
@@ -1880,10 +2158,25 @@ def fused_widened_phase(rt, W, CH, dev, n_levels):
     small spheres, up to ~300 radii from the camera, the quadratic's
     cancellation moves a hit point by more than the 1e-4 normal offset of
     the shadow ray and a texel lookup across its edge on a few lanes in a
-    thousand.  Returns the rows by case."""
+    thousand; the JAX package's two paths split on the same lanes
+    (tests/test_torch_far_spheres.py).
+
+    The pipeline's queue shrink draws a shrunk level's fuzz and area-light
+    jitter at the level's width, so with it the fused frame consumes fewer
+    draws than the general path and later tiles' camera draws differ.  So
+    the frame held against the general path is the fused frame with the
+    shrink turned off (tile_shrink patched to ()).  The frame with the
+    pipeline's shrink, which users get, is timed and counted, and held to
+    the unshrunk frame from the same seed: byte-equal for a scene that
+    draws nothing in the trace; for a scene that does, within the limit
+    of `witness_check`, set by the unshrunk frame from another seed, and
+    (c) the middle tile traced with its draws fed in is torch.equal with
+    and without the shrink.  Returns the rows by case."""
+    from ray_tracying_tpu_torch.core.sampling import uniform_in_unit_sphere
     from ray_tracying_tpu_torch.render import intersect as I
-    from ray_tracying_tpu_torch.render.integrator import level_fuzz
-    from ray_tracying_tpu_torch.render.pipeline import tile_rays
+    from ray_tracying_tpu_torch.render import pipeline as PL
+    from ray_tracying_tpu_torch.render.integrator import level_fuzz, trace_wavefront
+    from ray_tracying_tpu_torch.render.pipeline import tile_rays, tile_shrink
 
     smi = smi_line()
     rows = {}
@@ -1955,17 +2248,58 @@ def fused_widened_phase(rt, W, CH, dev, n_levels):
             disagreeing_lanes=per_level[-1]["disagreeing_lanes_so_far"],
             disagreeing_share=per_level[-1]["disagreeing_lanes_so_far"] / n,
             max_abs_err=max(lv_["max_abs_err"] for lv_ in per_level))
-        del prev, a, o, d, tm
+        del prev, a
+        sched = tile_shrink(n, spp)
+        draws = tables.glossy or any(tables.area)
+        if draws:
+            # (c) the tile with one set of draws fed to every level
+            kw = {}
+            if tables.glossy:
+                kw["fuzz"] = [uniform_in_unit_sphere(gen, (n,)).T.contiguous()] * levels
+            if any(tables.area):
+                kw["light_jitter"] = [[uniform_in_unit_sphere(gen, (n, samples)) if a_ else None
+                                       for a_ in tables.area]] * levels
+            traced = [trace_wavefront(scene, o, d, tm, samples, tables=tables, shrink=s_,
+                                      return_dropped=True, **kw) for s_ in ((), sched)]
+            row.update(fed_draws_shrink=sched,
+                       fed_draws_radiance_equal=bool(torch.equal(traced[0][0], traced[1][0])),
+                       fed_draws_dropped=int(traced[1][1]))
+            say("fused_widened", case=name, shrink=sched,
+                fed_draws_radiance_equal=row["fed_draws_radiance_equal"],
+                fed_draws_dropped=row["fed_draws_dropped"])
+            if not row["fed_draws_radiance_equal"] or row["fed_draws_dropped"]:
+                fail(f"{name}: the tile with its draws fed in differs with shrink")
+            del traced, kw
+        del o, d, tm
 
-        # (b) one frame each way from one seed, the counts set to 0 before
+        # (b) one frame each way from one seed, the counts set to 0 before;
+        # the fused frame with the pipeline's shrink, and without it
         W.wave_level.launches = 0
         torch.cuda.synchronize()
         t0 = time.time()
-        img_f = rt.render_to_srgb_u8(scene, opts, torch.Generator(device=dev).manual_seed(41),
-                                     device=dev)
+        img_s, fused_dropped = srgb_frame(
+            rt, scene, opts, torch.Generator(device=dev).manual_seed(41), device=dev)
         torch.cuda.synchronize()
         fused_s = time.time() - t0
         fused_launches = W.wave_level.launches
+        real_shrink = PL.tile_shrink
+        PL.tile_shrink = lambda lanes, spp_: ()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img_f, unshrunk_dropped = srgb_frame(
+            rt, scene, opts, torch.Generator(device=dev).manual_seed(41), device=dev)
+        torch.cuda.synchronize()
+        fused_unshrunk_s = time.time() - t0
+        if draws:
+            img_w, witness_dropped = srgb_frame(
+                rt, scene, opts, torch.Generator(device=dev).manual_seed(42), device=dev)
+            unshrunk_dropped += witness_dropped
+            seen, seen_ok = witness_check(img_s, img_f, img_w)
+            del img_w
+        else:
+            seen = dict(shrunk_vs_unshrunk_bytes_equal=bool(np.array_equal(img_s, img_f)))
+            seen_ok = seen["shrunk_vs_unshrunk_bytes_equal"]
+        PL.tile_shrink = real_shrink
         CH.brute_closest.launches = CH.brute_closest_n.launches = 0
         CH.occlusion_any.launches = W.wave_level.launches = 0
         torch.cuda.synchronize()
@@ -1979,9 +2313,11 @@ def fused_widened_phase(rt, W, CH, dev, n_levels):
                                 occlusion_any=CH.occlusion_any.launches,
                                 wave_level=W.wave_level.launches)
         diff = np.abs(img_f.astype(np.float32) - img_g.astype(np.float32))
-        frame = dict(fused_frame_seconds=fused_s, general_frame_seconds=general_s,
+        frame = dict(fused_frame_seconds=fused_s, fused_unshrunk_frame_seconds=fused_unshrunk_s,
+                     general_frame_seconds=general_s, shrink=sched, **seen,
                      fused_launches=fused_launches, general_launches=general_launches,
-                     tiles=n_tiles, general_dropped=dropped,
+                     tiles=n_tiles, fused_dropped=fused_dropped,
+                     unshrunk_dropped=unshrunk_dropped, general_dropped=dropped,
                      frames_max_diff=float(diff.max()), frames_off_share=float((diff > 0).mean()),
                      frames_far_share=float((diff > 1).mean()),
                      frames_mean_diff=float(diff.mean()),
@@ -1998,12 +2334,19 @@ def fused_widened_phase(rt, W, CH, dev, n_levels):
             fail(f"{name}: the general frame launched {general_launches}")
         if img_f.min() == img_f.max():
             fail(f"{name}: the fused frame is constant")
+        if fused_dropped or unshrunk_dropped or dropped:
+            fail(f"{name}: the frames dropped {fused_dropped} / {unshrunk_dropped} / "
+                 f"{dropped} continuations")
+        if not seen_ok:
+            fail(f"{name}: the fused frame with the pipeline's shrink differs from the "
+                 "unshrunk one " + ("by more than two unshrunk frames from two seeds differ"
+                                    if draws else "(no draws: it must be byte-equal)"))
         ok = frame["frames_mean_diff"] < 1.0 and frame["frames_p99"] <= 8
         if not ok:
             fail(f"{name}: fused and general frames are outside the "
                  f"{frame['contract']} contract")
         rows[name] = row
-        del img_f, img_g, diff, tables, scene
+        del img_f, img_g, img_s, diff, tables, scene
         torch.cuda.empty_cache()
     return rows
 
@@ -2026,7 +2369,7 @@ def main():
     from ray_tracying_tpu_torch.render.integrator import trace_wavefront
     from ray_tracying_tpu_torch.render.materials import gather_materials
     from ray_tracying_tpu_torch.render.shade import shade
-    from ray_tracying_tpu_torch.render.pipeline import tile_rays
+    from ray_tracying_tpu_torch.render.pipeline import tile_rays, tile_shrink
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -2067,7 +2410,8 @@ def main():
     o, d, tm = tile_rays(scene.camera, height // 2, 2, width, 4, generator=gen)
     n = o.shape[0]
     fuzz = [uniform_in_unit_sphere(gen, (n,)).T.contiguous() for _ in range(n_levels)]
-    common = dict(fuzz=fuzz, tables=tables, return_levels=True)
+    # level by level at full width: no shrink
+    common = dict(fuzz=fuzz, tables=tables, return_levels=True, shrink=())
     W.wave_level.launches = 0
     _, lv_kernel = trace_wavefront(scene, o, d, tm, **common)
     torch.cuda.synchronize()
@@ -2181,16 +2525,26 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     W.wave_level.launches = 0
     seconds = []
-    img = None
+    imgs = []
     for i in range(runs):
         gen_i = torch.Generator(device=dev).manual_seed(i)
         torch.cuda.synchronize()
         t0 = time.time()
-        img = rt.render_to_srgb_u8(scene, opts, gen_i)
+        imgs.append(rt.render_to_srgb_u8(scene, opts, gen_i))
         torch.cuda.synchronize()
         seconds.append(time.time() - t0)
     launches = W.wave_level.launches
     peak_bytes = torch.cuda.max_memory_allocated()
+    # The dropped counts: each run again in the stats mode, from its seed,
+    # byte-equal to the timed frame.
+    main_dropped = []
+    for i in range(runs):
+        again, dropped = srgb_frame(rt, scene, opts, torch.Generator(device=dev).manual_seed(i))
+        if not np.array_equal(again, imgs[i]):
+            fail(f"the flagship frame of seed {i} differs in the stats mode")
+        main_dropped.append(dropped)
+    img = imgs[-1]
+    del imgs, again
     if launches != n_levels * n_tiles * runs:
         fail(f"main path launched the kernel {launches} times, expected "
              f"{n_levels * n_tiles * runs}")
@@ -2207,14 +2561,19 @@ def main():
         spp=spp, levels=n_levels, tiles=n_tiles, primary_rays=n_rays,
         warmup_seconds=seconds[0], timed_seconds=timed, mean_seconds=mean_s,
         primary_rays_per_s=n_rays / mean_s, kernel_launches=launches,
-        peak_memory_bytes=peak_bytes,
+        shrink=tile_shrink(tile_rows * width * spp, spp),
+        dropped=main_dropped, peak_memory_bytes=peak_bytes,
         golden="bvh_s4_textured_r4.ppm", golden_mean_diff=flag_mean,
         golden_p99=flag_p99)
     if not (flag_mean < 1.0 and flag_p99 <= 8):
         fail("the flagship frame is outside the stochastic contract against "
              "its golden")
+    if any(main_dropped):
+        fail(f"the flagship frames dropped {main_dropped} continuations")
 
-    # Per-level counters of one full-width tile (the second: rows with cubes).
+    # Per-level counters of one full-width tile (the second: rows with
+    # cubes), traced without shrink: its levels are the full-width inputs
+    # of the phases below.
     gen = torch.Generator(device=dev).manual_seed(5)
     y0 = tile_rows if n_tiles > 1 else 0
     o, d, tm = tile_rays(scene.camera, y0, tile_rows, width, 4, generator=gen)
@@ -2222,7 +2581,7 @@ def main():
     fuzz = [uniform_in_unit_sphere(gen, (n,)).T.contiguous() for _ in range(n_levels)]
     _, stats, levels = trace_wavefront(
         scene, o, d, tm, fuzz=fuzz, tables=tables, return_stats=True,
-        return_levels=True,
+        return_levels=True, shrink=(),
     )
     say("main_path", tile_rows=tile_rows, tile_lanes=n,
         live=stats.live.tolist(), hits=stats.hits.tolist(),
@@ -2230,22 +2589,40 @@ def main():
 
     # Where that tile's time goes, by CUDA events: ray generation, the 11
     # fuzz draws, the whole trace given the draws (launches, accumulation,
-    # bootstrap), and each level's launch alone on its own input.
-    from ray_tracying_tpu_torch.render.integrator import level_fuzz
+    # bootstrap, and with shrink the compactions), and each level's launch
+    # alone on its own full-width input; the draws and the trace both
+    # ways, without shrink and with the main path's schedule (phase shrink
+    # takes the shrunk tile apart).
+    from ray_tracying_tpu_torch.render.integrator import level_fuzz, shrink_plan
 
     boot = torch.cat([o.T, d.T, tm[None], torch.ones((2, n), device=dev)]).contiguous()
     inputs = [boot] + levels[:-1]
-    say("tile_breakdown", tile_lanes=n,
+    tile_sched = tile_shrink(n, spp)
+    bounds, widths = shrink_plan(n, n_levels, tile_sched)
+    stage = [max(i for i, b in enumerate(bounds[:-1]) if b <= lv) for lv in range(n_levels)]
+    level_width = [n if si == 0 else widths[si] for si in stage]
+    breakdown = dict(tile_lanes=n, shrink=tile_sched, level_widths=level_width)
+    for turn in ("unshrunk", "shrunk", "shrunk_again", "unshrunk_again"):
+        sched = () if turn.startswith("unshrunk") else tile_sched
+        ws = [n] * n_levels if sched == () else level_width
+        breakdown[f"fuzz_ms_{turn}"] = cuda_ms(
+            lambda: [level_fuzz(tables, gen, w, dev) for w in ws], 3)
+        breakdown[f"trace_ms_{turn}"] = cuda_ms(lambda: trace_wavefront(
+            scene, o, d, tm, fuzz=fuzz, tables=tables, shrink=sched), 3)
+    say("tile_breakdown",
         rays_ms=cuda_ms(lambda: tile_rays(scene.camera, y0, tile_rows, width, 4, generator=gen), 3),
-        fuzz_ms=cuda_ms(lambda: [level_fuzz(tables, gen, n, dev) for _ in range(n_levels)], 3),
-        trace_ms=cuda_ms(lambda: trace_wavefront(scene, o, d, tm, fuzz=fuzz, tables=tables), 3),
         level_ms=[cuda_ms(lambda: W.wave_level(inputs[lv], fuzz[lv], tables), 3)
-                  for lv in range(n_levels)])
+                  for lv in range(n_levels)], **breakdown)
+    shrink_row = shrink_phase(rt, W, G, scene, tables, o, d, tm, fuzz, levels, tile_sched,
+                              opts, n_levels)
 
     # ---- phase 6: the kernel at the main path's shapes: every level of
     # that tile against the plain version on the same input (bit-equal, or
     # the run fails), and for level 0 and a deep level the kernel's time
-    # and roofline bound.
+    # and roofline bound.  The plain version runs at full width on those
+    # two levels (their plain_ms are the full-width times) and on the live
+    # lanes alone on the others (`plain_on_live`: lane-wise, dead lanes
+    # zero), which keeps the run within its time.
     deep = 4
     rows_out = {}
     plain0 = None
@@ -2255,14 +2632,18 @@ def main():
         need = {}
         torch.cuda.synchronize()
         t0 = time.time()
-        b = W.wave_level_plain(prev, fuzz[lv], tables, stats=need)
+        if lv in (0, deep):
+            b = W.wave_level_plain(prev, fuzz[lv], tables, stats=need)
+        else:
+            b = plain_on_live(W, prev, fuzz[lv], tables, need)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t0) * 1e3
         res, _ = compare_level(a, b)
         if lv == 0:
             plain0 = b
         del a, b
-        row = dict(case=f"level{lv}", lanes=n, plain_ms=plain_ms, needed=need, **res)
+        row = dict(case=f"level{lv}", lanes=n, plain_ms=plain_ms,
+                   plain_on_live_lanes=lv not in (0, deep), needed=need, **res)
         if lv in (0, deep):
             ms = cuda_ms(lambda: W.wave_level(prev, fuzz[lv], tables), 5)
             # Least work this call's data needs.  Bytes: every lane's act
@@ -2460,6 +2841,11 @@ def main():
     # ---- phase 11: the differentiable path (record mode, diff/)
     diff = diff_path_phase(rt, W, CH, scene, n_levels, dev)
 
+    # ---- phases cli and native: the command line in a subprocess, the
+    # host builders against their plain versions
+    cli_phase(rt, dev)
+    native_phase(rt, dev)
+
     brute_entries = []
     for name, line, count in (
         ("brute_closest", 367, general_launches["brute_closest"]),
@@ -2551,11 +2937,17 @@ def main():
             "level0_gather_segment_sum_ms": rec_mode["level0_gather_segment_sum_ms"],
             "level0_gather_index_add_ms": rec_mode["level0_gather_index_add_ms"],
         },
+        "shrunk_levels": [
+            {k: r[k] for k in ("level", "width", "live", "ms", "full_width_ms", "bound_ms",
+                               "bound_by") if k in r}
+            for r in shrink_row["levels"] if r["width"] != n],
+        "shrink_compaction_ms": shrink_row["compaction_ms"],
         "widened": {
             name: {k: row[k] for k in (
                 "level0_ms", "level0_plain_ms", "level0_bound_ms", "level0_bound_by",
                 "lanes", "geoms", "light_samples", "disagreeing_lanes", "max_abs_err",
-                "fused_frame_seconds", "general_frame_seconds", "fused_launches")}
+                "fused_frame_seconds", "fused_unshrunk_frame_seconds", "general_frame_seconds",
+                "fused_launches")}
             for name, row in widened.items()
         },
     }] + brute_entries + accel_entries}), flush=True)

@@ -58,10 +58,12 @@ from ray_tracying_tpu_torch.render.pipeline import (  # noqa: E402
     RenderOptions,
     render_image,
     render_to_srgb_u8,
+    render_with_stats,
 )
 from ray_tracying_tpu_torch.io.ppm import read_ppm, write_ppm  # noqa: E402
-# Differentiable rendering, as attributes of the package (the JAX package's
-# diff/ entry points; __all__ stays the JAX package's list).
+# render_with_stats and differentiable rendering, as attributes of the
+# package (the JAX package's render.pipeline and diff/ entry points;
+# __all__ stays the JAX package's list).
 from ray_tracying_tpu_torch.diff.render import mse_loss, render_linear  # noqa: E402,F401
 from ray_tracying_tpu_torch.diff.optimize import fit  # noqa: E402,F401
 

@@ -19,9 +19,11 @@ the full hit set, so this build does not reproduce the reference's
 in-place sort topology.
 
 The arrays equal the JAX package's bit for bit for the same scene and the
-same `chunk`; only the default `CHUNK` differs (see below).  Beside them
-the port keeps, per chunk and per node, the slack its f32 box test gives
-that box (`chunk_graze`, `node_graze`): the boxes themselves stay exact.
+same `chunk`; only the default `CHUNK` differs (see below).  `with_bvh`
+builds its tree with the native builder (native/src/lbvh.cpp); the numpy
+`build_lbvh` is that builder's plain version.  Beside the arrays the port
+keeps, per chunk and per node, the slack its f32 box test gives that box
+(`chunk_graze`, `node_graze`): the boxes themselves stay exact.
 The build runs at scene-load time; the finished arrays are attached to the
 scene as tensors on its device.
 """
@@ -34,6 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ray_tracying_tpu_torch import native
 from ray_tracying_tpu_torch.kernels import closest_hit as CH
 from ray_tracying_tpu_torch.kernels.geom_table import pack_geom_table
 from ray_tracying_tpu_torch.scene.types import KIND_RECT, KIND_SPHERE, Scene
@@ -354,12 +357,13 @@ def bvh_fields(table: np.ndarray, boxes: np.ndarray, topo: np.ndarray, dev) -> d
 
 def with_bvh(scene: Scene) -> Scene:
     """Attach LBVH arrays, each node's box-test slack and the traversal
-    kernel's packed copy to the scene (host build, device upload).  A scene
-    whose table does not fit a block's shared memory also gets the
-    chunked-stream structures."""
+    kernel's packed copy to the scene (host build by the native builder,
+    native/src/lbvh.cpp, whose plain version is `build_lbvh`; device
+    upload).  A scene whose table does not fit a block's shared memory also
+    gets the chunked-stream structures."""
     if scene.n_geoms == 0:
         return scene
-    boxes, topo, order = build_lbvh(geom_aabbs(scene))
+    boxes, topo, order = native.lbvh_build(geom_aabbs(scene), LEAF_SIZE)
     table = np.ascontiguousarray(_np(pack_geom_table(scene))[order])
     dev = scene.device
     scene = dataclasses.replace(

@@ -49,13 +49,16 @@ def _generator(device, seed: int) -> torch.Generator:
 
 
 def _warn_dropped(counts) -> None:
-    """The reference never drops rays: a continuation lost to a compacted
-    queue's overflow is surfaced (one host read, after all is enqueued)."""
+    """The reference never drops rays: a continuation lost to the fused
+    path's queue shrink or a compacted queue's overflow is surfaced (one
+    host read, after all is enqueued; the JAX package's differentiable
+    render discards this count)."""
     dropped = int(torch.stack(counts).sum()) if counts else 0
     if dropped:
         warnings.warn(
             f"differentiable render dropped {dropped} live continuation rays "
-            "to compacted-queue overflow; raise RenderOptions.queue_mult",
+            "to queue-shrink or compacted-queue overflow; render smaller "
+            "tiles (RenderOptions.max_rays_per_pass) or raise queue_mult",
             RuntimeWarning,
             stacklevel=3,
         )

@@ -55,11 +55,29 @@ intermediates; the level's random draws are made before it, so that the
 recompute sees the same ones.  Hit decisions and visibility carry no
 gradient on either path.
 
-Not ported: queue shrinking between levels of the fused path (the image is
-the same without it; dead levels just cost more), the JAX package's
-`segments` gating (measured slower there and off by default).  `use_bvh`
-belongs to the general path: it sends a scene off the fused path, whose
-level searches its own table.
+Queue shrink (fused path, the JAX package's `shrink`): bounce levels go
+dead fast (the flagship is 6.3 % live entering level 2), so at the levels
+of a schedule of (level, factor) pairs the queue is compacted into a
+narrower width and the deeper levels run there.  The widths are the JAX
+package's (each stage divides the last by its factor, rounded up to
+WAVE_BLOCK lanes).  The compaction is per lane, in slot order (neighbouring
+rays stay in one warp): the live lanes' nine queue rows are gathered, and
+each kept lane carries `dest`, its slot in the full-width queue, composed
+across stages.  Each shrunk level's contribution is added into the
+full-width accumulator at `dest` on that level; `dest` is unique within a
+stage, so every slot adds its contributions in the unshrunk order and the
+radiance is bit for bit the unshrunk one whenever nothing is dropped (draws
+given as tensors are gathered by `dest`; draws from a generator are made at
+the stage's width, as the JAX package makes them).  A stage whose live
+lanes overflow its width keeps the brightest (by throughput; ties by
+slot), still in slot order, and counts the rest in TraceStats.dropped at
+that level.  One host read of the live count a shrink point.
+
+Not ported: the JAX package's group-granular shrink (`WAVE_SHRINK_GROUP`,
+which exists because TPU scatters serialize) and its `segments` gating
+(measured slower there and off by default).  `use_bvh` belongs to the
+general path: it sends a scene off the fused path, whose level searches
+its own table.
 """
 
 from __future__ import annotations
@@ -75,6 +93,7 @@ from ray_tracying_tpu_torch.core.vecmath import dot, normalize, reflect, refract
 from ray_tracying_tpu_torch.kernels.wavefront import (
     C_BASE,
     HIT_ROW,
+    Q_ROWS,
     WaveLevelFn,
     WaveTables,
     wave_level,
@@ -152,14 +171,93 @@ def level_fuzz(
     return torch.cat(([glossy] if tables.glossy else []) + area_rows).contiguous()
 
 
+# The fused path's queue-shrink schedules, the JAX package's
+# (render/integrator.py): (level, factor) pairs applied cumulatively.
+# AUTO: levels 0-1 at full width, 2-3 at 1/4, 4 and deeper at 1/8.
+# SPARSE, for low sample counts: 1/2 at level 2, 1/4 at 4, 1/8 at 6.
+WAVE_SHRINK_AUTO = ((2, 4), (4, 2))
+WAVE_SHRINK_SPARSE = ((2, 2), (4, 2), (6, 2))
+# A stage's width is a multiple of this many lanes (the JAX kernel's
+# block), so that the port's widths are the JAX package's.
+WAVE_BLOCK = 2048
+
+
+def shrink_schedule(shrink):
+    """The (level, factor) pairs of a `shrink` argument: "auto" is
+    WAVE_SHRINK_AUTO, () or None no shrink."""
+    if isinstance(shrink, str):
+        if shrink != "auto":
+            raise ValueError(f"shrink must be 'auto', () or (level, factor) pairs, not {shrink!r}")
+        return WAVE_SHRINK_AUTO
+    return tuple(shrink or ())
+
+
+def shrink_plan(r: int, levels: int, shrink):
+    """(bounds, widths) of the stages of a fused trace of r rays: stage s
+    runs levels bounds[s] .. bounds[s + 1] - 1 at widths[s] lanes (stage 0
+    at the full width, for which widths[0] is r rounded up to WAVE_BLOCK).
+    A pair that cannot narrow the WAVE_BLOCK-rounded width, or lies outside
+    levels 1 .. levels - 1, is left out (the JAX package's plan)."""
+    sched = sorted((lv, f) for lv, f in shrink_schedule(shrink) if 0 < lv < levels and f > 1)
+    bounds = [0]
+    widths = [-(-r // WAVE_BLOCK) * WAVE_BLOCK]
+    for lv, f in sched:
+        w = max(WAVE_BLOCK, -(-(widths[-1] // f) // WAVE_BLOCK) * WAVE_BLOCK)
+        if w < widths[-1] and lv > bounds[-1]:
+            bounds.append(lv)
+            widths.append(w)
+    bounds.append(levels)
+    return bounds, widths
+
+
+class Levels(list):
+    """The level outputs of a fused trace (`return_levels`), each at the
+    width it ran.  dest[lv]: None for a full-width level; for a shrunk
+    one, an int64 tensor of its width holding each lane's slot in the
+    full-width queue (-1 for a lane that carries no ray)."""
+
+    def __init__(self, outs=(), dest=()):
+        super().__init__(outs)
+        self.dest = list(dest)
+
+
+def _shrink(prev, capacity: int, dest):
+    """Compact the live lanes of `prev` (a level's output) into a queue of
+    `capacity` lanes, per lane in slot order.  On overflow the `capacity`
+    brightest by throughput (ties by slot) are kept, still in slot order.
+    Returns (queue (9, capacity), kept slots' dest, dropped count); one
+    host read."""
+    live = prev[7] > 0
+    idx = torch.nonzero(live).squeeze(1)
+    dropped = max(0, idx.numel() - capacity)
+    if dropped:
+        key = torch.where(live, -prev[8].detach(), torch.inf)
+        idx = torch.sort(torch.sort(key, stable=True).indices[:capacity]).values
+    q = prev[:Q_ROWS].index_select(1, idx)
+    pad = torch.zeros((Q_ROWS, capacity - idx.numel()), dtype=q.dtype, device=q.device)
+    return torch.cat([q, pad], dim=1), (idx if dest is None else dest[idx]), dropped
+
+
+def _gather_draws(x, dest, width: int, dim: int):
+    """The full-width draws `x` of the lanes `dest`, along `dim`, padded
+    with zeros to `width`."""
+    if x is None or dest is None:
+        return x
+    g = x.index_select(dim, dest)
+    shape = list(g.shape)
+    shape[dim] = width - dest.numel()
+    return torch.cat([g, g.new_zeros(shape)], dim=dim)
+
+
 def _trace_wave(
     tables: WaveTables, o, d, times, generator, fuzz, light_jitter, min_tp,
     return_stats, levels, level_fn, return_levels, return_dropped,
-    differentiable=False,
+    differentiable=False, shrink=(),
 ):
-    """Fused-level path, in-slot, full width on every level.  differentiable:
-    every level is a `WaveLevelFn` (record mode), the radiance is summed out
-    of place, and the bootstrap queue keeps its graph."""
+    """Fused-level path, in-slot, shrunk at the levels of `shrink` (module
+    docstring).  differentiable: every level is a `WaveLevelFn` (record
+    mode), the radiance is summed out of place (the gathers and the adds by
+    dest keep the graph), and the bootstrap queue keeps its graph."""
     r = o.shape[0]
     dev = o.device
     prev = torch.cat(
@@ -170,20 +268,36 @@ def _trace_wave(
         dim=0,
     ).contiguous()
     accum = torch.zeros((3, r), dtype=torch.float32, device=dev)
+    bounds, widths = shrink_plan(r, levels, shrink)
+    stage_of = {lv: w for lv, w in zip(bounds[1:-1], widths[1:])}
+    dest = None        # kept lanes' full-width slots (None at full width)
     stat_rows = []
-    outs = []
+    drops = [0] * levels
+    outs = Levels()
     for depth in range(levels):
+        if depth in stage_of:
+            prev, dest, drops[depth] = _shrink(prev, stage_of[depth], dest)
+        width = prev.shape[1]
+        kept = None if dest is None else dest.numel()
+        jitter = None
+        if light_jitter is not None:
+            jitter = [_gather_draws(j, dest, width, 0) for j in light_jitter[depth]]
         fz = level_fuzz(
-            tables, generator, r, dev,
-            glossy=None if fuzz is None else fuzz[depth],
-            jitter=None if light_jitter is None else light_jitter[depth],
+            tables, generator, width, dev,
+            glossy=None if fuzz is None else _gather_draws(fuzz[depth], dest, width, 1),
+            jitter=jitter,
         )
         if differentiable:
             out = WaveLevelFn.apply(prev, fz, tables.table, tables.lights, tables, min_tp)
-            accum = accum + out[C_BASE : C_BASE + 3]
+            contrib = out[C_BASE : C_BASE + 3]
+            accum = (accum + contrib if dest is None
+                     else accum.index_add(1, dest, contrib[:, :kept]))
         else:
             out = level_fn(prev, fz, tables, min_tp)
-            accum += out[C_BASE : C_BASE + 3]
+            if dest is None:
+                accum += out[C_BASE : C_BASE + 3]
+            else:
+                accum.index_add_(1, dest, out[C_BASE : C_BASE + 3, :kept])
         if return_stats:
             stat_rows.append(
                 torch.stack(
@@ -196,15 +310,16 @@ def _trace_wave(
             )
         if return_levels:
             outs.append(out)
+            outs.dest.append(None if dest is None else torch.cat(
+                [dest, dest.new_full((width - kept,), -1)]))
         prev = out
     stats = None
+    drop_t = torch.tensor(drops, dtype=torch.int32, device=dev)
     if return_stats:
         st = torch.stack(stat_rows, dim=1).to(torch.int32)  # (3, L)
-        stats = TraceStats(st[0], st[1], st[2], torch.zeros_like(st[0]))
-    # The in-slot queue drops nothing.
-    dropped = torch.zeros((), dtype=torch.int32, device=dev)
+        stats = TraceStats(st[0], st[1], st[2], drop_t)
     return _pack_result(
-        accum.T.contiguous(), stats, dropped, outs, return_stats,
+        accum.T.contiguous(), stats, drop_t.sum(dtype=torch.int32), outs, return_stats,
         return_dropped, return_levels,
     )
 
@@ -468,13 +583,15 @@ def trace_wavefront(
     tables: Optional[WaveTables] = None,
     level_fn=wave_level,
     return_levels: bool = False,
+    shrink="auto",
 ):
     """Trace R primary rays to completion.  Returns (R, 3) radiance; with
     return_stats also a TraceStats of per-level live/hit/spawn/drop
     counters; with return_dropped (and no stats) also the count of dropped
     continuations as a 0-d tensor; with return_levels (fused path only)
-    also the list of every level's (13, R) output (with the record rows
-    when differentiable).
+    also a `Levels` list of every level's (13, width) output (with the
+    record rows when differentiable), each at the width it ran, and its
+    `dest` (the lanes' full-width slots on a shrunk level).
 
     device: None = "cuda" (raises without a card); "cpu" runs the plain
     versions on the host.  The scene and the rays are moved there.
@@ -507,6 +624,14 @@ def trace_wavefront(
     min_throughput: kill continuation rays whose path throughput falls at
     or below this value.  0.0 (default) = the reference's exact semantics.
 
+    shrink: the fused path's queue-shrink schedule (module docstring):
+    "auto" (default) is WAVE_SHRINK_AUTO, () turns it off, or explicit
+    ((level, factor), ...) pairs.  With nothing dropped the radiance is the
+    unshrunk one bit for bit (draws given as tensors; from a generator the
+    shrunk levels draw at their width); a live lane past a stage's width is
+    dropped dimmest first and counted in TraceStats.dropped.  The general
+    path does not shrink.
+
     max_depth: recursion depth cutoff; None = the reference's
     MAX_RECURSION_DEPTH (10 -> 11 levels, Code/raytracer.hpp:11).
 
@@ -535,6 +660,7 @@ def trace_wavefront(
         max_depth = C.MAX_RECURSION_DEPTH
     if compact not in ("auto", "never", "always"):
         raise ValueError(f"compact must be auto, never or always, not {compact!r}")
+    shrink = shrink_schedule(shrink)
 
     if scene.n_geoms == 0:
         # Nothing can be hit: every ray takes the background path.
@@ -575,7 +701,7 @@ def trace_wavefront(
         return _trace_wave(
             tables, origins, directions, times, generator, fuzz, light_jitter,
             min_throughput, return_stats, levels, level_fn, return_levels,
-            return_dropped, differentiable,
+            return_dropped, differentiable, shrink,
         )
 
     if return_levels:

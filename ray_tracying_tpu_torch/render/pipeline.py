@@ -12,6 +12,7 @@ tensor on the device; one copy brings the finished image to the host.
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Optional
 
@@ -23,7 +24,7 @@ from ray_tracying_tpu_torch.core import constants as C
 from ray_tracying_tpu_torch.kernels import closest_hit as _CH
 from ray_tracying_tpu_torch.kernels.wavefront import wave_refusal, wave_tables
 from ray_tracying_tpu_torch.render.camera import pixel_rays
-from ray_tracying_tpu_torch.render.integrator import trace_wavefront
+from ray_tracying_tpu_torch.render.integrator import WAVE_SHRINK_SPARSE, trace_wavefront
 from ray_tracying_tpu_torch.scene.types import Camera, Scene
 
 
@@ -42,8 +43,9 @@ class RenderOptions:
     # Kill continuation rays at throughput <= this.  0.0 = exact reference
     # semantics; positive values trade bounded uint8 error for speed.
     min_throughput: float = 0.0
-    # Collect per-level TraceStats summed over tiles (one host read per
-    # tile): render_image then returns (image, stats dict).
+    # Collect per-level TraceStats summed over tiles and each tile's wall
+    # seconds (render_with_stats; one synchronization a tile): render_image
+    # then returns (image, stats dict).
     stats: bool = False
 
 
@@ -108,6 +110,19 @@ def tile_rays(
     return o, d, times
 
 
+def tile_shrink(n_lanes: int, spp: int):
+    """The fused path's queue-shrink schedule for a tile of n_lanes rays at
+    spp samples a pixel, chosen as the JAX package's pipeline chooses it:
+    none under 2^20 lanes (the dead levels being saved cost milliseconds,
+    and the narrow stages would leave scattered live lanes little room),
+    "auto" (WAVE_SHRINK_AUTO) at >= 8 samples a pixel, where each pixel's
+    samples keep their liveness together, and the later, wider
+    WAVE_SHRINK_SPARSE at fewer samples."""
+    if n_lanes < (1 << 20):
+        return ()
+    return "auto" if spp >= 8 else WAVE_SHRINK_SPARSE
+
+
 def _render_tile(
     scene: Scene, y0: int, rows: int, width: int, opts: RenderOptions,
     generator: torch.Generator, tables=None, differentiable: bool = False,
@@ -126,7 +141,7 @@ def _render_tile(
         generator=generator, use_bvh=opts.use_bvh,
         min_throughput=opts.min_throughput, return_stats=opts.stats,
         return_dropped=not opts.stats, device=scene.device, tables=tables,
-        differentiable=differentiable,
+        differentiable=differentiable, shrink=tile_shrink(rows * width * spp, spp),
     )
     return colors.reshape(rows, width, spp, 3).mean(dim=2), aux
 
@@ -135,7 +150,8 @@ def _render_tiles(scene, opts, generator, device, post=None, out_dtype=torch.flo
     """Shared tile loop.  post: optional device-side postprocess applied
     per tile (e.g. uint8 quantization, so that only bytes cross to the
     host).  Returns the image as numpy, or (image, stats dict) when
-    opts.stats."""
+    opts.stats: per-level counts summed over tiles, and each tile's wall
+    seconds (the stats mode synchronizes after each tile)."""
     dev = torch.device("cuda" if device is None else device)
     # Acceleration structures are built on the host, once per frame.  A
     # scene whose table does not fit a block's shared memory always gets
@@ -161,28 +177,38 @@ def _render_tiles(scene, opts, generator, device, post=None, out_dtype=torch.flo
     image = torch.zeros((height, width, 3), dtype=out_dtype, device=dev)
     level_acc = None
     drop_counts = []
+    tile_times = []
     for y0 in range(0, height, rows):
         take = min(rows, height - y0)
+        t_start = time.time()
         tile, aux = _render_tile(
             scene, y0, take, width, opts, generator, tables
         )
         image[y0 : y0 + take] = tile if post is None else post(tile)
         if opts.stats:
             rowsum = torch.stack(list(aux)).cpu().numpy().astype(np.int64)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            tile_times.append({"tile": len(tile_times), "rows": take,
+                               "rays": take * width * spp,
+                               "seconds": time.time() - t_start})
             level_acc = rowsum if level_acc is None else level_acc + rowsum
         else:
             drop_counts.append(aux)
     out = image.cpu().numpy()  # the one device -> host copy
     if not opts.stats:
         # The reference never drops rays (Code/raytracer.cpp:280-351): a
-        # continuation lost to compaction overflow is surfaced, never
-        # silent.  The counts are read after every tile is enqueued.
+        # continuation lost to queue-shrink or compaction overflow is
+        # surfaced, never silent.  The counts are read after every tile is
+        # enqueued.
         dropped = int(torch.stack(drop_counts).sum()) if drop_counts else 0
         if dropped:
             warnings.warn(
                 f"render dropped {dropped} live continuation rays to "
-                "compacted-queue overflow; render with RenderOptions("
-                "stats=True) for per-level counts, or raise queue_mult",
+                "queue-shrink or compacted-queue overflow (dimmest paths "
+                "first); use render_with_stats for per-level counts, "
+                "trace_wavefront(shrink=()) for lossless tracing, or raise "
+                "queue_mult",
                 RuntimeWarning,
                 stacklevel=3,
             )
@@ -197,7 +223,8 @@ def _render_tiles(scene, opts, generator, device, post=None, out_dtype=torch.flo
         }
         for i in range(level_acc.shape[1])
     ]
-    return out, {"levels": levels, "total_dropped": int(level_acc[3].sum())}
+    return out, {"levels": levels, "tiles": tile_times,
+                 "total_dropped": int(level_acc[3].sum())}
 
 
 def render_image(
@@ -215,6 +242,24 @@ def render_image(
     return _render_tiles(scene, opts or RenderOptions(), generator, device)
 
 
+def render_with_stats(
+    scene: Scene,
+    opts: Optional[RenderOptions] = None,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+):
+    """Render with per-level instrumentation -> (linear (H, W, 3) image,
+    stats dict).
+
+    stats["levels"]: per bounce level, live/hit/spawned/dropped ray counts
+    summed over tiles; stats["total_dropped"] counts continuations lost to
+    queue-shrink or compacted-queue overflow; stats["tiles"]: each tile's
+    index, rows, rays and wall seconds (around a synchronization of the
+    device)."""
+    opts = dataclasses.replace(opts or RenderOptions(), stats=True)
+    return _render_tiles(scene, opts, generator, device)
+
+
 def linear_to_srgb_u8(linear: torch.Tensor) -> torch.Tensor:
     """Gamma 1.1 + clamp + *255.999 quantize (Code/raytracer.cpp:446-457)."""
     corr = torch.pow(torch.clamp(linear, min=0.0), 1.0 / C.GAMMA)
@@ -229,7 +274,8 @@ def render_to_srgb_u8(
 ) -> np.ndarray:
     """Render and quantize to the reference's output encoding, (H, W, 3)
     uint8.  Quantization runs on the device, so only bytes cross to the
-    host."""
+    host.  With opts.stats, returns (image, stats dict) as
+    render_with_stats does, the image the same bytes."""
     return _render_tiles(
         scene, opts or RenderOptions(), generator, device,
         post=linear_to_srgb_u8, out_dtype=torch.uint8,

@@ -237,7 +237,7 @@ def test_feature_trace_matches_jax_fused_path(jax_refs, name):
         st, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm), nss,
         fuzz=fuzz if st.has_glossy else None,
         light_jitter=jitter if any(st.lights.is_area) else None,
-        return_stats=True, return_levels=True, device="cpu",
+        return_stats=True, return_levels=True, device="cpu", shrink=(),
     )
     assert len(levels) == n_levels
     counts = torch.stack([stats.live, stats.hits, stats.spawned]).numpy()

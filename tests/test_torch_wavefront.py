@@ -306,7 +306,7 @@ def test_trace_matches_jax_fused_path(name):
     fuzz = [torch.from_numpy(f[:, :n].copy()) for f in jax_level_fuzz(key, 11, BLOCK)]
     got, stats, levels = trace_wavefront(
         st, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm), 1,
-        fuzz=fuzz, return_stats=True, return_levels=True, device="cpu",
+        fuzz=fuzz, return_stats=True, return_levels=True, device="cpu", shrink=(),
     )
     assert len(levels) == 11 and levels[0].shape == (13, n)
     np.testing.assert_array_equal(stats.live.numpy(), np.asarray(st_ref.live))
