@@ -44,7 +44,11 @@ each level's launch at its width against full width, the compactions, the
 frame both ways in turns); phase cli runs `python -m
 ray_tracying_tpu_torch.cli` in a subprocess (its PPM the API's bytes), and
 phase native times the host LBVH build and PPM writer against their plain
-versions.  It prints one JSON line per phase, each with the script's
+versions.  Phase sharded drives parallel/ and entry.py: a flagship tile traced
+sharded over NCCL at world size 1 and over two gloo ranks sharing the card
+(spawned processes), each torch.equal to the unsharded trace, the sharded
+record-mode step's all-reduced gradients against one process, entry() and
+dryrun_multichip(1).  It prints one JSON line per phase, each with the script's
 seconds so far (t_s).  Any failure exits non-zero; nothing is caught.
 
     python3 chip_smoke.py
@@ -2351,6 +2355,309 @@ def fused_widened_phase(rt, W, CH, dev, n_levels):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase sharded: multi-device rendering (parallel/) and the entry
+# points (entry.py).  The script needs one card: NCCL runs at world size 1,
+# and two ranks share the card over gloo (NCCL refuses two ranks on one
+# device).
+# ---------------------------------------------------------------------------
+SHARDED_SEED = 5        # the main path's per-level tile (main(): seed 5)
+SHARDED_STEP_SEED = 22  # the step's rays and draws
+SHARDED_TARGET = 0.3
+SHARDED_TIMEOUT_S = 300
+SHARDED_TILE_SQRT = 4   # the main path's tile: 8,386,560 lanes at 4x4 spp
+SHARDED_REPS = 3
+# The all-reduced gradient against one process, per leaf:
+# |g - g_one| <= rtol * |g_one| + atol * max|g_one| (tests/test_torch_parallel.py's bar)
+SHARDED_GRAD_RTOL = 1e-5
+SHARDED_GRAD_ATOL = 1e-5
+# The card's dryrun step against the host's (tests/test_torch_parallel.py's
+# Adam-against-optax bar)
+DRYRUN_RTOL = 1e-4
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sharded_tile(scene, y0, rows, samples_sqrt, seed, n_levels, dev):
+    """A full-width flagship tile from image row y0 and its glossy fuzz for
+    every level, from one seed: the same bits in every process on one
+    card."""
+    from ray_tracying_tpu_torch.core.sampling import uniform_in_unit_sphere
+    from ray_tracying_tpu_torch.render.pipeline import tile_rays
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    o, d, tm = tile_rays(scene.camera, y0, rows, scene.camera.resolution[0], samples_sqrt,
+                         generator=gen)
+    fuzz = [uniform_in_unit_sphere(gen, (o.shape[0],), device=dev).T.contiguous()
+            for _ in range(n_levels)]
+    return o, d, tm, fuzz
+
+
+def diff_step(scene, rows, n_levels, trace, dev):
+    """Forward and backward of the frame's middle `rows` rows (the whole
+    frame at its height) at 1 spp with respect to DIFF_PATHS: the rays are made from theta's camera and traced
+    by trace(scene, o, d, tm, fuzz), which returns the radiance of the
+    lanes it owns, and the loss is sum((c - 0.3)^2) / (pixels * 3) over
+    them.  Returns (theta with its grads, the loss)."""
+    from ray_tracying_tpu_torch.core.sampling import uniform_in_unit_sphere
+    from ray_tracying_tpu_torch.diff import params as P
+    from ray_tracying_tpu_torch.render.pipeline import tile_rays
+
+    width, height = scene.camera.resolution
+    theta = P.extract(scene, DIFF_PATHS)
+    sc = P.apply(scene, theta)
+    gen = torch.Generator(device=dev).manual_seed(SHARDED_STEP_SEED)
+    o, d, tm = tile_rays(sc.camera, (height - rows) // 2, rows, width, 1, generator=gen)
+    fuzz = [uniform_in_unit_sphere(gen, (o.shape[0],), device=dev).T.contiguous()
+            for _ in range(n_levels)]
+    c = trace(sc, o, d, tm, fuzz)
+    loss = torch.sum((c - SHARDED_TARGET) ** 2) / (rows * width * 3)
+    loss.backward()
+    return theta, loss.detach()
+
+
+def sharded_rank(rank, world_size, init_method, dev_type, tile_rows, step_rows, n_levels,
+                 out_path):
+    """One of phase sharded's two gloo ranks on the one card, in a spawned
+    process: (b) its half of the flagship tile through the kernel, the
+    radiance gathered (rank 0 saves it to out_path); (c) the sharded
+    record-mode step twice (the first loads the backward's modules), its
+    gradients all-reduced after a barrier (so that all_reduce_ms is the
+    collective's, not the wait for the other rank; seconds includes it).  The counts are set to 0 just before each and
+    read just after.  Returns counts, times, peak memory and the second
+    step's gradients."""
+    import ray_tracying_tpu_torch as rt
+    import torch.distributed as dist
+
+    from ray_tracying_tpu_torch.kernels import wavefront as W
+    from ray_tracying_tpu_torch.parallel import cluster
+    from ray_tracying_tpu_torch.parallel.sharding import (
+        all_reduce_grads,
+        make_mesh,
+        trace_wavefront_sharded,
+    )
+
+    cluster.initialize(init_method, world_size, rank, backend="gloo", device=dev_type,
+                       retries=3, backoff_s=0.5)
+    dev = torch.device(dev_type)
+    mesh = make_mesh()
+    scene = rt.load_scene(os.path.join(REPO, "golden", "ASCII", "scene.json"), device=dev)
+    o, d, tm, fuzz = sharded_tile(scene, tile_rows, tile_rows, SHARDED_TILE_SQRT,
+                                  SHARDED_SEED, n_levels, dev)
+    W.wave_level.launches = 0
+    _sync(dev)
+    t0 = time.time()
+    rad = trace_wavefront_sharded(scene, o, d, tm, 1, mesh, fuzz=fuzz, device=dev)
+    _sync(dev)
+    out = dict(rank=rank, lanes=o.shape[0] // world_size, tile_seconds=time.time() - t0,
+               tile_launches=W.wave_level.launches)
+    if rank == 0:
+        torch.save(rad.cpu(), out_path)
+    del o, d, tm, fuzz, rad
+
+    def trace(sc, o_, d_, tm_, fz):
+        return trace_wavefront_sharded(sc, o_, d_, tm_, 1, mesh, fuzz=fz, device=dev,
+                                       differentiable=True, gather=False)
+
+    steps = []
+    for _ in range(2):
+        W.wave_level.record_launches = 0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        _sync(dev)
+        t0 = time.time()
+        theta, share = diff_step(scene, step_rows, n_levels, trace, dev)
+        _sync(dev)
+        t1 = time.time()
+        dist.barrier()
+        t_reduce = time.time()
+        all_reduce_grads(theta, mesh)
+        _sync(dev)
+        t2 = time.time()
+        steps.append(dict(
+            seconds=t2 - t0, forward_backward_seconds=t1 - t0,
+            all_reduce_ms=(t2 - t_reduce) * 1e3,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+            record_launches=W.wave_level.record_launches, loss_share=float(share)))
+    out.update(steps=steps, grads={k: v.grad.cpu().numpy() for k, v in theta.items()})
+    return out
+
+
+def sharded_phase(rt, W, dev, scene, tile_rows, n_levels):
+    """Phase sharded (parallel/ and entry.py), on the main path's second
+    full-width flagship tile (tile_rows rows at 4x4 spp) with its fuzz fed
+    in: (a) NCCL at world size 1 in this process: the sharded trace
+    torch.equal to the unsharded one, 11 wave_level launches, both timed in
+    turns; (b) two gloo ranks on the one card in spawned processes, each
+    tracing half the tile through the kernel: the gathered radiance
+    torch.equal to the unsharded trace, each rank's launches; (c) the
+    sharded record-mode step at diff_path's configuration (the frame at 1
+    spp) over the same two ranks: its all-reduced gradients within
+    SHARDED_GRAD_RTOL / _ATOL of this process's one-process gradients, leaf
+    by leaf, each rank's step seconds, all-reduce ms and peak memory; (d)
+    entry(), and dryrun_multichip(1) over NCCL held to the same step over a
+    gloo rank on the host at DRYRUN_RTOL.  Returns the summary for the
+    kernels line."""
+    import shutil
+    import tempfile
+
+    from ray_tracying_tpu_torch import entry as E
+    from ray_tracying_tpu_torch.parallel import cluster
+    from ray_tracying_tpu_torch.parallel.sharding import make_mesh, trace_wavefront_sharded
+    from ray_tracying_tpu_torch.render.integrator import trace_wavefront
+
+    step_rows = scene.camera.resolution[1]  # the whole frame at 1 spp
+    smi = smi_line() if dev.type == "cuda" else None
+    o, d, tm, fuzz = sharded_tile(scene, tile_rows, tile_rows, SHARDED_TILE_SQRT,
+                                  SHARDED_SEED, n_levels, dev)
+    n = o.shape[0]
+    ref = trace_wavefront(scene, o, d, tm, fuzz=fuzz, device=dev)
+
+    # (a) NCCL at world size 1, the counts set to 0 just before
+    backend = cluster.initialize(f"tcp://127.0.0.1:{cluster.free_port()}", 1, 0, device=dev)
+    try:
+        mesh = make_mesh()
+        W.wave_level.launches = 0
+        got = trace_wavefront_sharded(scene, o, d, tm, 1, mesh, fuzz=fuzz, device=dev)
+        _sync(dev)
+        launches_a = W.wave_level.launches
+        equal_a = torch.equal(got, ref)
+        del got
+        turns = {}
+        for turn in ("unsharded", "sharded", "sharded_again", "unsharded_again"):
+            if turn.startswith("unsharded"):
+                turns[f"{turn}_ms"] = cuda_ms(
+                    lambda: trace_wavefront(scene, o, d, tm, fuzz=fuzz, device=dev), SHARDED_REPS)
+            else:
+                turns[f"{turn}_ms"] = cuda_ms(lambda: trace_wavefront_sharded(
+                    scene, o, d, tm, 1, mesh, fuzz=fuzz, device=dev), SHARDED_REPS)
+    finally:
+        cluster.destroy()
+    say("sharded", case="(a) world size 1, one full-width flagship tile, fuzz fed",
+        backend=backend, lanes=n, torch_equal=equal_a, wave_level_launches=launches_a,
+        **turns, nvidia_smi=smi)
+    if not equal_a:
+        fail("the sharded trace at world size 1 is not torch.equal to the unsharded trace")
+    if launches_a != n_levels:
+        fail(f"the sharded trace launched wave_level {launches_a} times, not {n_levels}")
+    del o, d, tm, fuzz
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) and (c): two gloo ranks on the one card
+    tmp = tempfile.mkdtemp(prefix="rtt_sharded_")
+    try:
+        path = os.path.join(tmp, "radiance.pt")
+        t0 = time.time()
+        ranks = cluster.launch(sharded_rank, 2,
+                               (dev.type, tile_rows, step_rows, n_levels, path),
+                               timeout_s=SHARDED_TIMEOUT_S)
+        ranks_s = time.time() - t0
+        gathered = torch.load(path).to(dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    equal_b = torch.equal(gathered, ref)
+    launches_b = [r["tile_launches"] for r in ranks]
+    say("sharded", case="(b) two gloo ranks on one card, half the tile each", lanes=n,
+        lanes_per_rank=[r["lanes"] for r in ranks], torch_equal=equal_b,
+        wave_level_launches_per_rank=launches_b,
+        rank_tile_seconds=[r["tile_seconds"] for r in ranks],
+        launch_seconds_both_phases=ranks_s, nvidia_smi=smi)
+    del gathered, ref
+    if not equal_b:
+        fail("the two ranks' gathered radiance is not torch.equal to the unsharded trace")
+    if launches_b != [n_levels] * 2:
+        fail(f"the two ranks launched wave_level {launches_b} times, not {n_levels} each")
+
+    # (c) this process's one-process gradient of the same step, twice as
+    # the ranks ran it (the second is timed against theirs)
+    one_s = []
+    for _ in range(2):
+        W.wave_level.record_launches = 0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        _sync(dev)
+        t0 = time.time()
+        theta, loss = diff_step(
+            scene, step_rows, n_levels,
+            lambda sc, o_, d_, tm_, fz: trace_wavefront(sc, o_, d_, tm_, 1, fuzz=fz,
+                                                        device=dev, differentiable=True), dev)
+        _sync(dev)
+        one_s.append(time.time() - t0)
+    agree = {}
+    for k in DIFF_PATHS:
+        ref_g = theta[k].grad
+        a, b = (r["grads"][k] for r in ranks)
+        g = torch.from_numpy(a).to(dev)
+        tol = (SHARDED_GRAD_RTOL * ref_g.abs()
+               + SHARDED_GRAD_ATOL * float(ref_g.abs().max()))
+        ratio = float(((g - ref_g).abs() / tol).max()) if bool((tol > 0).all()) else None
+        agree[k] = dict(ok=bool(((g - ref_g).abs() <= tol).all()),
+                        nonzero=bool((ref_g != 0).any()),
+                        ranks_equal=a.tobytes() == b.tobytes(),
+                        max_abs_diff=float((g - ref_g).abs().max()),
+                        max_abs=float(ref_g.abs().max()), max_diff_over_limit=ratio)
+    rays = step_rows * scene.camera.resolution[0]
+    say("sharded", case="(c) record-mode step, the frame at 1 spp over two gloo ranks",
+        primary_rays=rays, rank_steps=[r["steps"] for r in ranks],
+        one_process_seconds_first_second=one_s,
+        one_process_peak_memory_bytes=(torch.cuda.max_memory_allocated(dev)
+                                       if dev.type == "cuda" else None),
+        one_process_record_launches=W.wave_level.record_launches,
+        loss=float(loss), loss_sum_of_shares=sum(r["steps"][1]["loss_share"] for r in ranks),
+        rtol=SHARDED_GRAD_RTOL, atol=f"{SHARDED_GRAD_ATOL} * max|g| of the leaf", agree=agree,
+        nvidia_smi=smi)
+    if not all(v["ok"] and v["ranks_equal"] and v["nonzero"] for v in agree.values()):
+        fail("the all-reduced gradients of the sharded step disagree with one process")
+    if not all(s["record_launches"] for r in ranks for s in r["steps"]):
+        fail("a rank's sharded step launched no record-mode level")
+
+    # (d) the entry points, the counts set to 0 just before entry()
+    W.wave_level.launches = 0
+    fn, args = E.entry(device=dev)
+    out = fn(*args)
+    _sync(dev)
+    entry_launches = W.wave_level.launches
+    t0 = time.time()
+    dry_loss, dry_theta = E.dryrun_multichip(1, device=dev)
+    dry_s = time.time() - t0
+    host_loss, host_theta = E.dryrun_multichip(1, device="cpu")
+    dry_ok = bool(np.isfinite(dry_loss)) and all(np.isfinite(v).all() for v in dry_theta.values())
+    dry_rel = {k: float(np.max(np.abs(dry_theta[k] - host_theta[k])
+                               / np.maximum(np.abs(host_theta[k]), 1e-30)))
+               for k in host_theta}
+    dry_rel["loss"] = abs(dry_loss - host_loss) / abs(host_loss)
+    say("sharded", case="(d) entry() and dryrun_multichip(1)", entry_shape=list(out.shape),
+        entry_finite=bool(torch.isfinite(out).all()), entry_launches=entry_launches,
+        dryrun_loss=dry_loss, dryrun_loss_host=host_loss, dryrun_max_rel_diff_vs_host=dry_rel,
+        rtol=DRYRUN_RTOL, dryrun_seconds=dry_s,
+        dryrun_backend="nccl" if dev.type == "cuda" else "gloo", nvidia_smi=smi)
+    if tuple(out.shape) != (E.ENTRY_RAYS, 3) or not torch.isfinite(out).all():
+        fail("entry() did not give finite (4096, 3) radiance")
+    if entry_launches != n_levels:
+        fail(f"entry() launched wave_level {entry_launches} times, not {n_levels}")
+    if not dry_ok:
+        fail("dryrun_multichip(1) gave a loss or theta that is not finite")
+    if not all(v <= DRYRUN_RTOL for v in dry_rel.values()):
+        fail("dryrun_multichip(1) on the card disagrees with the same step on the host")
+    return dict(
+        launches_world_size_1=launches_a, launches_per_rank=launches_b,
+        record_launches_per_rank=[[s["record_launches"] for s in r["steps"]] for r in ranks],
+        entry_launches=entry_launches,
+        sharded_ms=(turns["sharded_ms"] + turns["sharded_again_ms"]) / 2,
+        unsharded_ms=(turns["unsharded_ms"] + turns["unsharded_again_ms"]) / 2,
+        step_seconds=[r["steps"][1]["seconds"] for r in ranks],
+        one_process_step_seconds=one_s[1],
+        all_reduce_ms=[r["steps"][1]["all_reduce_ms"] for r in ranks],
+    )
+
+
+
 def main():
     t_start = time.time()
     # ---- phase 1: device
@@ -2846,6 +3153,9 @@ def main():
     cli_phase(rt, dev)
     native_phase(rt, dev)
 
+    # ---- phase sharded: multi-device rendering and the entry points
+    sharded = sharded_phase(rt, W, dev, scene, tile_rows, n_levels)
+
     brute_entries = []
     for name, line, count in (
         ("brute_closest", 367, general_launches["brute_closest"]),
@@ -2942,6 +3252,7 @@ def main():
                                "bound_by") if k in r}
             for r in shrink_row["levels"] if r["width"] != n],
         "shrink_compaction_ms": shrink_row["compaction_ms"],
+        "sharded": sharded,
         "widened": {
             name: {k: row[k] for k in (
                 "level0_ms", "level0_plain_ms", "level0_bound_ms", "level0_bound_by",

@@ -1,4 +1,4 @@
-"""ray_tracying_tpu_torch — the PyTorch/CUDA port of ray_tracying_tpu.
+"""ray_tracying_tpu_torch — the PyTorch/CUDA port of ray_tracying_tpu (the JAX package).
 
 A Whitted ray tracer with the capabilities of the reference C++ renderer
 (EricZhang12138/Ray_Tracying), loaded from the same scene.json schema.
@@ -24,6 +24,9 @@ Layout (the same names as the JAX package):
   - ops/     : the stable op-level API the renderer is built from
   - io/      : PPM P3 codec (byte-compatible with the reference)
   - models/  : the named demo scenes and the procedural large ones
+  - parallel/: multi-device rendering on torch.distributed: rays sharded over
+               the ranks, the scene replicated, gradients all-reduced
+  - entry.py : the entry points entry() and dryrun_multichip(n)
 
 Entry points run on the card: `device=None` means "cuda" and raises
 without one; pass `device="cpu"` to run the plain versions on the host.
