@@ -10,12 +10,16 @@ their own scenes (the two-way queue; area lights in cornell's general frame),
 and the acceleration
 path: a 20,001-geom procedural scene whose table does not fit a block's
 shared memory (chunk kernels) and a 2,049-geom one rendered with and
-without `use_bvh` (BVH traversal), both at 1920x1080.  It builds the CUDA
+without `use_bvh` (BVH traversal) and down the fused level's wide build (the
+routing of a table over what a block stages, up to 6,144 geoms), all at
+1920x1080.  It builds the CUDA
 kernels from the sources of this checkout, holds each kernel against its
 plain PyTorch version on the card (the fused level bit for bit on every
 level of a full-width flagship tile), measures the fused level's kernel
 against the one-thread-per-lane schedule of the same stages in turns
 (phase wave_redesign_ab: per level, and one flagship frame each, byte-equal),
+its staged build against its wide one on the flagship's table (phase
+wave_build_ab: per level, bit-equal),
 the warp schedule of the three chunk kernels against the one-thread-per-lane
 sweep it replaced (phase sweep_redesign_ab: level-0, level-1 and shadow rays
 of the 20,001-geom scene, plain and textured, bit-equal) and the shadow
@@ -30,9 +34,11 @@ checks twelve images against the reference renderer's goldens, each down
 the path the routing must take.  Phase fused_widened drives the fused
 level's specialisations at 1920x1080 (cornell: legacy planes, one-way glass,
 an area light at 4 samples; the motion demo; a textured 1,501-geom
-sphere_field: spherical UV): the kernel against its plain version on every
-level of a full-width tile, level 0 against its bound, and one frame down
-each path.  The
+sphere_field: spherical UV; the wide build on cube_city's 2,049 geoms and a
+textured 3,001-geom sphere_field): the kernel against its plain version on
+every level of a full-width tile (the wide tables on one live lane in 64),
+level 0 against its bound, and one frame down each path; phase wide_edge
+runs levels 0 and 1 of a 6,144-geom table, the gate's edge.  The
 differentiable path (diff/): the level kernel in record mode on every level
 of a full-width flagship tile (rows 0..12 equal to the inference launch, the
 record rows to the plain version; phase diff_record), fused against general
@@ -58,7 +64,10 @@ and prints no result.  The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
+import ctypes
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -364,31 +373,6 @@ def all_kinds_scene(rt):
     })
 
 
-def general_frame(rt, scene, opts, tile_rows, gen):
-    """The flagship frame down the general path: the pipeline's own tile
-    loop with `trace_wavefront(..., fused=False)` in place of the routing.
-    Returns ((H, W, 3) uint8 image, dropped continuations)."""
-    from ray_tracying_tpu_torch.render.integrator import trace_wavefront
-    from ray_tracying_tpu_torch.render.pipeline import linear_to_srgb_u8, tile_rays
-
-    width, height = scene.camera.resolution
-    n = opts.samples_sqrt
-    image = torch.zeros((height, width, 3), dtype=torch.uint8, device=gen.device)
-    dropped = []
-    for y0 in range(0, height, tile_rows):
-        take = min(tile_rows, height - y0)
-        o, d, tm = tile_rays(scene.camera, y0, take, width, n, generator=gen)
-        rad, drop = trace_wavefront(
-            scene, o, d, tm, opts.light_samples, generator=gen, fused=False,
-            return_dropped=True, device=gen.device,
-        )
-        image[y0 : y0 + take] = linear_to_srgb_u8(
-            rad.reshape(take, width, n * n, 3).mean(dim=2)
-        )
-        dropped.append(drop)
-    return image.cpu().numpy(), int(torch.stack(dropped).sum())
-
-
 def accel_kernels(CH, CS, BT, scene):
     """The six kernels of the acceleration path on `scene` (which carries
     chunks and a BVH), each as (kernel call, plain call[, the kernel by the
@@ -597,6 +581,22 @@ def with_texture(scene, donor):
         scene, tex_atlas=donor.tex_atlas, tex_wh=donor.tex_wh, has_textures=True,
         materials=dataclasses.replace(scene.materials, tex_id=tex_id),
     )
+
+
+@contextlib.contextmanager
+def general_routing():
+    """The pipeline's tile loop with trace_wavefront(..., fused=False) in
+    place of its routing: render_to_srgb_u8 and render_image down the
+    general path for a scene the fused gate takes (the path a scene it
+    refuses takes)."""
+    from ray_tracying_tpu_torch.render import pipeline as PL
+
+    real = PL.trace_wavefront
+    PL.trace_wavefront = functools.partial(real, fused=False)
+    try:
+        yield
+    finally:
+        PL.trace_wavefront = real
 
 
 def accel_frame(rt, scene, opts, seed, dev):
@@ -1220,26 +1220,33 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
     acc["sphere_field_textured"] = dict(bare=with_texture(
         acc["sphere_field"]["bare"], models.get("texture", device=dev)))
     accel_launches = {}
-    frames = {}
-    for label, sname, use_bvh in (("sphere_field", "sphere_field", False),
-                                  ("sphere_field_textured", "sphere_field_textured", False),
-                                  ("cube_city_bvh", "cube_city", True),
-                                  ("cube_city_brute", "cube_city", False)):
+    frames, frame_seconds = {}, {}
+    # cube_city (2,049 geoms) takes the fused level's wide build by the
+    # pipeline's routing (cube_city_fused); cube_city_brute is the same
+    # frame down the general path, where the brute kernels run.
+    for label, sname, use_bvh, general in (
+            ("sphere_field", "sphere_field", False, False),
+            ("sphere_field_textured", "sphere_field_textured", False, False),
+            ("cube_city_bvh", "cube_city", True, False),
+            ("cube_city_brute", "cube_city", False, True),
+            ("cube_city_fused", "cube_city", False, False)):
         bare = acc[sname]["bare"]
         opts_l = rt.RenderOptions(samples_sqrt=2, use_bvh=use_bvh)
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        img_w, warm_s = accel_frame(rt, bare, opts_l, 5, dev)
-        img_t, timed_s = accel_frame(rt, bare, opts_l, 5, dev)
-        _, st = rt.render_image(
-            bare, rt.RenderOptions(samples_sqrt=1, use_bvh=use_bvh, stats=True), device=dev)
+        with general_routing() if general else contextlib.nullcontext():
+            img_w, warm_s = accel_frame(rt, bare, opts_l, 5, dev)
+            img_t, timed_s = accel_frame(rt, bare, opts_l, 5, dev)
+            _, st = rt.render_image(
+                bare, rt.RenderOptions(samples_sqrt=1, use_bvh=use_bvh, stats=True), device=dev)
         got = read_counts()
         for k, v in got.items():
             accel_launches[k] = accel_launches.get(k, 0) + v
         n_rays = res_w * res_h * 4
         frames[label] = img_t
-        say("accel_path", scene=sname, geoms=bare.n_geoms, use_bvh=use_bvh,
-            textured=bare.has_textures,
+        frame_seconds[label] = timed_s
+        say("accel_path", scene=sname, frame=label, geoms=bare.n_geoms, use_bvh=use_bvh,
+            path="general (forced)" if general else "routed", textured=bare.has_textures,
             width=res_w, height=res_h, spp=4, levels=n_levels, primary_rays=n_rays,
             warmup_seconds=warm_s, timed_seconds=timed_s,
             primary_rays_per_s=n_rays / timed_s, kernel_launches=got,
@@ -1255,8 +1262,10 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
             expect = dict(chunk_closest=per, chunk_occlusion=per * bare.n_lights)
         elif use_bvh:
             expect = dict(bvh_closest_n=per, occlusion_any=per * bare.n_lights)
-        else:
+        elif general:
             expect = dict(brute_closest_n=per, occlusion_any=per * bare.n_lights)
+        else:
+            expect = dict(wave_level=per)
         if got != expect:
             fail(f"{label} launched {got}, expected {expect}")
         if st["total_dropped"]:
@@ -1270,6 +1279,28 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
         values_that_differ=int((frames["cube_city_bvh"] != frames["cube_city_brute"]).sum()))
     if not city_equal:
         fail("cube_city with and without use_bvh differ")
+    # The fused frame against the general one, from one seed: the
+    # deterministic contract (<= 1 uint8 step, < 1 % of values off), and
+    # the level-0 winners of the frame's tile, the kernel's record row
+    # against the general path's closest hit.
+    city = acc["cube_city"]["bare"]
+    diff = np.abs(frames["cube_city_fused"].astype(int) - frames["cube_city_brute"].astype(int))
+    o, d, tm = tile_rays(city.camera, 0, res_h, res_w, 2,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+    boot = torch.cat([o.T, d.T, tm[None], torch.ones((2, o.shape[0]), device=dev)]).contiguous()
+    won = W.wave_level(boot, None, W.wave_tables(city), record=True)[W.OUT_ROWS]
+    hit = I.closest_hit(city, o, d, tm, torch.ones(o.shape[0], dtype=torch.bool, device=dev))
+    other = int((won != torch.where(hit.valid, hit.geom_id, -1).to(won.dtype)).sum())
+    fused_vs_general = dict(max_diff=int(diff.max()), off_share=float((diff > 0).mean()),
+                            level0_lanes=o.shape[0], level0_winners_other_than_general=other)
+    say("accel_path", scene="cube_city", fused_vs_general=fused_vs_general,
+        contract="deterministic")
+    del o, d, tm, boot, won, hit
+    if other > MAX_FLIP_SHARE * fused_vs_general["level0_lanes"]:
+        fail(f"cube_city: {other} level-0 winners of the fused frame differ from the general path's")
+    if not (fused_vs_general["max_diff"] <= 1 and fused_vs_general["off_share"] < 0.01):
+        fail("cube_city's fused frame is outside the deterministic contract against its "
+             "general frame")
     if np.array_equal(frames["sphere_field"], frames["sphere_field_textured"]):
         fail("the texture left the sphere_field frame as it was")
     # One frame of each large scene (the seed of the frames above) with each
@@ -1288,8 +1319,9 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
         opts_l = rt.RenderOptions(samples_sqrt=2, use_bvh=use_bvh)
         schedules = ("lane", "warp")
         for schedule in schedules:
-            img, breakdown[(label, schedule)] = accel_tile_breakdown(
-                rt, label, acc[sname]["bare"], opts_l, dev, schedule, timed_k)
+            with general_routing() if label == "cube_city_brute" else contextlib.nullcontext():
+                img, breakdown[(label, schedule)] = accel_tile_breakdown(
+                    rt, label, acc[sname]["bare"], opts_l, dev, schedule, timed_k)
             if not np.array_equal(img, frames[label]):
                 fail(f"the {label} frame with the {schedule} schedule differs")
         say("anyhit_redesign_ab" if "occlusion_any" in timed_k else "sweep_redesign_ab",
@@ -1459,22 +1491,29 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
 
     city_frames = {(label, sched): breakdown[(label, sched)]["kernel_ms"]
                    for label in ("cube_city_bvh", "cube_city_brute") for sched in ("warp", "lane")}
-    return accel_entries, city_anyhit, city_brute, city_frames
+    return accel_entries, city_anyhit, city_brute, city_frames, frame_seconds
 
 
 def wave_plan_phase(W, _build, tables, scene):
-    """Phase wave_plan: what ptxas reports for the level's kernel, the plan
-    it launches with on this card, and the largest table the gate takes."""
-    report = ptxas_report(_build, "wave_level_blocks_kernel")
+    """Phase wave_plan: what ptxas reports for the level kernel's two
+    builds (staged: wave_level_blocks_kernel<false>; wide, for a table over
+    what a block stages: <true>), the plan the flagship's table launches
+    with on this card (the staged build), and the largest table a block
+    stages and the gate takes."""
+    staged = ptxas_report(_build, "wave_level_blocks_kernelILb0E")
+    wide = ptxas_report(_build, "wave_level_blocks_kernelILb1E")
     plan = W.wave_plan(tables)
     n_cols, g = tables.table.shape
-    say("wave_plan", kernel="wave_level_blocks_kernel", ptxas=report, geoms=g,
-        n_cols=n_cols, lights=scene.n_lights, **plan,
+    say("wave_plan", kernel="wave_level_blocks_kernel", ptxas=staged, wide_ptxas=wide,
+        geoms=g, n_cols=n_cols, lights=scene.n_lights, **plan,
         cap_geoms=W.wave_cap_geoms(n_cols, scene.n_lights),
         cap_geoms_untextured=W.wave_cap_geoms(31, scene.n_lights),
-        cap_geoms_textured=W.wave_cap_geoms(32, scene.n_lights))
-    if _build.last_build["compiled"] and not report:
-        fail("ptxas reported nothing for wave_level_blocks_kernel")
+        cap_geoms_textured=W.wave_cap_geoms(32, scene.n_lights),
+        gate_max_geoms=W.WAVE_MAX_GEOMS)
+    if _build.last_build["compiled"] and not (staged and wide):
+        fail("ptxas reported nothing for a build of wave_level_blocks_kernel")
+    if plan["variant"] != "staged":
+        fail(f"the flagship's table takes the {plan['variant']} build")
     return plan
 
 
@@ -1537,6 +1576,62 @@ def wave_redesign_ab(rt, W, scene, tables, inputs, fuzz, opts, n_levels):
     return rows
 
 
+def wave_build_ab(W, _build, tables, inputs, fuzz, n_levels):
+    """Phase wave_build_ab: the level kernel's two builds on the flagship's
+    table (141 geoms, which a block stages), on the inputs of every level
+    of one full-width tile: the staged build, which wave_level launches for
+    it, against the wide build, launched here straight through the launcher
+    with the (G, 12) geom-major copy of the transforms (the package gives it
+    only a table over wave_cap_geoms; these launches are not counted).
+    Outputs torch.equal, ms of each by CUDA events in turns (staged, wide,
+    wide, staged), the wide build's plan.  Whether the staged build still
+    pays on a table it stages.  Returns the summary row."""
+    lib = _build.load()
+    n_cols, g = tables.table.shape
+    xf = tables.table[:12].T.contiguous()
+
+    def wide(prev, fz):
+        out = torch.empty((W.OUT_ROWS, prev.shape[1]), dtype=torch.float32, device=prev.device)
+        args = W._level_args(prev, fz, tables, 0.0, out)
+        stream = torch.cuda.current_stream().cuda_stream
+        ctr = W._coop.work_counters(prev.device, stream)
+        live = torch.empty(prev.shape[1], dtype=torch.int32, device=prev.device)
+        W._raise_on(lib, lib.wave_level_launch(*args, 0, xf.data_ptr(), ctr.data_ptr(),
+                                               live.data_ptr(), stream),
+                    "the wide build's launch")
+        return out
+
+    plan = (ctypes.c_int * 6)()
+    W._raise_on(lib, lib.wave_level_plan(g, n_cols, tables.n_lights, 1, plan), "wide plan")
+    rows = []
+    for lv in range(n_levels):
+        prev, fz = inputs[lv], fuzz[lv]
+        equal = bool(torch.equal(wide(prev, fz), W.wave_level(prev, fz, tables)))
+        t = {}
+        for turn, fn in (("staged", lambda: W.wave_level(prev, fz, tables)),
+                         ("wide", lambda: wide(prev, fz)), ("wide_again", lambda: wide(prev, fz)),
+                         ("staged_again", lambda: W.wave_level(prev, fz, tables))):
+            t[turn] = cuda_ms(fn, 5)
+        rows.append(dict(level=lv, live=int((prev[7] > 0).sum()),
+                         staged_ms=[t["staged"], t["staged_again"]],
+                         wide_ms=[t["wide"], t["wide_again"]], bitwise_equal=equal))
+        say("wave_build_ab", **rows[-1])
+        if not equal:
+            fail(f"the wide build differs from the staged one on the flagship's level {lv}")
+
+    def total(key, levels):
+        return sum(sum(r[key]) / 2 for r in rows if r["level"] in levels)
+
+    deep = range(1, n_levels)
+    summary = dict(geoms=g, lanes=inputs[0].shape[1],
+                   level0_staged_ms=total("staged_ms", [0]), level0_wide_ms=total("wide_ms", [0]),
+                   levels_1_10_staged_ms=total("staged_ms", deep),
+                   levels_1_10_wide_ms=total("wide_ms", deep),
+                   wide_smem_bytes=plan[2], wide_blocks_per_sm=plan[3], nvidia_smi=smi_line())
+    say("wave_build_ab", **summary)
+    return summary
+
+
 # The differentiable path (phase diff_path): the flagship at 1920x1080, its
 # six parameter paths (FWDBWD_r5.json's configuration), a 64-row strip for
 # fused-against-general gradients, and the tolerance of the CPU tests
@@ -1551,8 +1646,9 @@ def record_mode_phase(W, scene, tables, inputs, fuzz, n_levels, per_test, stride
     """Phase diff_record: the level kernel in record mode on the inputs of
     every level of one full-width flagship tile.  Rows 0..12 torch.equal to
     the inference launch on the same input, every row torch.equal to
-    wave_level_plain(record=True) on every `stride`-th lane (the plain
-    version is lane-wise, so a subset of lanes is a plain run of its own);
+    wave_level_plain(record=True) on one lane in `stride`, drawn at random
+    each level (`lane_sample`; the plain version is lane-wise, so a subset
+    of lanes is a plain run of its own);
     level 0 with and without record in turns by CUDA events, with the
     record launch's bound; then the backward of one level at that width
     (WaveLevelFn: the rebuild's forward and autograd, twice to equal bits)
@@ -1569,7 +1665,7 @@ def record_mode_phase(W, scene, tables, inputs, fuzz, n_levels, per_test, stride
         rec = W.wave_level(prev, fz, tables, record=True)
         head_equal = bool(torch.equal(rec[:13], inf))
         del inf
-        idx = torch.arange(0, prev.shape[1], stride, device=dev)
+        idx = lane_sample(torch.arange(prev.shape[1], device=dev), stride, 2000 + lv)
         need = {}
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1734,8 +1830,8 @@ def diff_path_phase(rt, W, CH, scene, n_levels, dev):
     """Phase diff_path: differentiable rendering of the flagship at
     1920x1080 (FWDBWD_r5.json's configuration), the port's training path.
     (a) fused against general gradients on a 64-row strip at 1 spp, the six
-    parameter paths (`strip_agreement`), of the flagship, of cornell and of
-    the motion demo at its width; (b) the whole frame at 1 spp through
+    parameter paths (`strip_agreement`), of the flagship, of cornell, of
+    the motion demo and of cube_city (the wide build) at its width; (b) the whole frame at 1 spp through
     mse_loss: forward seconds (no graph), forward and backward seconds with a synchronize
     after the gradients are read, peak memory, every gradient finite and
     not all zero; (c) the same through mse_loss_and_grad_tiled at 4x4 spp;
@@ -1755,10 +1851,11 @@ def diff_path_phase(rt, W, CH, scene, n_levels, dev):
     result = {}
 
     # (a) the strip, both paths, the same rays and draws: the flagship,
-    # then cornell (legacy planes, one-way glass, an area light) and motion
-    # (moving spheres) at its width.
+    # then cornell (legacy planes, one-way glass, an area light), motion
+    # (moving spheres) and cube_city (2,049 geoms: the level's wide build)
+    # at its width.
     result["strip"] = strip_agreement(rt, W, CH, scene, "flagship", n_levels, dev, smi)
-    for name in ("cornell", "motion"):
+    for name in ("cornell", "motion", "cube_city"):
         result[f"strip_{name}"] = strip_agreement(
             rt, W, CH, widened_scene(rt, name, dev), name, n_levels, dev, smi)
 
@@ -1863,9 +1960,18 @@ def diff_path_phase(rt, W, CH, scene, n_levels, dev):
 # per pixel a side, light samples).  cornell: legacy planes, one-way glass,
 # a mirror, an area light; motion: the demo's moving spheres; sphere_field
 # with a texture on every third geom: spherical UV.
-WIDENED_CASES = (("cornell", 4, 4), ("motion", 4, 1), ("sphere_field_textured", 2, 1))
+WIDENED_CASES = (("cornell", 4, 4), ("motion", 4, 1), ("sphere_field_textured", 2, 1),
+                 ("cube_city", 2, 1), ("sphere_field_textured_3000", 2, 1))
 WIDENED_SPHERES = 1500
 WIDENED_RES = (1920, 1080)
+# Tables over what a block stages (the level's wide build): cube_city's
+# 2,049 geoms, a textured sphere_field of 3,001, and the gate's edge of
+# 6,144 (levels 0 and 1 of one tile, phase wide_edge).  The plain version
+# of such a level runs on one live lane in WIDE_STRIDE of each level, drawn
+# at random (`lane_sample`).
+WIDE_SPHERES = 3000
+WIDE_EDGE_SPHERES = 6143
+WIDE_STRIDE = ACCEL_SIZES["stride"]
 
 
 def shrink_phase(rt, W, G, scene, tables, o, d, tm, fuzz, full_levels, sched, opts,
@@ -2104,7 +2210,10 @@ def widened_scene(rt, name, dev):
         scene = load_demo(rt, "motion", dev)
         return dataclasses.replace(
             scene, camera=dataclasses.replace(scene.camera, resolution=WIDENED_RES))
-    field = models.get("sphere_field", n=WIDENED_SPHERES, res=WIDENED_RES, device=dev)
+    if name == "cube_city":
+        return models.get("cube_city", n=ACCEL_SIZES["cubes"], res=WIDENED_RES, device=dev)
+    n = WIDE_SPHERES if name == "sphere_field_textured_3000" else WIDENED_SPHERES
+    field = models.get("sphere_field", n=n, res=WIDENED_RES, device=dev)
     return with_texture(field, load_demo(rt, "texture", dev))
 
 
@@ -2144,12 +2253,141 @@ def plain_on_live(W, prev, fz, tables, need):
     return out
 
 
+def lane_sample(lanes, stride, seed):
+    """One in `stride` of `lanes` (a 1-D index tensor), drawn at random
+    from `seed` and kept in order; stride 1 keeps every lane.  A fixed
+    stride would not do: a block's chunk of the live list deals entries
+    tid and tid + 256 to one thread, so every 64th list entry is always
+    lane 0 of warps 0, 2, 4 and 6, and a fault of any other thread slot
+    would pass.  Random lanes fall to every slot."""
+    if stride == 1:
+        return lanes
+    gen = torch.Generator(device=lanes.device).manual_seed(seed)
+    pick = torch.randperm(len(lanes), generator=gen, device=lanes.device)
+    return lanes[pick[: -(-len(lanes) // stride)].sort().values]
+
+
+def sampled_plain(W, tables, samples):
+    """wave_level_plain on the sampled lanes of each level of a trace the
+    kernel ran (`samples`: by level, the lanes' queue rows `q`, fuzz rows
+    `fz` and the kernel's output `out`), against the kernel's output.  The
+    plain version is lane-wise, so each level's lanes are a plain run of
+    their own: levels 0 and 1 run alone (their counts size the bounds),
+    the deeper ones as one call of their lanes side by side (the plain
+    version's cost is per table row).  Yields (level, compare_level's
+    result, the call's ms, the call's levels, its counts)."""
+    groups = [[0], [1], list(range(2, len(samples)))]
+    for grp in [[lv for lv in g if lv < len(samples)] for g in groups]:
+        widths = [samples[lv]["q"].shape[1] for lv in grp]
+        if not sum(widths):
+            for lv in grp:
+                yield lv, compare_level(samples[lv]["out"], samples[lv]["out"])[0], 0.0, grp, {}
+            continue
+        q = torch.cat([samples[lv]["q"] for lv in grp], dim=1).contiguous()
+        fz = None
+        if samples[grp[0]]["fz"] is not None:
+            fz = torch.cat([samples[lv]["fz"] for lv in grp], dim=1).contiguous()
+        need = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        b = W.wave_level_plain(q, fz, tables, stats=need)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        for lv, part in zip(grp, torch.split(b, widths, dim=1)):
+            yield lv, compare_level(samples[lv]["out"], part)[0], ms, grp, need
+
+
+def levels_against_plain(W, I, name, scene, tables, o, d, tm, prev, gen, levels, row,
+                         stride, phase="fused_widened"):
+    """Part (a) of phase fused_widened (and phase wide_edge): every level of
+    the tile by the kernel, each fed by the kernel's own previous level,
+    against wave_level_plain on one in `stride` of the live lanes of that
+    level, drawn at random anew each level (`lane_sample`; `sampled_plain`:
+    1 for a table a block stages, WIDE_STRIDE for the wide build, whose
+    plain version takes seconds a level for any lane count), a dead lane's
+    13 rows zero; levels 0 and 1 timed against their bounds (the shadow
+    tests scaled from the checked lanes to the live ones); level 0 in record
+    mode (rows 0-12 torch.equal to inference) and its winners against the
+    general path's closest hit.  The wave_level counter is set to 0 at the
+    start and read after the last launch: row["launches"] is every launch
+    of this check (each level once, one record-mode launch, 5 timed
+    repetitions of levels 0 and 1), and the run fails if it is not that.
+    Updates `row`; returns the per-level rows."""
+    from ray_tracying_tpu_torch.render.integrator import level_fuzz
+
+    dev = prev.device
+    n = prev.shape[1]
+    samples, ms = [], {}
+    W.wave_level.launches = 0
+    for lv in range(levels):
+        fz = level_fuzz(tables, gen, n, dev)
+        a = W.wave_level(prev, fz, tables)
+        live = prev[7] > 0
+        idx = lane_sample(torch.nonzero(live).squeeze(1), stride, 1000 + lv)
+        samples.append(dict(live=int(live.sum()), q=prev[:W.Q_ROWS, idx].contiguous(),
+                            fz=None if fz is None else fz[:, idx].contiguous(), out=a[:, idx],
+                            dead_rows_zero=not bool(torch.where(live, 0.0, a).any()),
+                            hits=int((a[12] > 0).sum()), spawned=int((a[7] > 0).sum())))
+        if lv == 0:
+            rec = W.wave_level(prev, fz, tables, record=True)
+            head_equal = bool(torch.equal(rec[:W.OUT_ROWS], a))
+            hit = I.closest_hit(scene, o, d, tm, torch.ones(n, dtype=torch.bool, device=dev))
+            other = int((rec[W.OUT_ROWS]
+                         != torch.where(hit.valid, hit.geom_id, -1).to(rec.dtype)).sum())
+            del rec, hit
+            row.update(level0_record_rows_0_12_equal_inference=head_equal,
+                       level0_winners_other_than_general=other)
+            if not head_equal:
+                fail(f"{name}: record mode changed rows 0..12 of level 0")
+            if other > MAX_FLIP_SHARE * n:
+                fail(f"{name}: {other} level-0 winners differ from the general path's")
+        if lv < 2:
+            ms[lv] = cuda_ms(lambda: W.wave_level(prev, fz, tables), 5)
+        prev = a
+    del prev, a
+    row["launches"] = W.wave_level.launches
+    if row["launches"] != levels + 1 + 5 * min(levels, 2):
+        fail(f"{name}: {row['launches']} wave_level launches in the level check, expected "
+             f"{levels + 1 + 5 * min(levels, 2)}")
+    plan = W.wave_plan(tables)
+    row.update(stride=stride, sample="one live lane in stride, at random, seeded by level",
+               smem_bytes=plan["smem_bytes"],
+               blocks_per_sm=plan["blocks_per_sm"])
+    per_level, so_far = [], 0
+    for lv, res, plain_ms, grp, need in sampled_plain(W, tables, samples):
+        smp = samples[lv]
+        so_far += res["disagreeing_lanes_so_far"]
+        lvl = dict(level=lv, live=smp["live"], checked_lanes=smp["q"].shape[1],
+                   hits=smp["hits"], spawned=smp["spawned"], plain_ms=plain_ms,
+                   plain_call_levels=grp, dead_rows_zero=smp["dead_rows_zero"],
+                   **dict(res, disagreeing_lanes_so_far=so_far))
+        if lv < 2:
+            scale = smp["live"] / max(1, smp["q"].shape[1])
+            full = dict(live=smp["live"], closest_tests=smp["live"] * tables.table.shape[1],
+                        shadow_tests=need.get("shadow_tests", 0) * scale)
+            lvl.update(ms=ms[lv], shadow_rays_estimated=need.get("shadow_rays", 0) * scale,
+                       **level_bound(W, tables, n, full, smp["hits"]))
+            row.update({f"level{lv}_ms": ms[lv], f"level{lv}_plain_ms": plain_ms,
+                        f"level{lv}_bound_ms": lvl["bound_ms"],
+                        f"level{lv}_bound_by": lvl["bound_by"], f"level{lv}_live": smp["live"],
+                        f"level{lv}_shadow_rays_estimated": lvl["shadow_rays_estimated"]})
+        say(phase, case=name, lanes=n, stride=stride, rtol=RTOL, atol=ATOL, **lvl)
+        per_level.append(lvl)
+        if not (res["ok"] and smp["dead_rows_zero"]):
+            fail(f"{name}: kernel and plain version disagree on level {lv} "
+                 f"({res['disagreeing_lanes_so_far']} of {smp['q'].shape[1]} checked lanes; "
+                 f"dead lanes' rows zero: {smp['dead_rows_zero']})")
+    return per_level
+
+
 def fused_widened_phase(rt, W, CH, dev, n_levels):
     """Phase fused_widened, for each of WIDENED_CASES at 1920x1080: (a) the
-    kernel against wave_level_plain (`plain_on_live`) on every level of the
-    middle full-width tile, fed by the kernel's own levels (bit-equal, or
-    the share of lanes that differ printed and held to MAX_FLIP_SHARE);
-    level 0's ms against its bound; (b) one frame through render_to_srgb_u8
+    kernel against wave_level_plain on every level of the middle full-width
+    tile, fed by the kernel's own levels, on every live lane (one in
+    WIDE_STRIDE, at random, of a table the kernel's wide build takes;
+    `levels_against_plain`; bit-equal, or the share of checked lanes that
+    differ printed and held to MAX_FLIP_SHARE); levels 0 and 1's ms against
+    their bounds; (b) one frame through render_to_srgb_u8
     (the fused level) and one with fused=False (the general path's tile
     loop) from one seed, each with the counts set to 0 just before: timed,
     their launches, the two images.  Both paths draw the same jitter and
@@ -2177,6 +2415,7 @@ def fused_widened_phase(rt, W, CH, dev, n_levels):
     (c) the middle tile traced with its draws fed in is torch.equal with
     and without the shrink.  Returns the rows by case."""
     from ray_tracying_tpu_torch.core.sampling import uniform_in_unit_sphere
+    from ray_tracying_tpu_torch.kernels import chunk_stream as CS
     from ray_tracying_tpu_torch.render import intersect as I
     from ray_tracying_tpu_torch.render import pipeline as PL
     from ray_tracying_tpu_torch.render.integrator import level_fuzz, trace_wavefront
@@ -2203,56 +2442,24 @@ def fused_widened_phase(rt, W, CH, dev, n_levels):
         o, d, tm = tile_rays(scene.camera, y0, tile_rows, width, sqrt_spp, generator=gen)
         n = o.shape[0]
         prev = torch.cat([o.T, d.T, tm[None], torch.ones((2, n), device=dev)]).contiguous()
-        tainted = None
-        per_level = []
-        row = dict(case=name, geoms=scene.n_geoms, n_cols=tables.table.shape[0],
+        n_cols = tables.table.shape[0]
+        wide = W.wave_variant(scene.n_geoms, n_cols, scene.n_lights) == "wide"
+        row = dict(case=name, geoms=scene.n_geoms, n_cols=n_cols,
                    kinds=[k for k, _, _ in tables.ranges], lights=scene.n_lights,
                    area=list(tables.area), light_samples=samples, samples_sqrt=sqrt_spp,
-                   lanes=n, levels=levels,
-                   cap_geoms=W.wave_cap_geoms(tables.table.shape[0], scene.n_lights),
+                   lanes=n, levels=levels, cap_geoms=W.wave_cap_geoms(n_cols, scene.n_lights),
+                   variant=W.wave_variant(scene.n_geoms, n_cols, scene.n_lights),
                    nvidia_smi=smi)
-        for lv in range(levels):
-            fz = level_fuzz(tables, gen, n, dev)
-            a = W.wave_level(prev, fz, tables)
-            need = {}
-            torch.cuda.synchronize()
-            t0 = time.time()
-            b = plain_on_live(W, prev, fz, tables, need)
-            torch.cuda.synchronize()
-            plain_ms = (time.time() - t0) * 1e3
-            res, tainted = compare_level(a, b, tainted)
-            lvl = dict(level=lv, live=need["live"], hits=int((b[12] > 0).sum()),
-                       spawned=int((b[7] > 0).sum()), shadow_rays=need["shadow_rays"],
-                       plain_ms=plain_ms, **res)
-            if lv == 0:
-                # the level-0 winners against the general path's closest hit
-                won = W.wave_level(prev, fz, tables, record=True)[W.OUT_ROWS]
-                hit = I.closest_hit(scene, o, d, tm, torch.ones(n, dtype=torch.bool, device=dev))
-                other = int((won != torch.where(hit.valid, hit.geom_id, -1).to(won.dtype)).sum())
-                del won, hit
-                row.update(level0_winners_other_than_general=other)
-                if other > MAX_FLIP_SHARE * n:
-                    fail(f"{name}: {other} level-0 winners differ from the general path's")
-                lvl.update(ms=cuda_ms(lambda: W.wave_level(prev, fz, tables), 5),
-                           winners_other_than_general=other,
-                           **level_bound(W, tables, n, need, lvl["hits"]))
-                row.update(level0_ms=lvl["ms"], level0_plain_ms=plain_ms,
-                           level0_bound_ms=lvl["bound_ms"], level0_bound_by=lvl["bound_by"],
-                           level0_live=need["live"], level0_shadow_rays=need["shadow_rays"])
-            say("fused_widened", case=name, lanes=n, rtol=RTOL, atol=ATOL,
-                max_disagreeing_share=MAX_FLIP_SHARE, **lvl)
-            per_level.append(lvl)
-            if not res["ok"]:
-                fail(f"{name}: kernel and plain version disagree on level {lv} "
-                     f"({res['disagreeing_lanes_so_far']} lanes)")
-            del b
-            prev = a
+        # every live lane of a table a block stages; one in WIDE_STRIDE, at
+        # random, of a wide one
+        per_level = levels_against_plain(W, I, name, scene, tables, o, d, tm, prev, gen,
+                                         levels, row, WIDE_STRIDE if wide else 1)
         row.update(
             bitwise_equal_levels=sum(lv_["bitwise_equal"] for lv_ in per_level),
             disagreeing_lanes=per_level[-1]["disagreeing_lanes_so_far"],
             disagreeing_share=per_level[-1]["disagreeing_lanes_so_far"] / n,
             max_abs_err=max(lv_["max_abs_err"] for lv_ in per_level))
-        del prev, a
+        del prev
         sched = tile_shrink(n, spp)
         draws = tables.glossy or any(tables.area)
         if draws:
@@ -2304,18 +2511,21 @@ def fused_widened_phase(rt, W, CH, dev, n_levels):
             seen = dict(shrunk_vs_unshrunk_bytes_equal=bool(np.array_equal(img_s, img_f)))
             seen_ok = seen["shrunk_vs_unshrunk_bytes_equal"]
         PL.tile_shrink = real_shrink
-        CH.brute_closest.launches = CH.brute_closest_n.launches = 0
-        CH.occlusion_any.launches = W.wave_level.launches = 0
+        counted = dict(brute_closest=CH.brute_closest, brute_closest_n=CH.brute_closest_n,
+                       occlusion_any=CH.occlusion_any, wave_level=W.wave_level,
+                       brute_closest_chunked=CH.brute_closest_chunked,
+                       chunk_closest=CS.chunk_closest, chunk_closest_n=CS.chunk_closest_n,
+                       chunk_occlusion=CS.chunk_occlusion)
+        for fn in counted.values():
+            fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.time()
-        img_g, dropped = general_frame(rt, scene, opts, tile_rows,
-                                       torch.Generator(device=dev).manual_seed(41))
+        with general_routing():
+            img_g, dropped = srgb_frame(
+                rt, scene, opts, torch.Generator(device=dev).manual_seed(41), device=dev)
         torch.cuda.synchronize()
         general_s = time.time() - t0
-        general_launches = dict(brute_closest=CH.brute_closest.launches,
-                                brute_closest_n=CH.brute_closest_n.launches,
-                                occlusion_any=CH.occlusion_any.launches,
-                                wave_level=W.wave_level.launches)
+        general_launches = {k: fn.launches for k, fn in counted.items()}
         diff = np.abs(img_f.astype(np.float32) - img_g.astype(np.float32))
         frame = dict(fused_frame_seconds=fused_s, fused_unshrunk_frame_seconds=fused_unshrunk_s,
                      general_frame_seconds=general_s, shrink=sched, **seen,
@@ -2333,8 +2543,15 @@ def fused_widened_phase(rt, W, CH, dev, n_levels):
         if fused_launches != levels * n_tiles:
             fail(f"{name}: the fused frame launched the level {fused_launches} times, "
                  f"expected {levels * n_tiles}")
-        if general_launches["wave_level"] or not general_launches["occlusion_any"] or not (
-                general_launches["brute_closest"] or general_launches["brute_closest_n"]):
+        # the brute kernels, or over their cap (CH.BRUTE_SMEM_MAX_GEOMS) the
+        # sweeps, for closest hits and shadow rays
+        if scene.n_geoms > CH.BRUTE_SMEM_MAX_GEOMS:
+            closest = ("brute_closest_chunked", "chunk_closest", "chunk_closest_n")
+            shadow = ("chunk_occlusion", "brute_closest_chunked")
+        else:
+            closest, shadow = ("brute_closest", "brute_closest_n"), ("occlusion_any",)
+        if general_launches["wave_level"] or not any(general_launches[k] for k in shadow) \
+                or not any(general_launches[k] for k in closest):
             fail(f"{name}: the general frame launched {general_launches}")
         if img_f.min() == img_f.max():
             fail(f"{name}: the fused frame is constant")
@@ -2353,6 +2570,41 @@ def fused_widened_phase(rt, W, CH, dev, n_levels):
         del img_f, img_g, img_s, diff, tables, scene
         torch.cuda.empty_cache()
     return rows
+
+
+def wide_edge_phase(rt, W, dev):
+    """Phase wide_edge: the gate's edge, sphere_field(n=6143) (6,144
+    geoms, WAVE_MAX_GEOMS) at 1920x1080, 2x2 spp: levels 0 and 1 of its
+    middle full-width tile by the kernel's wide build against the plain
+    version on one live lane in WIDE_STRIDE (`levels_against_plain`),
+    their ms against their bounds; one geom more is refused.  Returns the
+    row."""
+    from ray_tracying_tpu_torch import models
+    from ray_tracying_tpu_torch.render import intersect as I
+    from ray_tracying_tpu_torch.render.pipeline import tile_rays
+
+    scene = models.get("sphere_field", n=WIDE_EDGE_SPHERES, res=WIDENED_RES, device=dev)
+    over = models.get("sphere_field", n=WIDE_EDGE_SPHERES + 1, res=(8, 6), device=dev)
+    if scene.n_geoms != W.WAVE_MAX_GEOMS or W.wave_refusal(scene) is not None \
+            or W.wave_refusal(over) is None:
+        fail(f"the gate's edge: {W.wave_refusal(scene)} / {W.wave_refusal(over)}")
+    tables = W.wave_tables(scene)
+    width, height = WIDENED_RES
+    rows = min(height, rt.RenderOptions().max_rays_per_pass // (width * 4))
+    gen = torch.Generator(device=dev).manual_seed(31)
+    o, d, tm = tile_rays(scene.camera, height // 2 - rows // 2, rows, width, 2, generator=gen)
+    n = o.shape[0]
+    prev = torch.cat([o.T, d.T, tm[None], torch.ones((2, n), device=dev)]).contiguous()
+    row = dict(case="sphere_field_6143", geoms=scene.n_geoms, n_cols=tables.table.shape[0],
+               lanes=n, levels=2, variant=W.wave_variant(scene.n_geoms, tables.table.shape[0],
+                                                         scene.n_lights),
+               over_the_gate=W.wave_refusal(over), nvidia_smi=smi_line())
+    per_level = levels_against_plain(W, I, "sphere_field_6143", scene, tables, o, d, tm, prev,
+                                     gen, 2, row, WIDE_STRIDE, phase="wide_edge")
+    row.update(max_abs_err=max(lv["max_abs_err"] for lv in per_level),
+               disagreeing_lanes=per_level[-1]["disagreeing_lanes_so_far"])
+    say("wide_edge", **row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2689,15 +2941,16 @@ def main():
     _build.load()
     ptxas = [ln.strip() for ln in _build.last_build["log"].splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
-    # wave_level (blocks) and its one-thread-per-lane schedule, three brute
+    # wave_level (blocks: the staged and the wide build) and its
+    # one-thread-per-lane schedule, three brute
     # kernels by one thread per lane and their three warp kernels; the two
     # one-thread-per-lane traversals and the traversal's warp kernel (closest
     # hit, with the normal, each with its counting build); seven
     # one-thread-per-lane sweeps (the chunked brute, and each of the three
     # chunk kernels with its counting build); seven warp sweeps (the three
     # chunk kernels, each with its counting build, and the chunked brute)
-    if sum("entry function" in ln for ln in ptxas) != 28 and _build.last_build["compiled"]:
-        fail("the build did not report twenty-eight kernels")
+    if sum("entry function" in ln for ln in ptxas) != 29 and _build.last_build["compiled"]:
+        fail("the build did not report twenty-nine kernels")
     say("build", seconds=round(_build.last_build["seconds"], 2),
         compiled=_build.last_build["compiled"], flags=_build.last_build["flags"],
         library=os.path.relpath(_build.last_build["path"], REPO), ptxas=ptxas)
@@ -3012,6 +3265,9 @@ def main():
     # The redesign against the one-thread-per-lane schedule of the same
     # stages (the kernel before the redesign), on one card in one run.
     ab = wave_redesign_ab(rt, W, scene, tables, inputs, fuzz, opts, n_levels)
+    # The same inputs through the kernel's wide build: does the staged one
+    # still pay on a table a block stages?
+    builds = wave_build_ab(W, _build, tables, inputs, fuzz, n_levels)
     # Record mode (differentiable rendering) of the same kernel on the same
     # inputs.
     per_test = sum(FLOPS_PER_TEST[k] * (e - s) for k, s, e in tables.ranges) \
@@ -3104,7 +3360,8 @@ def main():
         gen_i = torch.Generator(device=dev).manual_seed(10 + i)
         torch.cuda.synchronize()
         t0 = time.time()
-        g_img, g_dropped = general_frame(rt, scene, opts, tile_rows, gen_i)
+        with general_routing():
+            g_img, g_dropped = srgb_frame(rt, scene, opts, gen_i, device=dev)
         torch.cuda.synchronize()
         g_seconds.append(time.time() - t0)
     general_launches = dict(
@@ -3139,9 +3396,11 @@ def main():
     del o, d, tm, fuzz, levels, boot, g_img, img
     torch.cuda.empty_cache()
     widened = fused_widened_phase(rt, W, CH, dev, n_levels)
+    edge = wide_edge_phase(rt, W, dev)
+    torch.cuda.empty_cache()
 
     # ---- phases 9 and 10: the acceleration path
-    accel_entries, city_anyhit, city_brute, city_frames = accel_phases(
+    accel_entries, city_anyhit, city_brute, city_frames, accel_seconds = accel_phases(
         rt, dev, ACCEL_SIZES, kinds, k_table, k_ranges, k_n, n_levels)
     torch.cuda.empty_cache()
 
@@ -3229,6 +3488,7 @@ def main():
         "fmad_false_floor_ms": r0["fmad_false_floor_ms"],
         "lane_schedule_ms": sum(ab[0]["lane_ms"]) / 2,
         "lane_schedule_deep_ms": sum(ab[deep]["lane_ms"]) / 2,
+        "flagship_wide_build": builds,
         "blocks_per_sm": plan["blocks_per_sm"],
         "smem_bytes": plan["smem_bytes"],
         "record_mode": {
@@ -3254,12 +3514,34 @@ def main():
         "shrink_compaction_ms": shrink_row["compaction_ms"],
         "sharded": sharded,
         "widened": {
-            name: {k: row[k] for k in (
+            name: {k: row.get(k) for k in (
                 "level0_ms", "level0_plain_ms", "level0_bound_ms", "level0_bound_by",
+                "level1_ms", "level1_bound_ms",
                 "lanes", "geoms", "light_samples", "disagreeing_lanes", "max_abs_err",
                 "fused_frame_seconds", "fused_unshrunk_frame_seconds", "general_frame_seconds",
                 "fused_launches")}
-            for name, row in widened.items()
+            for name, row in widened.items() if row["variant"] == "staged"
+        },
+        # tables over what a block stages: the kernel's wide build
+        "wide": {
+            name: dict(
+                {k: row.get(k) for k in (
+                    "geoms", "lanes", "level0_ms", "level1_ms", "stride", "level0_bound_ms",
+                    "level0_bound_by", "level1_bound_ms", "level1_bound_by", "smem_bytes",
+                    "blocks_per_sm", "disagreeing_lanes", "max_abs_err",
+                    "fused_frame_seconds", "general_frame_seconds")},
+                plain_ms_every_nth_lane=row["level0_plain_ms"],
+                level1_plain_ms_every_nth_lane=row["level1_plain_ms"],
+                bound_ms=row["level0_bound_ms"], bound_by=row["level0_bound_by"],
+                launches=row.get("fused_launches", row["launches"]),
+                launches_note=("the fused frame's, counted (fused_widened)"
+                               if "fused_launches" in row else
+                               "every launch of phase wide_edge, counted: levels 0 and 1, "
+                               "one record-mode launch, 5 timed repetitions of each level"),
+                accel_path_fused_frame_seconds=accel_seconds.get(f"{name}_fused"),
+                accel_path_general_frame_seconds=accel_seconds.get(f"{name}_brute"))
+            for name, row in list(widened.items()) + [(edge["case"], edge)]
+            if row["variant"] == "wide"
         },
     }] + brute_entries + accel_entries}), flush=True)
 

@@ -25,6 +25,10 @@
 //   stages the shaded table and the light table in shared memory once:
 //   columns 12.. by one bulk asynchronous copy on an mbarrier, while its
 //   threads lay out the transforms (three 16-byte words a geom) and scan.
+//   A table over what a block can stage (up to the gate's 6,144 geoms)
+//   takes the kernel's wide build instead, which reads it from global
+//   memory through the L2, each transform as three 16-byte loads of a
+//   geom-major copy (TabW); the schedule is the same.
 // - Phase 1, scan.  Blocks take steps of kScanLanes lanes from a counter,
 //   four lanes a thread.  A dead lane gets its 13 zero rows at once, as
 //   16-byte stores where four neighbours are dead, and costs nothing more.
@@ -92,7 +96,7 @@ constexpr int kMaxLights = 8;
 
 // The block schedule of wave_level_blocks_kernel.  List and queue
 // capacities are in entries: the preferred ones, and the least ones, which
-// the size gate (kernels/wavefront.py::wave_smem_bytes) assumes.
+// the choice of build (kernels/wavefront.py::wave_smem_bytes) assumes.
 constexpr int kWaveThreads = 256;
 constexpr int kWaveWarps = kWaveThreads / 32;
 constexpr int kScanLanes = 4 * kWaveThreads;
@@ -112,6 +116,7 @@ struct WaveParams {
   const float* q;         // (>= 9, R) previous level / bootstrap
   const float* fuzz;      // (>= 3, R) unit-ball rows (glossy) or null
   const float* table;     // (n_cols, G) shaded table, transposed
+  const float* xf;        // (G, 12) geom-major transforms of a wide table, else null
   const float* lights;    // (8, L)
   const uint8_t* tex;     // (T, H, W, 4) u8 texels or null
   const float* twh;       // (2, T) true (w, h) per slot or null
@@ -169,6 +174,15 @@ struct TabT {
   RTT_DEV float col(int c, int g) const { return tab[c * G + g]; }
 };
 
+// A transform from its three 16-byte words.
+RTT_DEV Xform xform_of(const F4& a, const F4& b, const F4& c) {
+  Xform m;
+  m.c[0] = a.x; m.c[1] = a.y; m.c[2] = a.z; m.c[3] = a.w;
+  m.c[4] = b.x; m.c[5] = b.y; m.c[6] = b.z; m.c[7] = b.w;
+  m.c[8] = c.x; m.c[9] = c.y; m.c[10] = c.z; m.c[11] = c.w;
+  return m;
+}
+
 // A block's staged copy: geom g's 12 transform floats as the 16-byte words
 // xf4[3g .. 3g+2] (a warp at one g reads three broadcasts), then columns
 // 12.. transposed as the tensor holds them (a column of all geoms is
@@ -177,15 +191,23 @@ struct TabS {
   const F4* xf4;
   const float* rest;
   int G;
-  RTT_DEV Xform xf(int g) const {
-    const F4 a = xf4[3 * g], b = xf4[3 * g + 1], c = xf4[3 * g + 2];
-    Xform m;
-    m.c[0] = a.x; m.c[1] = a.y; m.c[2] = a.z; m.c[3] = a.w;
-    m.c[4] = b.x; m.c[5] = b.y; m.c[6] = b.z; m.c[7] = b.w;
-    m.c[8] = c.x; m.c[9] = c.y; m.c[10] = c.z; m.c[11] = c.w;
-    return m;
-  }
+  RTT_DEV Xform xf(int g) const { return xform_of(xf4[3 * g], xf4[3 * g + 1], xf4[3 * g + 2]); }
   RTT_DEV float col(int c, int g) const { return rest[(c - 12) * G + g]; }
+};
+
+// A wide table (over the staged build's cap) where the launch left it, in
+// global memory (6,144 geoms of 32 columns are 786 KB, which the L2 holds):
+// geom g's transform as three 16-byte read-only loads of the geom-major copy
+// xf[12g .. 12g+11] (the launcher's copy of the table's rows 0..11), every
+// other column from the transposed table.
+struct TabW {
+  const float* xf12;
+  TabT t;
+  RTT_DEV Xform xf(int g) const {
+    const float* a = xf12 + 12 * (size_t)g;
+    return xform_of(ldg4(a), ldg4(a + 4), ldg4(a + 8));
+  }
+  RTT_DEV float col(int c, int g) const { return t.col(c, g); }
 };
 
 // Word k of TabS::xf4, from the transposed table.
@@ -756,7 +778,8 @@ RTT_DEV void wave_lane(const WaveParams& p, const float* tab, const float* light
 // per-warp counts of a scan step at 16 and of a queue fill at 80, each
 // double-buffered; at 144 the next scan step (double-buffered) or chunk,
 // and a list base),
-// staged table (TabS), lights, the list of lanes (list_cap), the chunk's
+// staged table (TabS; none for a wide table, G = 0 here), lights, the list
+// of lanes (list_cap), the chunk's
 // meta (kChunk: winner row in bits 0-15, kNoRow for none), the chunk's
 // counts of blocked shadow rays (kChunk entries of two words, one byte a
 // light: an area light's nss <= 32 rays fit), the queue (two 16-byte words
@@ -943,6 +966,7 @@ inline WaveParams make_params(
     int motion, int refraction, int area, int nss, int record = 0) {
   WaveParams p;
   p.q = q; p.fuzz = fuzz; p.table = table; p.lights = lights;
+  p.xf = nullptr;
   p.tex = tex; p.twh = twh; p.out = out;
   p.rec = record ? out + kOutRows * R : nullptr;
   p.R = R; p.G = G; p.n_cols = n_cols; p.n_lights = n_lights;
@@ -996,7 +1020,8 @@ __global__ void wave_level_lane_kernel(const WaveParams p) {
 
 // Block-wide: test the n queued shadow rays on dense warps and count the
 // blocked ones of each lane and light.
-__device__ void drain_queue(const WaveParams& p, const TabS& tb, const WaveSmem& s, int n) {
+template <class Tab>
+__device__ void drain_queue(const WaveParams& p, const Tab& tb, const WaveSmem& s, int n) {
   __syncthreads();  // the queue is complete
   const int split = wave_split(n);
   const int t = threadIdx.x;
@@ -1022,7 +1047,8 @@ __device__ void drain_queue(const WaveParams& p, const TabS& tb, const WaveSmem&
 }
 
 // Block-wide: the three stages on the n lanes of the list.
-__device__ void run_list(const WaveParams& p, const TabS& tb, const WaveSmem& s, int n,
+template <class Tab>
+__device__ void run_list(const WaveParams& p, const Tab& tb, const WaveSmem& s, int n,
                          int queue_cap) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   __syncthreads();  // the list is complete
@@ -1109,29 +1135,51 @@ __device__ void flush_list(const WaveSmem& s, int n, int* listed, int* live) {
 // [3] next chunk, [4] blocks done.  live: R ints, the launch's list of live
 // lanes.  Launched cooperatively: every block is resident, so the grid
 // barrier between the two phases cannot wait on a block that never runs.
+//
+// Two builds, one schedule.  WIDE = false (staged): the table fits a
+// block's shared memory (kernels/wavefront.py::wave_cap_geoms) and each
+// block stages it.  WIDE = true: a table over that cap, up to the gate's
+// WAVE_MAX_GEOMS, stays in global memory (TabW, read through the L2); a
+// block stages only the lights, its list, a chunk's meta and counts and the
+// shadow queue.  Every lane's arithmetic is the same in both.
+template <bool WIDE> struct WaveTab {
+  typedef TabS type;
+  static RTT_DEV TabS view(const WaveParams& p, const WaveSmem& s) { return TabS{s.xf4, s.rest, p.G}; }
+};
+template <> struct WaveTab<true> {
+  typedef TabW type;
+  static RTT_DEV TabW view(const WaveParams& p, const WaveSmem&) {
+    return TabW{p.xf, TabT{p.table, p.G}};
+  }
+};
+
+template <bool WIDE>
 __global__ void __launch_bounds__(kWaveThreads, 3)
 wave_level_blocks_kernel(const WaveParams p, int list_cap, int queue_cap, int* ctr, int* live) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const WaveLayout lay = wave_layout(p.G, p.n_cols, p.n_lights, list_cap, queue_cap);
+  const WaveLayout lay = wave_layout(WIDE ? 0 : p.G, p.n_cols, p.n_lights, list_cap, queue_cap);
   const WaveSmem s = wave_smem(smem_raw, lay);
-  const TabS tb{s.xf4, s.rest, p.G};
+  const typename WaveTab<WIDE>::type tb = WaveTab<WIDE>::view(p, s);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // Stage the tables once.  Columns 12.. (their 16-byte multiple) by one
   // bulk asynchronous copy; meanwhile the threads lay out the transforms,
-  // copy the tail and the lights, and scan.
+  // copy the tail and the lights, and scan.  A wide table stages the
+  // lights alone.
   const uint32_t bar = smem_u32(s.bar);
-  const int n_rest = (p.n_cols - 12) * p.G;
-  const uint32_t bulk = (uint32_t)(4 * n_rest) & ~15u;
   if (tid == 0) {
-    mbar_init(bar);
+    if constexpr (!WIDE) mbar_init(bar);
     s.next[0] = atomicAdd(&ctr[0], 1);
   }
   __syncthreads();
-  if (tid == 0) bulk_copy(smem_u32(s.rest), p.table + 12 * (size_t)p.G, bulk, bar);
-  for (int k = tid; k < 3 * p.G; k += kWaveThreads) s.xf4[k] = staged_xf(p.table, p.G, k);
-  for (int k = (int)(bulk / 4) + tid; k < n_rest; k += kWaveThreads) {
-    s.rest[k] = p.table[12 * (size_t)p.G + k];
+  if constexpr (!WIDE) {
+    const int n_rest = (p.n_cols - 12) * p.G;
+    const uint32_t bulk = (uint32_t)(4 * n_rest) & ~15u;
+    if (tid == 0) bulk_copy(smem_u32(s.rest), p.table + 12 * (size_t)p.G, bulk, bar);
+    for (int k = tid; k < 3 * p.G; k += kWaveThreads) s.xf4[k] = staged_xf(p.table, p.G, k);
+    for (int k = (int)(bulk / 4) + tid; k < n_rest; k += kWaveThreads) {
+      s.rest[k] = p.table[12 * (size_t)p.G + k];
+    }
   }
   for (int k = tid; k < 8 * p.n_lights; k += kWaveThreads) s.lights[k] = p.lights[k];
 
@@ -1177,7 +1225,7 @@ wave_level_blocks_kernel(const WaveParams p, int list_cap, int queue_cap, int* c
   // lanes clustered in a few scan steps spread over the card.
   grid_barrier(&ctr[2]);
   const long long n_live = *reinterpret_cast<volatile int*>(&ctr[1]);
-  mbar_wait(bar, 0);  // the bulk copy has landed (long since)
+  if constexpr (!WIDE) mbar_wait(bar, 0);  // the bulk copy has landed (long since)
   const int chunk = wave_chunk(n_live, (int)gridDim.x);
   for (;;) {
     if (tid == 0) s.next[0] = atomicAdd(&ctr[3], 1);
@@ -1197,23 +1245,29 @@ wave_level_blocks_kernel(const WaveParams p, int list_cap, int queue_cap, int* c
   }
 }
 
+// The build of the kernel for a staged or a wide table.
+inline const void* wave_blocks_fn(bool wide) {
+  return wide ? (const void*)wave_level_blocks_kernel<true>
+              : (const void*)wave_level_blocks_kernel<false>;
+}
+
 // The kernel's shared memory plan for this table on the current device,
 // its dynamic shared memory attribute set: capacities, bytes, resident
-// blocks per SM and the SM count.  0 or a CUDA error.
-inline int wave_blocks_plan(int G, int n_cols, int n_lights, int& list_cap, int& queue_cap,
-                            size_t& bytes, int& per_sm, int& sms) {
+// blocks per SM and the SM count.  0 or a CUDA error.  A winner row must
+// fit the 16 bits of a chunk's meta (kNoRow).
+inline int wave_blocks_plan(int G, int n_cols, int n_lights, bool wide, int& list_cap,
+                            int& queue_cap, size_t& bytes, int& per_sm, int& sms) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  bytes = wave_plan(G, n_cols, n_lights, (size_t)optin, list_cap, queue_cap).bytes;
+  bytes = wave_plan(wide ? 0 : G, n_cols, n_lights, (size_t)optin, list_cap, queue_cap).bytes;
   if (bytes > (size_t)optin || G >= (int)kNoRow) return (int)cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(wave_level_blocks_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const void* fn = wave_blocks_fn(wide);
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wave_level_blocks_kernel,
-                                                      kWaveThreads, bytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kWaveThreads, bytes);
   }
   if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
   return (int)e;
@@ -1227,44 +1281,51 @@ inline int wave_blocks_plan(int G, int n_cols, int n_lights, int& list_cap, int&
 
 // The package's level: persistent blocks (wave_level_blocks_kernel),
 // launched cooperatively.  record: 1 for record mode (out then holds the
-// record rows after row 12).  ctr: five ints of device memory, zero, that
-// no other launch uses meanwhile (the kernel leaves them zero); live: R
-// ints of scratch.
+// record rows after row 12).  xf: null for a table the block stages, else
+// the wide build's (G, 12) geom-major transforms, 16-byte aligned.  ctr:
+// five ints of device memory, zero, that no other launch uses meanwhile
+// (the kernel leaves them zero); live: R ints of scratch.
 extern "C" int wave_level_launch(
     const float* q, const float* fuzz, const float* table, const float* lights,
     const uint8_t* tex, const float* twh, float* out,
     long long R, int G, int n_cols, int n_lights,
     const int* ranges, int n_ranges, int glossy, int has_tex,
     int n_tex, int tex_h, int tex_w, float min_tp,
-    int motion, int refraction, int area, int nss, int record, int* ctr, int* live,
-    void* stream) {
+    int motion, int refraction, int area, int nss, int record, const float* xf, int* ctr,
+    int* live, void* stream) {
   if (n_ranges > rtt::kMaxRanges || R < 0 || R > INT_MAX || n_lights > rtt::kMaxLights ||
-      n_cols < 12 || (uintptr_t)table % 16 != 0 || nss < 1 || nss > 255) {
+      n_cols < 12 || (uintptr_t)table % 16 != 0 || (uintptr_t)xf % 16 != 0 || nss < 1 ||
+      nss > 255) {
     return (int)cudaErrorInvalidValue;
   }
   if (R == 0) return 0;
+  const bool wide = xf != nullptr;
   int list_cap, queue_cap, per_sm, sms;
   size_t bytes;
-  const int err = rtt::wave_blocks_plan(G, n_cols, n_lights, list_cap, queue_cap, bytes, per_sm, sms);
+  const int err = rtt::wave_blocks_plan(G, n_cols, n_lights, wide, list_cap, queue_cap, bytes,
+                                        per_sm, sms);
   if (err) return err;
   rtt::WaveParams p = rtt::make_params(
       q, fuzz, table, lights, tex, twh, out, R, G, n_cols, n_lights, ranges,
       n_ranges, glossy, has_tex, n_tex, tex_h, tex_w, min_tp, motion, refraction, area, nss,
       record);
+  p.xf = xf;
   void* args[] = {&p, &list_cap, &queue_cap, &ctr, &live};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)rtt::wave_level_blocks_kernel, dim3((unsigned)(per_sm * sms)),
+      rtt::wave_blocks_fn(wide), dim3((unsigned)(per_sm * sms)),
       dim3(rtt::kWaveThreads), args, bytes, (cudaStream_t)stream);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-// What wave_level_launch would launch for this table: out[0..5] = list
+// What wave_level_launch would launch for this table (wide: 1 for the
+// build that leaves the table in global memory): out[0..5] = list
 // capacity, queue capacity, shared memory bytes, resident blocks per SM,
 // SMs, threads per block.
-extern "C" int wave_level_plan(int G, int n_cols, int n_lights, int* out) {
+extern "C" int wave_level_plan(int G, int n_cols, int n_lights, int wide, int* out) {
   int list_cap = 0, queue_cap = 0, per_sm = 0, sms = 0;
   size_t bytes = 0;
-  const int err = rtt::wave_blocks_plan(G, n_cols, n_lights, list_cap, queue_cap, bytes, per_sm, sms);
+  const int err = rtt::wave_blocks_plan(G, n_cols, n_lights, wide != 0, list_cap, queue_cap,
+                                        bytes, per_sm, sms);
   out[0] = list_cap; out[1] = queue_cap; out[2] = (int)bytes;
   out[3] = per_sm; out[4] = sms; out[5] = rtt::kWaveThreads;
   return err;

@@ -110,9 +110,9 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
         ctypes.c_float,                      # min_tp
         i, i, i, i,                          # motion refraction area_mask nss
     ]
-    lib.wave_level_launch.argtypes = level + [i, p, p, p]     # record ctr live stream
+    lib.wave_level_launch.argtypes = level + [i, p, p, p, p]  # record xf ctr live stream
     lib.wave_level_lane_launch.argtypes = level + [i, p]      # threads stream
-    lib.wave_level_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.wave_level_plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]  # ... wide out
     for fn in (lib.wave_level_launch, lib.wave_level_lane_launch, lib.wave_level_plan):
         fn.restype = i
     ranges = ctypes.POINTER(ctypes.c_int)

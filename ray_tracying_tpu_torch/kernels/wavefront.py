@@ -26,7 +26,13 @@ spread over every block, each run on dense warps in three stages (closest
 hit without the normal, two lanes a thread, each transform read as three
 16-byte broadcasts; every shadow ray that matters queued and tested on
 dense warps; shading with a count of blocked rays per light).  Each lane's
-arithmetic is that of the plain version, so the two are bit-equal.
+arithmetic is that of the plain version, so the two are bit-equal.  The
+kernel has two builds of one schedule (`wave_variant`): "staged", where
+each block copies the table into its shared memory, and "wide", for a
+table over what a block can hold (`wave_cap_geoms`: 1,669 geoms textured,
+1,723 untextured) up to WAVE_MAX_GEOMS, which reads the table from global
+memory through the L2 and each transform from a (G, 12) geom-major copy
+the launcher makes of the table's rows 0..11.
 `wave_level_lane` launches the one-thread-per-lane schedule of the same
 stages, to be measured against; nothing in the package calls it.
 
@@ -97,6 +103,10 @@ HIT_ROW = 12  # act_hit
 OUT_ROWS = 13
 
 WAVE_MAX_LIGHTS = 8
+# Most geoms of a table the level takes: the JAX package's cap
+# (kernels/wavefront.py::WAVE_MAX_GEOMS); larger scenes go down the general
+# path there and here.
+WAVE_MAX_GEOMS = 6144
 # Most shadow rays an area-lit lane casts at one level: light_samples times
 # the number of area lights (3 fuzz rows each), the JAX package's cap.
 WAVE_MAX_AREA_SAMPLES = 32
@@ -109,7 +119,8 @@ WAVE_THREADS = 256
 # blocked shadow rays per light for each lane of a chunk and a queue of
 # shadow rays; the launcher opts in with
 # cudaFuncAttributeMaxDynamicSharedMemorySize, up to the 227 KB a block can
-# have on sm_90.  Larger scenes are refused by the gate.
+# have on sm_90.  A larger table takes the kernel's wide build, whose
+# blocks stage everything but the table.
 WAVE_MAX_SMEM_BYTES = 232448
 # The least staging list and shadow queue (entries) a block runs with, the
 # chunk of lanes it runs at once, and its header (csrc/wavefront.cu:
@@ -187,26 +198,34 @@ def pack_tex_u8(scene: Scene):
 
 
 def wave_smem_bytes(n_geoms: int, n_cols: int, n_lights: int) -> int:
-    """Least dynamic shared memory of one block of the level
+    """Least dynamic shared memory of one block of the level's staged build
     (csrc/wavefront.cu::wave_layout): header, the staged shaded table and
     light table, then 16-byte aligned a list of WAVE_LIST_MIN live lanes,
     the winner row of each lane of a chunk of WAVE_CHUNK (4 bytes) and its
     count of blocked shadow rays per light (8 bytes, one a light), and a
-    queue of WAVE_QUEUE_MIN shadow rays (32 bytes each)."""
+    queue of WAVE_QUEUE_MIN shadow rays (32 bytes each).  The wide build's
+    is that of no geoms: n_geoms = 0."""
     tables = _SMEM_HEADER + 4 * (n_cols * n_geoms + 8 * max(n_lights, 1))
     return (-(-tables // 16) * 16 + 4 * (WAVE_LIST_MIN + WAVE_CHUNK)
             + 8 * WAVE_CHUNK + 32 * WAVE_QUEUE_MIN)
 
 
 def wave_cap_geoms(n_cols: int, n_lights: int) -> int:
-    """The most geoms whose table the level takes (`wave_smem_bytes` within
-    WAVE_MAX_SMEM_BYTES)."""
+    """The most geoms whose table a block of the level stages
+    (`wave_smem_bytes` within WAVE_MAX_SMEM_BYTES); a larger table takes
+    the wide build."""
     g = (WAVE_MAX_SMEM_BYTES - wave_smem_bytes(0, n_cols, n_lights)) // (4 * n_cols)
     while wave_smem_bytes(g + 1, n_cols, n_lights) <= WAVE_MAX_SMEM_BYTES:
         g += 1
     while wave_smem_bytes(g, n_cols, n_lights) > WAVE_MAX_SMEM_BYTES:
         g -= 1
     return g
+
+
+def wave_variant(n_geoms: int, n_cols: int, n_lights: int) -> str:
+    """The build of the level kernel a table takes: "staged" up to
+    `wave_cap_geoms`, "wide" above it."""
+    return "wide" if n_geoms > wave_cap_geoms(n_cols, n_lights) else "staged"
 
 
 def wave_refusal(scene: Scene, use_bvh: bool = False,
@@ -221,13 +240,11 @@ def wave_refusal(scene: Scene, use_bvh: bool = False,
     `WAVE_MAX_AREA_SAMPLES`)."""
     if use_bvh:
         return "use_bvh (BVH traversal)"
-    smem = wave_smem_bytes(
-        scene.n_geoms, SHADED_COLS + int(scene.has_textures), scene.n_lights
-    )
-    if smem > WAVE_MAX_SMEM_BYTES:
+    if scene.n_geoms == 0:
+        return "an empty table (no geoms)"
+    if scene.n_geoms > WAVE_MAX_GEOMS:
         return (
-            f"a shaded table of {scene.n_geoms} geoms ({smem} bytes of shared "
-            f"memory; a block has {WAVE_MAX_SMEM_BYTES})"
+            f"a shaded table of {scene.n_geoms} geoms (more than {WAVE_MAX_GEOMS})"
         )
     if scene.has_two_way:
         return "two-way materials (reflect and refract on one hit)"
@@ -726,11 +743,9 @@ def _level_args(out_prev, fuzz, tables: WaveTables, min_tp: float, out):
     """The launchers' common arguments, after the checks of what the kernel
     takes."""
     n_cols, g = tables.table.shape
-    smem = wave_smem_bytes(g, n_cols, tables.n_lights)
-    if smem > WAVE_MAX_SMEM_BYTES:
+    if g > WAVE_MAX_GEOMS:
         raise NotImplementedError(
-            f"a shaded table of {g} geoms needs {smem} bytes of shared "
-            f"memory; a block has {WAVE_MAX_SMEM_BYTES}"
+            f"a shaded table of {g} geoms (more than {WAVE_MAX_GEOMS})"
         )
     if len(tables.ranges) > WAVE_MAX_RANGES:
         raise NotImplementedError(f"more than {WAVE_MAX_RANGES} kind ranges")
@@ -782,6 +797,12 @@ def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float,
     out = torch.empty((rows, out_prev.shape[1]), dtype=torch.float32,
                       device=out_prev.device)
     args = _level_args(out_prev, fuzz, tables, min_tp, out)
+    # the wide build reads each transform from a (G, 12) geom-major copy of
+    # the table's rows 0..11; a null pointer launches the staged build
+    n_cols, g = tables.table.shape
+    xf = None
+    if wave_variant(g, n_cols, tables.n_lights) == "wide":
+        xf = tables.table[:12].T.contiguous()
     lib = _build.load()
     with torch.cuda.device(out_prev.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -789,7 +810,8 @@ def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float,
         # the launch's list of live lanes (scratch, no initial value)
         live = torch.empty(out_prev.shape[1], dtype=torch.int32, device=out_prev.device)
         err = lib.wave_level_launch(
-            *args, int(record), ctr.data_ptr(), live.data_ptr(), stream)
+            *args, int(record), None if xf is None else xf.data_ptr(),
+            ctr.data_ptr(), live.data_ptr(), stream)
     _raise_on(lib, err, "wave_level kernel launch")
     wave_level.launches += 1
     if record:
@@ -799,16 +821,18 @@ def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float,
 
 def wave_plan(tables: WaveTables, device=None) -> dict:
     """What the kernel launches with for this table on the current card:
-    list and queue capacities (entries), shared memory bytes of a block,
-    resident blocks per SM, SMs, threads per block."""
+    the build ("staged" or "wide", `wave_variant`), list and queue
+    capacities (entries), shared memory bytes of a block, resident blocks
+    per SM, SMs, threads per block."""
     n_cols, g = tables.table.shape
+    variant = wave_variant(g, n_cols, tables.n_lights)
     lib = _build.load()
     out = (ctypes.c_int * 6)()
     with torch.cuda.device(device or tables.table.device):
-        err = lib.wave_level_plan(g, n_cols, tables.n_lights, out)
+        err = lib.wave_level_plan(g, n_cols, tables.n_lights, int(variant == "wide"), out)
     _raise_on(lib, err, "wave_level plan")
     keys = ("list_cap", "queue_cap", "smem_bytes", "blocks_per_sm", "sms", "threads")
-    return dict(zip(keys, list(out)))
+    return dict(variant=variant, **dict(zip(keys, list(out))))
 
 
 def wave_level_lane(
@@ -820,15 +844,17 @@ def wave_level_lane(
     """The same level by the one-thread-per-lane schedule
     (csrc/wavefront.cu::wave_level_lane_kernel: every block stages the whole
     table, one thread runs one lane's three stages).  Only for measuring the
-    package's kernel against it (chip_smoke.py); CUDA tensors only.
-    `wave_level_lane.launches` counts its launches apart from
-    `wave_level.launches`."""
+    package's kernel against it (chip_smoke.py); CUDA tensors and tables a
+    block stages only.  `wave_level_lane.launches` counts its launches apart
+    from `wave_level.launches`."""
     if not out_prev.is_cuda:
         raise ValueError("wave_level_lane runs on the card only")
     _check_level_args(out_prev, fuzz, tables)
     out = torch.empty((OUT_ROWS, out_prev.shape[1]), dtype=torch.float32,
                       device=out_prev.device)
     args = _level_args(out_prev, fuzz, tables, min_tp, out)
+    if wave_variant(*tables.table.shape[::-1], tables.n_lights) == "wide":
+        raise NotImplementedError("the one-thread-per-lane schedule stages the whole table")
     lib = _build.load()
     with torch.cuda.device(out_prev.device):
         err = lib.wave_level_lane_launch(

@@ -240,7 +240,8 @@ HOST_BLOCKS = """
 namespace {
 struct Counts { long long lists, drains, queued, max_queue; };
 
-void drain(const rtt::WaveParams& p, const rtt::TabS& tb, const rtt::WaveSmem& s, int n,
+template <class Tab>
+void drain(const rtt::WaveParams& p, const Tab& tb, const rtt::WaveSmem& s, int n,
            Counts& c) {
   const int split = rtt::wave_split(n);
   for (int q = 0; q < n; ++q) {
@@ -253,7 +254,8 @@ void drain(const rtt::WaveParams& p, const rtt::TabS& tb, const rtt::WaveSmem& s
   if (n > c.max_queue) c.max_queue = n;
 }
 
-void run_list(const rtt::WaveParams& p, const rtt::TabS& tb, const rtt::WaveSmem& s, int n,
+template <class Tab>
+void run_list(const rtt::WaveParams& p, const Tab& tb, const rtt::WaveSmem& s, int n,
               int queue_cap, Counts& c) {
   const int T = rtt::kWaveThreads;
   const int split = rtt::wave_split(n);
@@ -310,12 +312,13 @@ extern "C" void wave_level_blocks_host(
     const int* ranges, int n_ranges, int glossy, int has_tex,
     int n_tex, int tex_h, int tex_w, float min_tp,
     int motion, int refraction, int area, int nss,
-    int n_blocks, int list_cap, int queue_cap, long long* counts, int record) {
-  const rtt::WaveParams p = rtt::make_params(
+    int n_blocks, int list_cap, int queue_cap, long long* counts, int record, const float* xf) {
+  rtt::WaveParams p = rtt::make_params(
       q, fuzz, table, lights, tex, twh, out, R, G, n_cols, n_lights, ranges,
       n_ranges, glossy, has_tex, n_tex, tex_h, tex_w, min_tp, motion, refraction, area, nss,
       record);
-  const rtt::WaveLayout lay = rtt::wave_layout(G, n_cols, n_lights, list_cap, queue_cap);
+  p.xf = xf;  // the wide build's transforms, or null (staged)
+  const rtt::WaveLayout lay = rtt::wave_layout(xf ? 0 : G, n_cols, n_lights, list_cap, queue_cap);
   const int T = rtt::kWaveThreads;
   // one shared memory per block; blocks take scan steps in turn
   std::vector<std::vector<rtt::F4>> bufs(n_blocks, std::vector<rtt::F4>(lay.bytes / sizeof(rtt::F4) + 1));
@@ -343,25 +346,35 @@ extern "C" void wave_level_blocks_host(
   }
   for (int b = 0; b < n_blocks; ++b) live.insert(live.end(), smem[b].list_lane, smem[b].list_lane + n_list[b]);
   // chunks of the whole list, each by one block with the table staged
+  // (or, wide, read where it lies)
   const rtt::WaveSmem& s = smem[0];
-  for (int k = 0; k < 3 * G; ++k) s.xf4[k] = rtt::staged_xf(table, G, k);
-  for (int k = 0; k < (n_cols - 12) * G; ++k) s.rest[k] = table[12 * G + k];
   for (int k = 0; k < 8 * n_lights; ++k) s.lights[k] = lights[k];
-  const rtt::TabS tb{s.xf4, s.rest, G};
   Counts c = {0, 0, 0, 0};
   const size_t chunk = (size_t)rtt::wave_chunk((long long)live.size(), n_blocks);
-  for (size_t first = 0; first < live.size(); first += chunk) {
-    const int n = (int)std::min<size_t>(chunk, live.size() - first);
-    for (int k = 0; k < n; ++k) s.list_lane[k] = live[first + k];
-    run_list(p, tb, s, n, queue_cap, c);
+  auto run_all = [&](const auto& tb) {
+    for (size_t first = 0; first < live.size(); first += chunk) {
+      const int n = (int)std::min<size_t>(chunk, live.size() - first);
+      for (int k = 0; k < n; ++k) s.list_lane[k] = live[first + k];
+      run_list(p, tb, s, n, queue_cap, c);
+    }
+  };
+  if (xf) {
+    run_all(rtt::TabW{xf, rtt::TabT{table, G}});
+  } else {
+    for (int k = 0; k < 3 * G; ++k) s.xf4[k] = rtt::staged_xf(table, G, k);
+    for (int k = 0; k < (n_cols - 12) * G; ++k) s.rest[k] = table[12 * G + k];
+    run_all(rtt::TabS{s.xf4, s.rest, G});
   }
   counts[0] = c.lists; counts[1] = c.drains; counts[2] = c.queued; counts[3] = c.max_queue;
 }
 
-// wave_plan: list and queue capacities and bytes a block takes within `limit`.
-extern "C" void wave_plan_host(int G, int n_cols, int n_lights, long long limit, long long* out) {
+// wave_plan: list and queue capacities and bytes a block takes within
+// `limit`, for the staged build or (wide) the one that stages no table.
+extern "C" void wave_plan_host(int G, int n_cols, int n_lights, long long limit, int wide,
+                               long long* out) {
   int list_cap, queue_cap;
-  out[2] = (long long)rtt::wave_plan(G, n_cols, n_lights, (size_t)limit, list_cap, queue_cap).bytes;
+  out[2] = (long long)rtt::wave_plan(wide ? 0 : G, n_cols, n_lights, (size_t)limit, list_cap,
+                                     queue_cap).bytes;
   out[0] = list_cap; out[1] = queue_cap;
   out[3] = rtt::kWaveThreads; out[4] = rtt::kListCapMin; out[5] = rtt::kQueueCapMin;
 }
@@ -389,14 +402,14 @@ def host_blocks(tmp_path_factory):
     lib.wave_level_blocks_host.argtypes = [
         p, p, p, p, p, p, p, ll, i, i, i,
         ctypes.POINTER(ctypes.c_int), i, i, i, i, i, i, ctypes.c_float, i, i, i, i,
-        i, i, i, ctypes.POINTER(ll), i,
+        i, i, i, ctypes.POINTER(ll), i, p,
     ]
-    lib.wave_plan_host.argtypes = [i, i, i, ll, ctypes.POINTER(ll)]
+    lib.wave_plan_host.argtypes = [i, i, i, ll, i, ctypes.POINTER(ll)]
     lib.wave_level_blocks_host.restype = lib.wave_plan_host.restype = None
 
-    def plan(g, n_cols, n_lights, limit=W.WAVE_MAX_SMEM_BYTES):
+    def plan(g, n_cols, n_lights, limit=W.WAVE_MAX_SMEM_BYTES, wide=False):
         res = (ll * 6)()
-        lib.wave_plan_host(g, n_cols, n_lights, limit, res)
+        lib.wave_plan_host(g, n_cols, n_lights, limit, int(wide), res)
         return dict(zip(("list_cap", "queue_cap", "bytes", "threads", "list_min",
                          "queue_min"), list(res)))
 
@@ -404,7 +417,11 @@ def host_blocks(tmp_path_factory):
               queue_cap=None, counts=None, record=False):
         r = out_prev.shape[1]
         n_cols, g = tables.table.shape
-        chosen = plan(g, n_cols, tables.n_lights)
+        # the build the launcher picks: wide (the geom-major transforms
+        # passed) for a table over the staged cap
+        wide = W.wave_variant(g, n_cols, tables.n_lights) == "wide"
+        xf = tables.table[:12].T.contiguous() if wide else None
+        chosen = plan(g, n_cols, tables.n_lights, wide=wide)
         rows = W.OUT_ROWS + (W.record_rows(tables.n_lights, tables.has_tex) if record else 0)
         out = torch.full((rows, r), float("nan"), dtype=torch.float32)
         did = (ll * 4)()
@@ -412,7 +429,7 @@ def host_blocks(tmp_path_factory):
             out_prev.data_ptr(), *host_operands(fuzz, tables), out.data_ptr(), r, g,
             n_cols, tables.n_lights, *host_flags(tables, min_tp), n_blocks,
             list_cap or chosen["list_cap"], queue_cap or chosen["queue_cap"], did,
-            int(record),
+            int(record), xf.data_ptr() if wide else None,
         )
         if counts is not None:
             counts.update(zip(("lists", "drains", "queued", "max_queue"), list(did)))
@@ -536,7 +553,12 @@ def test_block_schedule_shadow_queue_fills_in_rounds(host_blocks):
 def test_smem_formula_is_the_kernels(host_blocks):
     """kernels/wavefront.py::wave_smem_bytes is the layout of
     csrc/wavefront.cu at its least capacities, the kernel takes the
-    preferred ones where they fit, and the cap in geoms sits at the edge."""
+    preferred ones where they fit, and the cap in geoms sits at the edge.
+    The wide build's layout is the staged one's without the table
+    (`wave_smem_bytes(0, ...)`, whatever the table's size), it takes its
+    preferred capacities in a few tens of KB, and the build switches from
+    staged to wide exactly past `wave_cap_geoms`, where wave_tables starts
+    packing the geom-major transforms."""
     for g, n_cols, lights in [(0, 31, 1), (141, 32, 2), (1000, 31, 8), (1700, 32, 3)]:
         least = host_blocks.plan(g, n_cols, lights, limit=0)
         assert least["list_cap"] == W.WAVE_LIST_MIN and least["queue_cap"] == W.WAVE_QUEUE_MIN
@@ -544,10 +566,74 @@ def test_smem_formula_is_the_kernels(host_blocks):
         assert host_blocks.plan(g, n_cols, lights, limit=least["bytes"]) == least
         big = host_blocks.plan(g, n_cols, lights, limit=10 ** 9)
         assert big["list_cap"] > least["list_cap"] and big["bytes"] > least["bytes"]
+    for g, n_cols, lights in [(1724, 31, 2), (3001, 32, 2), (6144, 32, 8)]:
+        least = host_blocks.plan(g, n_cols, lights, limit=0, wide=True)
+        assert least["list_cap"] == W.WAVE_LIST_MIN and least["queue_cap"] == W.WAVE_QUEUE_MIN
+        assert least["bytes"] == W.wave_smem_bytes(0, n_cols, lights)
+        wide = host_blocks.plan(g, n_cols, lights, wide=True)
+        assert wide["list_cap"] > least["list_cap"] and wide["bytes"] <= 32 * 1024
     for n_cols in (31, 32):
-        cap = W.wave_cap_geoms(n_cols, 2)
-        assert W.wave_smem_bytes(cap, n_cols, 2) <= W.WAVE_MAX_SMEM_BYTES
-        assert W.wave_smem_bytes(cap + 1, n_cols, 2) > W.WAVE_MAX_SMEM_BYTES
+        for lights in (1, 2, 8):
+            cap = W.wave_cap_geoms(n_cols, lights)
+            assert W.wave_smem_bytes(cap, n_cols, lights) <= W.WAVE_MAX_SMEM_BYTES
+            assert W.wave_smem_bytes(cap + 1, n_cols, lights) > W.WAVE_MAX_SMEM_BYTES
+            assert W.wave_variant(cap, n_cols, lights) == "staged"
+            assert W.wave_variant(cap + 1, n_cols, lights) == "wide"
+            assert W.wave_variant(W.WAVE_MAX_GEOMS, n_cols, lights) == "wide"
+    from ray_tracying_tpu_torch import models
+
+    for n, variant in ((1722, "staged"), (1723, "wide")):
+        tables = W.wave_tables(models.get("sphere_field", n=n, res=(8, 6), device="cpu"))
+        assert W.wave_variant(*tables.table.shape[::-1], tables.n_lights) == variant
+
+
+def test_block_schedule_wide_table_equals_plain_on_every_level(host_blocks):
+    """A table over the staged cap (sphere_field(n=1800): 1,801 geoms,
+    untextured, over the 1,723 a block stages) through the wide build of the
+    block schedule (the table read where it lies, each transform from the
+    geom-major copy), every level of a trace against wave_level_plain."""
+    from test_torch_wave_wide import live_lanes_only
+
+    from ray_tracying_tpu_torch import models
+
+    scene = models.get("sphere_field", n=1800, res=(48, 27), device="cpu")
+    tables = W.wave_tables(scene)
+    assert tables.table.shape == (31, 1801)
+    assert W.wave_variant(1801, 31, tables.n_lights) == "wide"
+    o, d, tm = tile_rays(scene.camera, 6, 2, 48, 1, generator=torch.Generator().manual_seed(0))
+    common = dict(device="cpu", return_levels=True, tables=tables)
+    # the plain version on the lanes that enter live (lane-wise: the same
+    # function), so that the deep levels with no live lane cost nothing
+    _, plain = trace_wavefront(scene, o, d, tm, level_fn=live_lanes_only(W.wave_level_plain, []),
+                               **common)
+    _, host = trace_wavefront(scene, o, d, tm, level_fn=host_blocks, **common)
+    assert len(host) == len(plain) == 11
+    assert int((plain[0][7] > 0).sum()) > 1 and int((plain[1][7] > 0).sum()) > 0
+    for a, b in zip(host, plain):
+        assert not torch.isnan(a).any()
+        assert_same(a, b)
+
+
+def test_block_schedule_wide_edge_splits_short_chunks(host_blocks):
+    """The gate's edge, 6,144 geoms (sphere_field(n=6143)), one level of 40
+    live lanes through the wide block schedule: three blocks make chunks of
+    14 lanes, whose rows split over 8 threads each (slices of up to 768
+    rows of every range, merged by (t, row)); against wave_level_plain."""
+    from ray_tracying_tpu_torch import models
+
+    scene = models.get("sphere_field", n=6143, res=(40, 27), device="cpu")
+    tables = W.wave_tables(scene)
+    assert tables.table.shape[1] == W.WAVE_MAX_GEOMS
+    assert W.wave_variant(*tables.table.shape[::-1], tables.n_lights) == "wide"
+    o, d, tm = tile_rays(scene.camera, 8, 1, 40, 1, generator=torch.Generator().manual_seed(0))
+    n = o.shape[0]
+    boot = torch.cat([o.T, d.T, tm[None], torch.ones((2, n))]).contiguous()
+    counts = {}
+    a = host_blocks(boot, None, tables, counts=counts)
+    b = W.wave_level_plain(boot, None, tables)
+    assert_same(a, b)
+    assert counts["lists"] == 3  # chunks of 14, 14 and 12 lanes
+    assert int((b[12] > 0).sum()) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -293,7 +293,7 @@ ACCEL_ENTRIES = (
 ])
 def test_accelerated_renders_are_byte_equal_and_match_jax(monkeypatch, name, kwargs):
     """A small zoo scene at 1 spp on the CPU, down the general path (the
-    fused gate's size constant set below the scene): brute kernels, then
+    fused gate's geom cap set below the scene): brute kernels, then
     use_bvh (the traversal for closest hits, the brute any-hit for shadow
     rays), then with the cap set below the scene (chunk kernels for
     everything).  The three images are byte-equal, the reference's contract
@@ -307,7 +307,7 @@ def test_accelerated_renders_are_byte_equal_and_match_jax(monkeypatch, name, kwa
     from ray_tracying_tpu_torch.render import pipeline
 
     scene = models.get(name, res=(64, 36), device="cpu", **kwargs)
-    monkeypatch.setattr(wf, "WAVE_MAX_SMEM_BYTES", 1024)
+    monkeypatch.setattr(wf, "WAVE_MAX_GEOMS", 8)
     assert "shaded table" in wf.wave_refusal(scene)
     seen = _count_calls(monkeypatch, ACCEL_ENTRIES)
     opts = rt.RenderOptions(samples_sqrt=1)
@@ -354,9 +354,11 @@ def test_accelerated_renders_are_byte_equal_and_match_jax(monkeypatch, name, kwa
 
 
 def test_oversize_fused_scene_takes_the_general_path(monkeypatch):
-    """A fused-eligible scene whose shaded table passes the block's shared
-    memory is refused by the gate, by name, and rendered down the general
-    path; forcing the fused path still raises."""
+    """A fused-eligible scene whose shaded table passes a block's shared
+    memory still takes the fused level (its wide build, the same image);
+    one over the gate's geom cap (WAVE_MAX_GEOMS, the JAX package's) is
+    refused by name and rendered down the general path; forcing the fused
+    path then raises."""
     from ray_tracying_tpu_torch import models
     from ray_tracying_tpu_torch.kernels import wavefront as wf
     from ray_tracying_tpu_torch.render.integrator import trace_wavefront
@@ -366,16 +368,22 @@ def test_oversize_fused_scene_takes_the_general_path(monkeypatch):
     assert wf.wave_refusal(scene) is None
     opts = rt.RenderOptions(samples_sqrt=1)
     levels = []
-    real = wf.wave_level
-    import ray_tracying_tpu_torch.render.integrator as G
-    monkeypatch.setattr(G, "wave_level", lambda *a, **k: levels.append(1) or real(*a, **k))
+    real = wf.wave_level_plain  # what wave_level runs for a CPU tensor
+    monkeypatch.setattr(wf, "wave_level_plain", lambda *a, **k: levels.append(1) or real(*a, **k))
     fused = rt.render_to_srgb_u8(scene, opts, device="cpu")
-    small = wf.wave_smem_bytes(scene.n_geoms, 31, scene.n_lights) - 4
-    monkeypatch.setattr(wf, "WAVE_MAX_SMEM_BYTES", small)
+    assert len(levels) == 11
+    with monkeypatch.context() as m:
+        small = wf.wave_smem_bytes(scene.n_geoms, 31, scene.n_lights) - 4
+        m.setattr(wf, "WAVE_MAX_SMEM_BYTES", small)
+        assert wf.wave_variant(scene.n_geoms, 31, scene.n_lights) == "wide"
+        assert wf.wave_refusal(scene) is None
+        assert np.array_equal(rt.render_to_srgb_u8(scene, opts, device="cpu"), fused)
+        assert len(levels) == 22
+    monkeypatch.setattr(wf, "WAVE_MAX_GEOMS", scene.n_geoms - 1)
     assert "shaded table of 25 geoms" in wf.wave_refusal(scene)
     seen = _count_calls(monkeypatch, ACCEL_ENTRIES)
     general = rt.render_to_srgb_u8(scene, opts, device="cpu")
-    assert seen["closest_hit_tid_n"] == 11 and seen["occluded_tid"] == 22
+    assert seen["closest_hit_tid_n"] == 11 and seen["occluded_tid"] == 22 and len(levels) == 22
     diff = np.abs(fused.astype(int) - general.astype(int))
     assert diff.max() <= 1 and (diff > 0).mean() < 0.01
     o, d, tm = tile_rays(scene.camera, 0, 2, 48, 1)

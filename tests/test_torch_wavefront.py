@@ -368,8 +368,8 @@ def _area_scene():
 GATE_CASES = {
     "two-way materials": lambda: (_scene_with(has_refraction=True, has_two_way=True), 1),
     "more than 8 lights": lambda: (_scene_with(n_lights=9), 1),
-    # 3000 rows of 31 columns pass the 232,448 bytes a block has.
-    "a shaded table of 3000 geoms": lambda: (_scene_with(n_prims=3000), 1),
+    # 6145 rows: one over the JAX package's WAVE_MAX_GEOMS
+    "a shaded table of 6145 geoms": lambda: (_scene_with(n_prims=6145), 1),
     # 33 jittered shadow rays of one area light: over JAX's fuzz cap
     "more than 32 area-light samples": lambda: (_area_scene(), 33),
 }
@@ -472,31 +472,31 @@ def test_gate_refuses_committed_scenes_by_name():
                            light_samples=4) is None
 
 
-def test_gate_keeps_every_fused_scene_under_the_kernels_shared_memory(monkeypatch):
-    """The size gate reads the level kernel's own shared memory (table,
-    lights, the staging list, a chunk's bits and the shadow queue): every
-    committed scene, the flagship and the zoo's large scenes keep the path
-    they had when the gate counted the table and the lights alone, and the
-    largest table it takes stays within 10 % of what that formula allowed."""
+def test_gate_keeps_every_fused_scene_under_the_kernels_shared_memory():
+    """The size gate is the JAX package's, on the geom count: every
+    committed scene, the flagship and the zoo's large scenes are refused
+    exactly where `wave_supported` of the JAX package refuses them
+    (cube_city(2048), over what a block stages, is taken by the level's
+    wide build; sphere_field(20000) is over WAVE_MAX_GEOMS).  The largest
+    table a block stages (the level kernel's own shared memory: table,
+    lights, the staging list, a chunk's bits and the shadow queue) stays
+    within 10 % of what the table and the lights alone would allow."""
+    from ray_tracying_tpu import models as models_jax
     from ray_tracying_tpu_torch import models
 
-    def refusals():
-        out = {}
-        for path in sorted(os.listdir(os.path.join(REPO, "scenes"))) + ["flagship"]:
-            full = (os.path.join(REPO, "golden", "ASCII", "scene.json") if path == "flagship"
-                    else os.path.join(REPO, "scenes", path))
-            out[path] = wf.wave_refusal(rt.load_scene(full, textures_dir=TEX, device="cpu"))
-        for name, n in (("cube_city", 2048), ("sphere_field", 20000)):
-            out[name] = wf.wave_refusal(models.get(name, n=n, res=(8, 6), device="cpu"))
-        return out
-
-    new = refusals()
-    with monkeypatch.context() as m:
-        m.setattr(wf, "wave_smem_bytes", lambda g, c, lights: 4 * (c * g + 8 * max(lights, 1)))
-        old = refusals()
-    assert len(new) == 13 and new.keys() == old.keys()
-    assert {k: v is None for k, v in new.items()} == {k: v is None for k, v in old.items()}
-    assert new["flagship"] is None and "shaded table" in new["cube_city"]
+    new, jax_says = {}, {}
+    for path in sorted(os.listdir(os.path.join(REPO, "scenes"))) + ["flagship"]:
+        full = (os.path.join(REPO, "golden", "ASCII", "scene.json") if path == "flagship"
+                else os.path.join(REPO, "scenes", path))
+        new[path] = wf.wave_refusal(rt.load_scene(full, textures_dir=TEX, device="cpu"))
+        jax_says[path] = wf_jax.wave_supported(rt_jax.load_scene(full, textures_dir=TEX))
+    for name, n in (("cube_city", 2048), ("sphere_field", 20000)):
+        new[name] = wf.wave_refusal(models.get(name, n=n, res=(8, 6), device="cpu"))
+        jax_says[name] = wf_jax.wave_supported(models_jax.get(name, n=n, res=(8, 6)))
+    assert len(new) == 13 and new.keys() == jax_says.keys()
+    assert {k: v is None for k, v in new.items()} == jax_says
+    assert new["flagship"] is None and new["cube_city"] is None
+    assert "shaded table of 20001 geoms" in new["sphere_field"]
     for n_cols in (31, 32):
         for lights in (1, 2, 8):
             old_cap = (wf.WAVE_MAX_SMEM_BYTES // 4 - 8 * lights) // n_cols
