@@ -18,8 +18,11 @@ plain PyTorch version on the card (the fused level bit for bit on every
 level of a full-width flagship tile), measures the fused level's kernel
 against the one-thread-per-lane schedule of the same stages in turns
 (phase wave_redesign_ab: per level, and one flagship frame each, byte-equal),
-its staged build against its wide one on the flagship's table (phase
-wave_build_ab: per level, bit-equal),
+its staged build against its two wide ones on the flagship's table (phase
+wave_build_ab: per level, bit-equal), the wide tables' windowed build
+against the unculled one on every lane of every level (phase
+wide_window_ab: torch.equal, record mode too, in turns, with the tests a
+lane its counting build ran),
 the warp schedule of the three chunk kernels against the one-thread-per-lane
 sweep it replaced (phase sweep_redesign_ab: level-0, level-1 and shadow rays
 of the 20,001-geom scene, plain and textured, bit-equal) and the shadow
@@ -70,6 +73,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1494,26 +1498,42 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
     return accel_entries, city_anyhit, city_brute, city_frames, frame_seconds
 
 
+def ptxas_numbers(report):
+    """Registers and spill-store bytes of one entry function's ptxas lines."""
+    out = dict(registers=None, spill_store_bytes=None)
+    for ln in report:
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            out["spill_store_bytes"] = int(m.group(1))
+    return out
+
+
 def wave_plan_phase(W, _build, tables, scene):
-    """Phase wave_plan: what ptxas reports for the level kernel's two
-    builds (staged: wave_level_blocks_kernel<false>; wide, for a table over
-    what a block stages: <true>), the plan the flagship's table launches
-    with on this card (the staged build), and the largest table a block
-    stages and the gate takes."""
-    staged = ptxas_report(_build, "wave_level_blocks_kernelILb0E")
-    wide = ptxas_report(_build, "wave_level_blocks_kernelILb1E")
+    """Phase wave_plan: what ptxas reports for each build of the level
+    kernel (wave_level_blocks_kernel<kBuild*>: staged; the wide table's
+    unculled build, kept to be measured against; the windowed build and
+    its counting build), the plan the flagship's table
+    launches with on this card (the staged build), and the largest table a
+    block stages and the gate takes.  Returns the plan, with each build's
+    ptxas numbers under "builds"."""
+    reports = {b: ptxas_report(_build, f"wave_level_blocks_kernelILi{code}E")
+               for b, code in W.WAVE_BUILDS.items()}
     plan = W.wave_plan(tables)
     n_cols, g = tables.table.shape
-    say("wave_plan", kernel="wave_level_blocks_kernel", ptxas=staged, wide_ptxas=wide,
+    say("wave_plan", kernel="wave_level_blocks_kernel", ptxas=reports,
         geoms=g, n_cols=n_cols, lights=scene.n_lights, **plan,
         cap_geoms=W.wave_cap_geoms(n_cols, scene.n_lights),
         cap_geoms_untextured=W.wave_cap_geoms(31, scene.n_lights),
         cap_geoms_textured=W.wave_cap_geoms(32, scene.n_lights),
         gate_max_geoms=W.WAVE_MAX_GEOMS)
-    if _build.last_build["compiled"] and not (staged and wide):
+    if _build.last_build["compiled"] and not all(reports.values()):
         fail("ptxas reported nothing for a build of wave_level_blocks_kernel")
     if plan["variant"] != "staged":
         fail(f"the flagship's table takes the {plan['variant']} build")
+    plan["builds"] = {b: ptxas_numbers(r) for b, r in reports.items()}
     return plan
 
 
@@ -1576,58 +1596,62 @@ def wave_redesign_ab(rt, W, scene, tables, inputs, fuzz, opts, n_levels):
     return rows
 
 
-def wave_build_ab(W, _build, tables, inputs, fuzz, n_levels):
-    """Phase wave_build_ab: the level kernel's two builds on the flagship's
+def wave_build_ab(W, scene, tables, inputs, fuzz, n_levels):
+    """Phase wave_build_ab: the level kernel's builds on the flagship's
     table (141 geoms, which a block stages), on the inputs of every level
     of one full-width tile: the staged build, which wave_level launches for
-    it, against the wide build, launched here straight through the launcher
-    with the (G, 12) geom-major copy of the transforms (the package gives it
-    only a table over wave_cap_geoms; these launches are not counted).
-    Outputs torch.equal, ms of each by CUDA events in turns (staged, wide,
-    wide, staged), the wide build's plan.  Whether the staged build still
-    pays on a table it stages.  Returns the summary row."""
-    lib = _build.load()
+    it, against the unculled wide build and the windowed build (its windows
+    built here, `W.with_windows`), each launched through
+    `W.wave_level_build` (the package gives them only a table over
+    wave_cap_geoms; these launches are not counted).  Outputs torch.equal,
+    ms of each by CUDA events in turns (staged, wide, windowed, windowed,
+    wide, staged), the wide builds' plans.  Whether the staged build still
+    pays on a table it stages, and whether a window cull would.  Returns
+    the summary row."""
     n_cols, g = tables.table.shape
-    xf = tables.table[:12].T.contiguous()
-
-    def wide(prev, fz):
-        out = torch.empty((W.OUT_ROWS, prev.shape[1]), dtype=torch.float32, device=prev.device)
-        args = W._level_args(prev, fz, tables, 0.0, out)
-        stream = torch.cuda.current_stream().cuda_stream
-        ctr = W._coop.work_counters(prev.device, stream)
-        live = torch.empty(prev.shape[1], dtype=torch.int32, device=prev.device)
-        W._raise_on(lib, lib.wave_level_launch(*args, 0, xf.data_ptr(), ctr.data_ptr(),
-                                               live.data_ptr(), stream),
-                    "the wide build's launch")
-        return out
-
-    plan = (ctypes.c_int * 6)()
-    W._raise_on(lib, lib.wave_level_plan(g, n_cols, tables.n_lights, 1, plan), "wide plan")
+    win_tables = W.with_windows(tables, scene)
+    windowed = "windows"
+    calls = {"staged": lambda prev, fz: W.wave_level(prev, fz, tables),
+             "wide": lambda prev, fz: W.wave_level_build(prev, fz, tables, "unculled"),
+             "windowed": lambda prev, fz: W.wave_level_build(prev, fz, win_tables, windowed)}
+    plans = {k: W.wave_plan(win_tables, build=b)
+             for k, b in (("wide", "unculled"), ("windowed", windowed))}
     rows = []
     for lv in range(n_levels):
         prev, fz = inputs[lv], fuzz[lv]
-        equal = bool(torch.equal(wide(prev, fz), W.wave_level(prev, fz, tables)))
+        ref = calls["staged"](prev, fz)
+        equal = {k: bool(torch.equal(calls[k](prev, fz), ref)) for k in ("wide", "windowed")}
+        del ref
         t = {}
-        for turn, fn in (("staged", lambda: W.wave_level(prev, fz, tables)),
-                         ("wide", lambda: wide(prev, fz)), ("wide_again", lambda: wide(prev, fz)),
-                         ("staged_again", lambda: W.wave_level(prev, fz, tables))):
-            t[turn] = cuda_ms(fn, 5)
+        for turn, k in (("staged", "staged"), ("wide", "wide"), ("windowed", "windowed"),
+                        ("windowed_again", "windowed"), ("wide_again", "wide"),
+                        ("staged_again", "staged")):
+            t[turn] = cuda_ms(lambda: calls[k](prev, fz), 5)
         rows.append(dict(level=lv, live=int((prev[7] > 0).sum()),
                          staged_ms=[t["staged"], t["staged_again"]],
-                         wide_ms=[t["wide"], t["wide_again"]], bitwise_equal=equal))
+                         wide_ms=[t["wide"], t["wide_again"]],
+                         windowed_ms=[t["windowed"], t["windowed_again"]],
+                         bitwise_equal=equal["wide"], windowed_bitwise_equal=equal["windowed"]))
         say("wave_build_ab", **rows[-1])
-        if not equal:
-            fail(f"the wide build differs from the staged one on the flagship's level {lv}")
+        if not all(equal.values()):
+            fail(f"a wide build differs from the staged one on the flagship's level {lv}: "
+                 f"{equal}")
 
     def total(key, levels):
         return sum(sum(r[key]) / 2 for r in rows if r["level"] in levels)
 
     deep = range(1, n_levels)
-    summary = dict(geoms=g, lanes=inputs[0].shape[1],
+    summary = dict(geoms=g, lanes=inputs[0].shape[1], windows=win_tables.windows.shape[0],
                    level0_staged_ms=total("staged_ms", [0]), level0_wide_ms=total("wide_ms", [0]),
+                   level0_windowed_ms=total("windowed_ms", [0]),
                    levels_1_10_staged_ms=total("staged_ms", deep),
                    levels_1_10_wide_ms=total("wide_ms", deep),
-                   wide_smem_bytes=plan[2], wide_blocks_per_sm=plan[3], nvidia_smi=smi_line())
+                   levels_1_10_windowed_ms=total("windowed_ms", deep),
+                   wide_smem_bytes=plans["wide"]["smem_bytes"],
+                   wide_blocks_per_sm=plans["wide"]["blocks_per_sm"],
+                   windowed_smem_bytes=plans["windowed"]["smem_bytes"],
+                   windowed_blocks_per_sm=plans["windowed"]["blocks_per_sm"],
+                   nvidia_smi=smi_line())
     say("wave_build_ab", **summary)
     return summary
 
@@ -2217,19 +2241,23 @@ def widened_scene(rt, name, dev):
     return with_texture(field, load_demo(rt, "texture", dev))
 
 
-def level_bound(W, tables, n, need, hits):
+def level_bound(W, tables, n, need, hits, box_tests=0.0):
     """Least time of one level call, reckoned as the main path's: bytes =
     every lane's act read and its 13 rows written, a live lane's other 8
     queue rows and its fuzz rows read, the tables once; operations = the
     geom tests of the live lanes' closest hits and of the shadow rays cast
     (each up to its first blocker; an area light's nss a lane), at the
-    table's mean cost of a test, and the shading of the hit lanes."""
+    table's mean cost of a test, the shading of the hit lanes and
+    `box_tests` window box tests.  `need` counts every test the unculled
+    level runs, or (a wide table's second bound) only the tests a per-ray
+    window cull cannot avoid (`wave_level_plain`'s window counts)."""
     n_bytes = 4 * (n * (1 + W.OUT_ROWS) + need["live"] * (W.Q_ROWS - 1 + W.fuzz_rows(tables))) \
         + 4 * (tables.table.numel() + tables.lights.numel()) \
         + (tables.tex.numel() if tables.has_tex else 0)
     per_test = sum(FLOPS_PER_TEST[k] * (e - s) for k, s, e in tables.ranges) \
         / tables.table.shape[1]
-    flops = per_test * (need["closest_tests"] + need["shadow_tests"]) + FLOPS_PER_HIT_LANE * hits
+    flops = per_test * (need["closest_tests"] + need["shadow_tests"]) + FLOPS_PER_HIT_LANE * hits \
+        + FLOPS_PER_BOX_TEST * box_tests
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_F32_FLOPS * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
@@ -2267,13 +2295,112 @@ def lane_sample(lanes, stride, seed):
     return lanes[pick[: -(-len(lanes) // stride)].sort().values]
 
 
+def window_need(tables, rb, bound, first_pos=None):
+    """What a per-ray window cull cannot avoid, by ray: (geom tests, box
+    tests) of the rays `rb` over the windows of a wide table, in window
+    order.  A ray enters a window when the slab test of its box (exact,
+    without the kernel's slack) meets it no farther than `bound`
+    (Euclidean; -inf: a ray that casts nothing).  Without `first_pos`, a
+    closest hit: the rows of every window entered, a box test a window.
+    With it (each ray's first blocker as a place in the windows' visiting
+    order, G for none), a shadow ray: the rows of the windows entered
+    before the blocker's, the blocker's window up to and including it, and
+    a box test for each window up to the blocker's."""
+    from ray_tracying_tpu_torch.core import constants as C
+    from ray_tracying_tpu_torch.kernels import wavefront as W
+
+    first, count = W.window_spans(tables)
+    o = (rb.ox, rb.oy, rb.oz)
+    d = (rb.dx, rb.dy, rb.dz)
+    inf = float("inf")
+    cast = bound > -inf
+    tests = torch.zeros_like(bound, dtype=torch.int64)
+    boxes = torch.zeros_like(tests)
+    for w, box in enumerate(tables.windows[:, :6].tolist()):
+        t0 = torch.full_like(bound, -inf)
+        t1 = torch.full_like(bound, inf)
+        miss = torch.zeros_like(cast)
+        for a in range(3):
+            par = torch.abs(d[a]) < C.EPS_PARALLEL
+            ds = torch.where(par, 1.0, d[a])
+            s1 = (box[a] - o[a]) / ds
+            s2 = (box[a + 3] - o[a]) / ds
+            t0 = torch.maximum(t0, torch.where(par, -inf, torch.minimum(s1, s2)))
+            t1 = torch.minimum(t1, torch.where(par, inf, torch.maximum(s1, s2)))
+            miss = miss | (par & ((o[a] < box[a]) | (o[a] > box[a + 3])))
+        entered = cast & ~miss & (t0 <= t1) & (t1 >= 0.0) & (t0 * rb.dnorm <= bound)
+        lo, n = int(first[w]), int(count[w])
+        if first_pos is None:
+            tests += entered * n
+            boxes += cast
+            continue
+        reach = cast & (first_pos >= lo)
+        inside = first_pos < lo + n
+        tests += torch.where(reach & inside, first_pos - lo + 1, (reach & entered) * n)
+        boxes += reach
+    return tests, boxes
+
+
+@contextlib.contextmanager
+def window_need_counts(W, tables, live, need):
+    """For the second bound of a wide table's level: while one
+    wave_level_plain call runs (`live`: its lanes that enter live), count
+    into `need` what a per-ray window cull cannot avoid (`window_need`):
+    closest_window_tests, the rows of the windows whose box a live ray
+    enters no farther than its final best t, and closest_window_boxes, a
+    box test a window; shadow_window_tests, the rows of the windows a
+    shadow ray enters within its reach, visited in window order up to and
+    including its first blocker, and shadow_window_boxes, the windows it
+    reaches.  The plain version's two row loops (`W.closest_rows`,
+    `W.shadow_rows`) are swapped for the same loops that also note each
+    shadow ray's first blocker in the windows' order; its outputs do not
+    change."""
+    perm = tables.perm_rows[:, 15].contiguous().view(torch.int32).to(torch.int64)
+    pos = torch.empty_like(perm)
+    pos[perm] = torch.arange(len(perm), device=perm.device)
+    pos = pos.tolist()
+    inf = float("inf")
+    need.update(closest_window_tests=0, closest_window_boxes=0, shadow_window_tests=0,
+                shadow_window_boxes=0)
+    closest, shadow = W.closest_rows, W.shadow_rows
+
+    def closest_rows(rows, tb, rb):
+        best = closest(rows, tb, rb)
+        tests, _ = window_need(tables, rb, torch.where(live, best[0], -inf))
+        need["closest_window_tests"] += int(tests.sum())
+        need["closest_window_boxes"] += int(live.sum()) * tables.windows.shape[0]
+        return best
+
+    def shadow_rows(rows, ranges, srb, maxt, s_act, count):
+        blocked, tests = ~s_act, 0
+        first_pos = torch.full(maxt.shape, len(rows), dtype=torch.int64, device=maxt.device)
+        for kind, start, end in ranges:
+            for g in range(start, end):
+                if count:
+                    tests += int((~blocked).sum())
+                hit = W.geom_t(rows[g], srb, kind) <= maxt
+                blocked = blocked | hit
+                first_pos = torch.where(hit & (first_pos > pos[g]), pos[g], first_pos)
+        t, b = window_need(tables, srb, torch.where(s_act, maxt, -inf), first_pos)
+        need["shadow_window_tests"] += int(t.sum())
+        need["shadow_window_boxes"] += int(b.sum())
+        return blocked, tests
+
+    W.closest_rows, W.shadow_rows = closest_rows, shadow_rows
+    try:
+        yield need
+    finally:
+        W.closest_rows, W.shadow_rows = closest, shadow
+
+
 def sampled_plain(W, tables, samples):
     """wave_level_plain on the sampled lanes of each level of a trace the
     kernel ran (`samples`: by level, the lanes' queue rows `q`, fuzz rows
     `fz` and the kernel's output `out`), against the kernel's output.  The
     plain version is lane-wise, so each level's lanes are a plain run of
-    their own: levels 0 and 1 run alone (their counts size the bounds),
-    the deeper ones as one call of their lanes side by side (the plain
+    their own: levels 0 and 1 run alone (their counts size the bounds; a
+    wide table's also the window counts, `window_need_counts`), the
+    deeper ones as one call of their lanes side by side (the plain
     version's cost is per table row).  Yields (level, compare_level's
     result, the call's ms, the call's levels, its counts)."""
     groups = [[0], [1], list(range(2, len(samples)))]
@@ -2288,17 +2415,64 @@ def sampled_plain(W, tables, samples):
         if samples[grp[0]]["fz"] is not None:
             fz = torch.cat([samples[lv]["fz"] for lv in grp], dim=1).contiguous()
         need = {}
+        counted = window_need_counts(W, tables, q[7] > 0, need) \
+            if tables.windows is not None and grp[0] < 2 else contextlib.nullcontext()
         torch.cuda.synchronize()
         t0 = time.time()
-        b = W.wave_level_plain(q, fz, tables, stats=need)
+        with counted:
+            b = W.wave_level_plain(q, fz, tables, stats=need)
         torch.cuda.synchronize()
         ms = (time.time() - t0) * 1e3
         for lv, part in zip(grp, torch.split(b, widths, dim=1)):
             yield lv, compare_level(samples[lv]["out"], part)[0], ms, grp, need
 
 
+# Repetitions of each turn of phase wide_window_ab (the unculled build's
+# level 0 takes 0.2-0.55 s on the wide tables).
+WINDOW_REPS = 3
+
+
+def window_ab(W, prev, fz, tables, name, lv, base="unculled"):
+    """Phase wide_window_ab, one level of a tile: the windowed build
+    against `base`, both launched through `W.wave_level_build` (not
+    counted).  A wide table: the package's windowed build against the
+    unculled build (every lane tests every row; kept only to be measured
+    against).  A table a block stages, given its windows
+    (`W.with_windows`): the windowed build against the staged one, which
+    the package launches.  Outputs `torch.equal` on every lane, in
+    inference and in record mode; ms of each by CUDA events in turns
+    (windowed, base, base, windowed); the counting build's tests a live
+    lane (W.WINDOW_WORK), its output equal too.  Returns the row."""
+    def run(build, record=False, work=None):
+        return W.wave_level_build(prev, fz, tables, build, record=record, work=work)
+
+    live = int((prev[7] > 0).sum())
+    a = run("windows")
+    equal = bool(torch.equal(a, run(base)))
+    work = torch.zeros(len(W.WINDOW_WORK), dtype=torch.int64, device=prev.device)
+    count_equal = bool(torch.equal(a, run("windows_count", work=work)))
+    del a
+    rec_equal = bool(torch.equal(run("windows", record=True), run(base, record=True)))
+    t = {}
+    for turn, build in (("new", "windows"), ("old", base), ("old_again", base),
+                        ("new_again", "windows")):
+        t[turn] = cuda_ms(lambda: run(build), WINDOW_REPS)
+    row = dict(case=name, level=lv, lanes=prev.shape[1], live=live, build="windows", base=base,
+               windowed_ms=[t["new"], t["new_again"]],
+               **{f"{base}_ms": [t["old"], t["old_again"]]},
+               every_lane_equal=equal, record_rows_equal=rec_equal,
+               counting_build_equal=count_equal,
+               **{f"ran_{k}_per_live_lane": v / max(live, 1)
+                  for k, v in zip(W.WINDOW_WORK, work.tolist())})
+    say("wide_window_ab", **row)
+    if not (equal and rec_equal and count_equal):
+        fail(f"{name}: the windowed build differs from the {base} one on level {lv} "
+             f"(inference {equal}, record {rec_equal}, counting {count_equal})")
+    return row
+
+
 def levels_against_plain(W, I, name, scene, tables, o, d, tm, prev, gen, levels, row,
-                         stride, phase="fused_widened"):
+                         stride, phase="fused_widened", win_tables=None):
     """Part (a) of phase fused_widened (and phase wide_edge): every level of
     the tile by the kernel, each fed by the kernel's own previous level,
     against wave_level_plain on one in `stride` of the live lanes of that
@@ -2312,15 +2486,25 @@ def levels_against_plain(W, I, name, scene, tables, o, d, tm, prev, gen, levels,
     start and read after the last launch: row["launches"] is every launch
     of this check (each level once, one record-mode launch, 5 timed
     repetitions of levels 0 and 1), and the run fails if it is not that.
-    Updates `row`; returns the per-level rows."""
+    A wide table also runs phase wide_window_ab on every level (`window_ab`,
+    uncounted launches) and gets, for levels 0 and 1, a second bound: the
+    tests a per-ray window cull cannot avoid; `win_tables` (a staged table
+    with its windows) runs it against the staged build.  Updates `row`;
+    returns the per-level rows."""
     from ray_tracying_tpu_torch.render.integrator import level_fuzz
 
     dev = prev.device
     n = prev.shape[1]
     samples, ms = [], {}
+    wide = tables.windows is not None
+    ab = {}
     W.wave_level.launches = 0
     for lv in range(levels):
         fz = level_fuzz(tables, gen, n, dev)
+        if wide:
+            ab[lv] = window_ab(W, prev, fz, tables, name, lv)
+        elif win_tables is not None:
+            ab[lv] = window_ab(W, prev, fz, win_tables, name, lv, base="staged")
         a = W.wave_level(prev, fz, tables)
         live = prev[7] > 0
         idx = lane_sample(torch.nonzero(live).squeeze(1), stride, 1000 + lv)
@@ -2361,12 +2545,41 @@ def levels_against_plain(W, I, name, scene, tables, o, d, tm, prev, gen, levels,
                    hits=smp["hits"], spawned=smp["spawned"], plain_ms=plain_ms,
                    plain_call_levels=grp, dead_rows_zero=smp["dead_rows_zero"],
                    **dict(res, disagreeing_lanes_so_far=so_far))
+        if lv in ab:
+            base = ab[lv]["base"]
+            lvl.update({"windowed_ms": ab[lv]["windowed_ms"], f"{base}_ms": ab[lv][f"{base}_ms"]})
         if lv < 2:
             scale = smp["live"] / max(1, smp["q"].shape[1])
             full = dict(live=smp["live"], closest_tests=smp["live"] * tables.table.shape[1],
                         shadow_tests=need.get("shadow_tests", 0) * scale)
+            every = level_bound(W, tables, n, full, smp["hits"])
             lvl.update(ms=ms[lv], shadow_rays_estimated=need.get("shadow_rays", 0) * scale,
-                       **level_bound(W, tables, n, full, smp["hits"]))
+                       **every)
+            if wide:
+                # The windowed build the package launches runs no more than
+                # a cull lets through: its bound is the bound on the tests
+                # a per-ray window cull cannot avoid; the bound on every
+                # test (what the unculled build runs) keeps its own name.
+                per = 1.0 / max(1, smp["q"].shape[1])
+                culled = dict(live=smp["live"],
+                              closest_tests=need["closest_window_tests"] * scale,
+                              shadow_tests=need["shadow_window_tests"] * scale)
+                boxes = (need["closest_window_boxes"] + need["shadow_window_boxes"]) * scale
+                lvl.update(
+                    bound_all_tests_ms=every["bound_ms"], bound_all_tests_by=every["bound_by"],
+                    **level_bound(W, tables, n, culled, smp["hits"], box_tests=boxes),
+                    needed_closest_tests_per_live_lane=need["closest_window_tests"] * per,
+                    needed_shadow_tests_per_live_lane=need["shadow_window_tests"] * per,
+                    needed_box_tests_per_live_lane=(need["closest_window_boxes"]
+                                                    + need["shadow_window_boxes"]) * per)
+                row.update({f"level{lv}_{k}": lvl[k] for k in (
+                    "bound_all_tests_ms", "bound_all_tests_by",
+                    "needed_closest_tests_per_live_lane", "needed_shadow_tests_per_live_lane",
+                    "needed_box_tests_per_live_lane")})
+                row.update({f"level{lv}_windowed_ms": ab[lv]["windowed_ms"],
+                            f"level{lv}_unculled_ms": ab[lv]["unculled_ms"],
+                            **{f"level{lv}_{k}": ab[lv][k] for k in ab[lv]
+                               if k.startswith("ran_")}})
             row.update({f"level{lv}_ms": ms[lv], f"level{lv}_plain_ms": plain_ms,
                         f"level{lv}_bound_ms": lvl["bound_ms"],
                         f"level{lv}_bound_by": lvl["bound_by"], f"level{lv}_live": smp["live"],
@@ -2377,6 +2590,12 @@ def levels_against_plain(W, I, name, scene, tables, o, d, tm, prev, gen, levels,
             fail(f"{name}: kernel and plain version disagree on level {lv} "
                  f"({res['disagreeing_lanes_so_far']} of {smp['q'].shape[1]} checked lanes; "
                  f"dead lanes' rows zero: {smp['dead_rows_zero']})")
+    if ab:
+        row["window_ab"] = [{k: r[k] for k in ("level", "live", "base", "windowed_ms",
+                                               f"{r['base']}_ms")}
+                            for r in ab.values()]
+        row["window_ab_every_lane_equal_levels"] = sum(r["every_lane_equal"]
+                                                       for r in ab.values())
     return per_level
 
 
@@ -2452,8 +2671,12 @@ def fused_widened_phase(rt, W, CH, dev, n_levels):
                    nvidia_smi=smi)
         # every live lane of a table a block stages; one in WIDE_STRIDE, at
         # random, of a wide one
+        # the textured 1,501-geom table, which a block stages: its windows too,
+        # the windowed build measured against the staged one (wide_window_ab)
+        win_tables = W.with_windows(tables, scene) if name == "sphere_field_textured" else None
         per_level = levels_against_plain(W, I, name, scene, tables, o, d, tm, prev, gen,
-                                         levels, row, WIDE_STRIDE if wide else 1)
+                                         levels, row, WIDE_STRIDE if wide else 1,
+                                         win_tables=win_tables)
         row.update(
             bitwise_equal_levels=sum(lv_["bitwise_equal"] for lv_ in per_level),
             disagreeing_lanes=per_level[-1]["disagreeing_lanes_so_far"],
@@ -2941,7 +3164,8 @@ def main():
     _build.load()
     ptxas = [ln.strip() for ln in _build.last_build["log"].splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
-    # wave_level (blocks: the staged and the wide build) and its
+    # wave_level (blocks: the staged build, the wide table's unculled and
+    # windowed build and its counting build) and its
     # one-thread-per-lane schedule, three brute
     # kernels by one thread per lane and their three warp kernels; the two
     # one-thread-per-lane traversals and the traversal's warp kernel (closest
@@ -2949,8 +3173,8 @@ def main():
     # one-thread-per-lane sweeps (the chunked brute, and each of the three
     # chunk kernels with its counting build); seven warp sweeps (the three
     # chunk kernels, each with its counting build, and the chunked brute)
-    if sum("entry function" in ln for ln in ptxas) != 29 and _build.last_build["compiled"]:
-        fail("the build did not report twenty-nine kernels")
+    if sum("entry function" in ln for ln in ptxas) != 31 and _build.last_build["compiled"]:
+        fail("the build did not report thirty-one kernels")
     say("build", seconds=round(_build.last_build["seconds"], 2),
         compiled=_build.last_build["compiled"], flags=_build.last_build["flags"],
         library=os.path.relpath(_build.last_build["path"], REPO), ptxas=ptxas)
@@ -3267,7 +3491,7 @@ def main():
     ab = wave_redesign_ab(rt, W, scene, tables, inputs, fuzz, opts, n_levels)
     # The same inputs through the kernel's wide build: does the staged one
     # still pay on a table a block stages?
-    builds = wave_build_ab(W, _build, tables, inputs, fuzz, n_levels)
+    builds = wave_build_ab(W, scene, tables, inputs, fuzz, n_levels)
     # Record mode (differentiable rendering) of the same kernel on the same
     # inputs.
     per_test = sum(FLOPS_PER_TEST[k] * (e - s) for k, s, e in tables.ranges) \
@@ -3489,6 +3713,7 @@ def main():
         "lane_schedule_ms": sum(ab[0]["lane_ms"]) / 2,
         "lane_schedule_deep_ms": sum(ab[deep]["lane_ms"]) / 2,
         "flagship_wide_build": builds,
+        "builds_ptxas": plan["builds"],
         "blocks_per_sm": plan["blocks_per_sm"],
         "smem_bytes": plan["smem_bytes"],
         "record_mode": {
@@ -3519,7 +3744,7 @@ def main():
                 "level1_ms", "level1_bound_ms",
                 "lanes", "geoms", "light_samples", "disagreeing_lanes", "max_abs_err",
                 "fused_frame_seconds", "fused_unshrunk_frame_seconds", "general_frame_seconds",
-                "fused_launches")}
+                "fused_launches", "window_ab")}
             for name, row in widened.items() if row["variant"] == "staged"
         },
         # tables over what a block stages: the kernel's wide build
@@ -3532,7 +3757,18 @@ def main():
                     "fused_frame_seconds", "general_frame_seconds")},
                 plain_ms_every_nth_lane=row["level0_plain_ms"],
                 level1_plain_ms_every_nth_lane=row["level1_plain_ms"],
+                # the bound of the windowed build the package launches: the
+                # tests a per-ray window cull cannot avoid (the bound on
+                # every test, what the unculled build runs, apart)
                 bound_ms=row["level0_bound_ms"], bound_by=row["level0_bound_by"],
+                bound_all_tests_ms=row["level0_bound_all_tests_ms"],
+                # the windowed build against the unculled one (wide_window_ab),
+                # the tests a live lane it needs and the counting build ran
+                **{k: v for k, v in row.items()
+                   if k.startswith(("level0_", "level1_"))
+                   and any(x in k for x in ("windowed", "unculled", "needed", "all_tests",
+                                            "ran_"))},
+                window_ab=row.get("window_ab"),
                 launches=row.get("fused_launches", row["launches"]),
                 launches_note=("the fused frame's, counted (fused_widened)"
                                if "fused_launches" in row else

@@ -26,9 +26,8 @@
 //   columns 12.. by one bulk asynchronous copy on an mbarrier, while its
 //   threads lay out the transforms (three 16-byte words a geom) and scan.
 //   A table over what a block can stage (up to the gate's 6,144 geoms)
-//   takes the kernel's wide build instead, which reads it from global
-//   memory through the L2, each transform as three 16-byte loads of a
-//   geom-major copy (TabW); the schedule is the same.
+//   takes the kernel's windowed build instead (below); the schedule is the
+//   same.
 // - Phase 1, scan.  Blocks take steps of kScanLanes lanes from a counter,
 //   four lanes a thread.  A dead lane gets its 13 zero rows at once, as
 //   16-byte stores where four neighbours are dead, and costs nothing more.
@@ -48,9 +47,27 @@
 //   blocked rays per light (one byte a light).
 //   finish: the winner's normal from the same geom test on its row,
 //   shading in light order with those counts, texture, spawn, 13 rows.
+// The windowed build, for a wide table.  Where every lane tests every geom,
+// a wide table's level is bound by those tests (2,049-6,144 a ray and as
+// many a shadow ray), and reading the table through the L2 costs little
+// beside them; only fewer tests help.  So the host sorts each kind range's
+// rows by the Morton code of their boxes and cuts them into windows of
+// kWinRows rows, each with its box and graze (kernels/wavefront.py::
+// window_arrays), and packs a permuted geom-major copy of the rows; a block
+// stages the window records.  In the hit stage a warp walks the windows of
+// each range in Morton order: each lane box-tests the window against its
+// rays' best t so far (box_hit, geom.cuh: the slack keeps every hit the
+// geom test could report), and the warp runs the window's rows (16-byte
+// read-only loads) when some lane wants it; the winner merges by (t,
+// original row), so the visiting order changes nothing.  The shadow
+// queue's rays walk the windows in row order, each lane until its first
+// blocker, the warp until no lane is open.  The shading and finish stages
+// read the table where it lies, in its own row order.
 // Only who computes which lane, and when, differs from wave_lane (one
-// thread, one lane, all three stages): every lane's arithmetic is the
-// same, so both equal the plain version bit for bit.  The stage functions
+// thread, one lane, all three stages), and the windowed build only skips
+// rows whose hit is provably farther than the bound: every lane's
+// arithmetic is the same, so every build equals the plain version bit for
+// bit.  The stage functions
 // are plain C++; a host compiler builds them, and
 // tests/test_torch_kernel_source.py runs this block schedule with g++.
 // One build serves every scene: kinds, light count, glossy, texture,
@@ -112,6 +129,29 @@ constexpr int kMaxSplit = 8;
 constexpr int kSmemHeader = 256;  // mbarrier, per-warp counts
 constexpr uint32_t kNoRow = 0xffffu;
 
+// Builds of wave_level_blocks_kernel: the table staged in each block; a
+// wide table read whole by every lane (the first wide build, kept only to
+// be measured against); a wide table culled by window, its rows read by
+// 16-byte read-only loads; the same counting the tests it runs (WinWork).
+constexpr int kBuildStaged = 0;
+constexpr int kBuildUnculled = 1;
+constexpr int kBuildWindows = 2;
+constexpr int kBuildWindowsCount = 3;
+RTT_HD constexpr bool build_windowed(int b) { return b >= kBuildWindows; }
+
+// A wide table's windows (kernels/wavefront.py::window_arrays): within each
+// kind range the rows in the Morton order of their boxes, kWinRows
+// consecutive ones a window.  A permuted row is kWinCols floats (transform
+// 12 | velocity 3 | its original row, int bits); a window's record kWinRec
+// (box 6 | graze | first permuted row | count << 16, int bits).  Up to the
+// gate's 6,144 geoms: 192 full windows and a partial one a range.
+constexpr int kWinRows = 32;
+constexpr int kWinCols = 16;
+constexpr int kWinRec = 8;
+constexpr int kMaxWindows = 6144 / kWinRows + kMaxRanges;
+// The counting build's counters (kernels/wavefront.py::WINDOW_WORK).
+constexpr int kWinWork = 5;
+
 struct WaveParams {
   const float* q;         // (>= 9, R) previous level / bootstrap
   const float* fuzz;      // (>= 3, R) unit-ball rows (glossy) or null
@@ -136,6 +176,14 @@ struct WaveParams {
   int nss;                // shadow rays per area light
   float inv_nss;          // 1 / nss, in f32
   int fuzz_row[kMaxLights];  // fuzz row of sample 0 of each area light
+  // A windowed build's operands, else null / 0: the permuted rows (G,
+  // kWinCols), the window records (n_win, kWinRec), range r's windows
+  // [wbeg[r], wbeg[r + 1]); the counting build's kWinWork counters.
+  const float* xp;
+  const float* win;
+  int n_win;
+  int wbeg[kMaxRanges + 1];
+  unsigned long long* work;
 };
 
 // Shadow rays of light li: nss for an area light, one for a point light.
@@ -332,6 +380,85 @@ RTT_DEV void closest_t_range2(const Tab& tb, int start, int end, const Ray& a, c
     if (t1 < ta) { ta = t1; rowa = g; }
     if (t2 < tb_) { tb_ = t2; rowb = g; }
   }
+}
+
+// ------------------------------------------------------ the windowed tables
+
+RTT_DEV int win_first(const float* rec) { return (int)(f32_as_u32(rec[7]) & 0xffffu); }
+RTT_DEV int win_count(const float* rec) { return (int)(f32_as_u32(rec[7]) >> 16); }
+
+// Permuted rows as a table view: row j (a permuted index) at rows +
+// kWinCols * j in global memory, read by 16-byte read-only loads.  col()
+// serves the velocity columns 12..14 of a moving sphere's test.
+struct TabP {
+  const float* rows;
+  RTT_DEV const float* at(int j) const { return rows + kWinCols * (size_t)j; }
+  RTT_DEV Xform xf(int j) const {
+    const float* a = at(j);
+    return xform_of(ldg4(a), ldg4(a + 4), ldg4(a + 8));
+  }
+  RTT_DEV float col(int c, int j) const { return at(j)[c]; }
+  RTT_DEV int orig(int j) const { return (int)f32_as_u32(at(j)[15]); }
+};
+
+// Rows first + j0, first + j0 + step, ... below first + count of a window
+// for ray r: the running closest (t, original row), merged by (t, row)
+// lexicographically (merge_hit), so that whatever order the rows come in
+// the winner is the row-order strict-< loop's.  Returns the rows run.
+template <int KIND, bool MOTION>
+RTT_DEV int win_closest(const TabP& tp, int first, int count, int j0, int step, const Ray& r,
+                        float& t, int& row) {
+  float nx, ny, nz;
+  int ran = 0;
+  for (int j = first + j0; j < first + count; j += step, ++ran) {
+    const float tt = tab_geom_t<KIND, false, MOTION>(tp, j, r, nx, ny, nz);
+    if (tt < t || (tt == t && tp.orig(j) < row)) { t = tt; row = tp.orig(j); }
+  }
+  return ran;
+}
+
+// Two rays through every row of a window, one read of each row.
+template <int KIND, bool MOTION>
+RTT_DEV void win_closest2(const TabP& tp, int first, int count, const Ray& a, const Ray& b,
+                          float& ta, int& ra, float& tb, int& rb) {
+  float nx, ny, nz;
+  for (int j = first; j < first + count; ++j) {
+    const float t1 = tab_geom_t<KIND, false, MOTION>(tp, j, a, nx, ny, nz);
+    const float t2 = tab_geom_t<KIND, false, MOTION>(tp, j, b, nx, ny, nz);
+    if (t1 < ta || (t1 == ta && tp.orig(j) < ra)) { ta = t1; ra = tp.orig(j); }
+    if (t2 < tb || (t2 == tb && tp.orig(j) < rb)) { tb = t2; rb = tp.orig(j); }
+  }
+}
+
+// A thread's rows of a window in the hit stage: both rays (vb; then j0 = 0,
+// step = 1), or ray a's slice.  Returns the rows run for each valid ray.
+template <int KIND, bool MOTION>
+RTT_DEV int win_rows_hit(const TabP& tp, int first, int count, const Ray& a, bool va,
+                         const Ray& b, bool vb, int j0, int step, float& ta, int& ra,
+                         float& tb, int& rb) {
+  if (vb) {
+    win_closest2<KIND, MOTION>(tp, first, count, a, b, ta, ra, tb, rb);
+    return count;
+  }
+  return va ? win_closest<KIND, MOTION>(tp, first, count, j0, step, a, ta, ra) : 0;
+}
+
+// A shadow ray's slice of a window: true at its first blocker (t <= maxt),
+// where it leaves.  Shadow rays carry time 0: nothing moves.  Returns the
+// rows run.
+template <int KIND>
+RTT_DEV int win_any(const TabP& tp, int first, int count, int j0, int step, const Ray& r,
+                    float maxt, bool& blocked) {
+  float nx, ny, nz;
+  int ran = 0;
+  for (int j = first + j0; j < first + count; j += step) {
+    ++ran;
+    if (tab_geom_t<KIND, false, false>(tp, j, r, nx, ny, nz) <= maxt) {
+      blocked = true;
+      return ran;
+    }
+  }
+  return ran;
 }
 
 // Table row of the closest hit, -1 for none.
@@ -784,12 +911,13 @@ RTT_DEV void wave_lane(const WaveParams& p, const float* tab, const float* light
 // counts of blocked shadow rays (kChunk entries of two words, one byte a
 // light: an area light's nss <= 32 rays fit), the queue (two 16-byte words
 // a shadow ray: origin and d.x; d.y, d.z, max t, and the chunk entry |
-// light << 16).
+// light << 16), and a windowed build's window records (n_win).
 struct WaveLayout {
-  size_t xf4, rest, lights, list_lane, list_meta, blocked, queue, bytes;
+  size_t xf4, rest, lights, list_lane, list_meta, blocked, queue, win, bytes;
 };
 
-RTT_HD WaveLayout wave_layout(int G, int n_cols, int n_lights, int list_cap, int queue_cap) {
+RTT_HD WaveLayout wave_layout(int G, int n_cols, int n_lights, int list_cap, int queue_cap,
+                              int n_win = 0) {
   WaveLayout o;
   o.xf4 = kSmemHeader;
   o.rest = o.xf4 + 48 * (size_t)G;
@@ -799,20 +927,21 @@ RTT_HD WaveLayout wave_layout(int G, int n_cols, int n_lights, int list_cap, int
   o.list_meta = o.list_lane + 4 * (size_t)list_cap;
   o.blocked = o.list_meta + 4 * (size_t)kChunk;
   o.queue = o.blocked + 8 * (size_t)kChunk;
-  o.bytes = o.queue + 32 * (size_t)queue_cap;
+  o.win = o.queue + 32 * (size_t)queue_cap;
+  o.bytes = o.win + 4 * (size_t)kWinRec * n_win;
   return o;
 }
 
 // The preferred capacities where they fit `limit` bytes, else the least.
 RTT_HD WaveLayout wave_plan(int G, int n_cols, int n_lights, size_t limit,
-                             int& list_cap, int& queue_cap) {
+                            int& list_cap, int& queue_cap, int n_win = 0) {
   list_cap = kListCap;
   queue_cap = kQueueCap;
-  WaveLayout o = wave_layout(G, n_cols, n_lights, list_cap, queue_cap);
+  WaveLayout o = wave_layout(G, n_cols, n_lights, list_cap, queue_cap, n_win);
   if (o.bytes > limit) {
     list_cap = kListCapMin;
     queue_cap = kQueueCapMin;
-    o = wave_layout(G, n_cols, n_lights, list_cap, queue_cap);
+    o = wave_layout(G, n_cols, n_lights, list_cap, queue_cap, n_win);
   }
   return o;
 }
@@ -829,6 +958,7 @@ struct WaveSmem {
   uint32_t* list_meta;
   uint32_t* blocked;  // entry e: words 2e (lights 0-3) and 2e + 1 (4-7)
   F4* queue;
+  float* win;
 };
 
 RTT_DEV WaveSmem wave_smem(unsigned char* base, const WaveLayout& o) {
@@ -844,6 +974,7 @@ RTT_DEV WaveSmem wave_smem(unsigned char* base, const WaveLayout& o) {
   s.list_meta = reinterpret_cast<uint32_t*>(base + o.list_meta);
   s.blocked = reinterpret_cast<uint32_t*>(base + o.blocked);
   s.queue = reinterpret_cast<F4*>(base + o.queue);
+  s.win = reinterpret_cast<float*>(base + o.win);
   return s;
 }
 
@@ -945,6 +1076,17 @@ RTT_DEV bool queue_blocked(const WaveParams& p, const Tab& tb, const WaveSmem& s
   return wave_blocked(p, tb, a.x, a.y, a.z, a.w, b.x, b.y, b.z, j, split);
 }
 
+// Queued shadow ray q as a ray (time 0) and its reach, with its list entry
+// and light.
+RTT_DEV void queue_ray(const WaveSmem& s, int q, Ray& r, float& maxt, int& e, int& li) {
+  const F4 a = s.queue[2 * q], b = s.queue[2 * q + 1];
+  const uint32_t tag = f32_as_u32(b.w);
+  e = (int)(tag & 0xffffu);
+  li = (int)(tag >> 16);
+  r = make_ray(a.x, a.y, a.z, a.w, b.x, b.y);
+  maxt = b.z;
+}
+
 template <class Tab>
 RTT_DEV void finish_entry(const WaveParams& p, const Tab& tb, const WaveSmem& s, int e) {
   const size_t i = (size_t)s.list_lane[e];
@@ -990,6 +1132,8 @@ inline WaveParams make_params(
     p.fuzz_row[li] = row;
     if (li < n_lights && ((p.area >> li) & 1u)) row += 3 * p.nss;
   }
+  p.xp = nullptr; p.win = nullptr; p.n_win = 0; p.work = nullptr;
+  for (int k = 0; k <= kMaxRanges; ++k) p.wbeg[k] = 0;
   return p;
 }
 
@@ -1018,14 +1162,209 @@ __global__ void wave_level_lane_kernel(const WaveParams p) {
   if (i < p.R) wave_lane(p, tab, lights, (size_t)i);
 }
 
+// ------------------------------------------------ the windowed builds
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// A lane's share of what the counting build counts in one walk.
+struct WinCount {
+  uint32_t tests, wanted, boxes;
+};
+
+__device__ __forceinline__ void win_flush(const WaveParams& p, int at, uint32_t x) {
+  const uint32_t sum = __reduce_add_sync(kFullMask, x);
+  if ((threadIdx.x & 31) == 0 && sum) atomicAdd(&p.work[at], (unsigned long long)sum);
+}
+
+// The hit stage of a windowed build, by a warp, over the windows of ranges
+// of kind KIND [w0, w1): each lane box-tests each window against its rays'
+// best t so far (box_hit: <=, so a window that can only tie is run), and
+// the warp runs the window's rows when some lane wants it; otherwise the
+// window cost a box test a ray.  Windows in Morton order, the running
+// best; the merge by (t, original row) makes the order free.
+template <int BUILD, int KIND, bool MOTION>
+__device__ void win_hit_range(const WaveParams& p, const WaveSmem& s, int w0,
+                              int w1, const Ray& a, bool va, const Ray& b, bool vb, int j0,
+                              int step, float& ta, int& ra, float& tb, int& rb, WinCount& c) {
+  for (int w = w0; w < w1; ++w) {
+    const float* rec = s.win + kWinRec * w;
+    const bool wa = va && box_hit(rec, a, ta, rec[6]);
+    const bool wb = vb && box_hit(rec, b, tb, rec[6]);
+    if constexpr (BUILD == kBuildWindowsCount) c.boxes += (uint32_t)va + (uint32_t)vb;
+    if (!__any_sync(kFullMask, wa || wb)) continue;
+    const int ran = win_rows_hit<KIND, MOTION>(TabP{p.xp}, win_first(rec), win_count(rec), a,
+                                               va, b, vb, j0, step, ta, ra, tb, rb);
+    if constexpr (BUILD == kBuildWindowsCount) {
+      c.tests += (uint32_t)ran * ((uint32_t)va + (uint32_t)vb);
+      c.wanted += (uint32_t)ran * ((uint32_t)wa + (uint32_t)wb);
+    }
+  }
+}
+
+// A warp's hit stage over every range: rays a (va) and b (vb), or ray a's
+// slice j0 of `step` of each window's rows.
+template <int BUILD, bool MOTION>
+__device__ void win_hit(const WaveParams& p, const WaveSmem& s, const Ray& a,
+                        bool va, const Ray& b, bool vb, int j0, int step, float& ta, int& ra,
+                        float& tb, int& rb) {
+  WinCount c = {0, 0, 0};
+  for (int r = 0; r < p.n_ranges; ++r) {
+    const int w0 = p.wbeg[r], w1 = p.wbeg[r + 1];
+    switch (p.kind[r]) {
+      case kKindSphere:
+        win_hit_range<BUILD, kKindSphere, MOTION>(p, s, w0, w1, a, va, b, vb, j0, step, ta,
+                                                  ra, tb, rb, c);
+        break;
+      case kKindCube:
+        win_hit_range<BUILD, kKindCube, false>(p, s, w0, w1, a, va, b, vb, j0, step, ta, ra,
+                                               tb, rb, c);
+        break;
+      case kKindRect:
+        win_hit_range<BUILD, kKindRect, false>(p, s, w0, w1, a, va, b, vb, j0, step, ta, ra,
+                                               tb, rb, c);
+        break;
+      default:
+        win_hit_range<BUILD, kKindPlane, false>(p, s, w0, w1, a, va, b, vb, j0, step, ta,
+                                                ra, tb, rb, c);
+        break;
+    }
+  }
+  if constexpr (BUILD == kBuildWindowsCount) {
+    win_flush(p, 0, c.tests);
+    win_flush(p, 1, c.wanted);
+    win_flush(p, 2, c.boxes);
+  }
+}
+
+// Any-hit over the windows [w0, w1) of a range of kind KIND, in row order:
+// a window is skipped unless some open lane enters its box within its
+// reach; a blocked lane is done.  False once no lane of the warp is open.
+template <int BUILD, int KIND>
+__device__ bool win_any_range(const WaveParams& p, const WaveSmem& s, int w0,
+                              int w1, const Ray& r, float maxt, bool& open, bool& blocked,
+                              int j0, int step, WinCount& c) {
+  for (int w = w0; w < w1; ++w) {
+    if (!__any_sync(kFullMask, open)) return false;
+    const float* rec = s.win + kWinRec * w;
+    const bool want = open && box_hit(rec, r, maxt, rec[6]);
+    if constexpr (BUILD == kBuildWindowsCount) c.boxes += (uint32_t)open;
+    if (!__any_sync(kFullMask, want)) continue;
+    bool hit = false;
+    const int ran =
+        want ? win_any<KIND>(TabP{p.xp}, win_first(rec), win_count(rec), j0, step, r, maxt, hit)
+             : 0;
+    if (hit) {
+      blocked = true;
+      open = false;
+    }
+    if constexpr (BUILD == kBuildWindowsCount) c.tests += (uint32_t)ran;
+  }
+  return true;
+}
+
+// A warp's shadow rays (one a lane, or lane's slice j0 of `step`): blocked
+// iff some geom has t <= maxt; the warp leaves once no lane is open.
+template <int BUILD>
+__device__ bool win_blocked(const WaveParams& p, const WaveSmem& s, const Ray& r,
+                            float maxt, bool open, int j0, int step) {
+  WinCount c = {0, 0, 0};
+  bool blocked = false, more = true;
+  for (int k = 0; k < p.n_ranges && more; ++k) {
+    const int w0 = p.wbeg[k], w1 = p.wbeg[k + 1];
+    switch (p.kind[k]) {
+      case kKindSphere:
+        more = win_any_range<BUILD, kKindSphere>(p, s, w0, w1, r, maxt, open, blocked, j0,
+                                                 step, c);
+        break;
+      case kKindCube:
+        more = win_any_range<BUILD, kKindCube>(p, s, w0, w1, r, maxt, open, blocked, j0,
+                                               step, c);
+        break;
+      case kKindRect:
+        more = win_any_range<BUILD, kKindRect>(p, s, w0, w1, r, maxt, open, blocked, j0,
+                                               step, c);
+        break;
+      default:
+        more = win_any_range<BUILD, kKindPlane>(p, s, w0, w1, r, maxt, open, blocked, j0,
+                                                step, c);
+        break;
+    }
+  }
+  if constexpr (BUILD == kBuildWindowsCount) {
+    win_flush(p, 3, c.tests);
+    win_flush(p, 4, c.boxes);
+  }
+  return blocked;
+}
+
+// Block-wide, a windowed build's hit stage on the n lanes of the list.  A
+// long list: each warp takes 64 neighbouring entries (two a thread, 32
+// apart); a list of kWaveThreads or fewer: one entry a thread; a short one
+// (split > 1): each entry's rows of every window split over `split`
+// neighbouring threads, merged by (t, row).  Every thread takes part in
+// its warp's walk.
+template <int BUILD, bool MOTION>
+__device__ void win_hit_stage(const WaveParams& p, const WaveSmem& s, int n) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = wave_split(n);
+  const Ray none = make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+  float ta = kInf, tb = kInf;
+  int ra = -1, rb = -1;
+  if (split == 1) {
+    const int ea = n > kWaveThreads ? 64 * warp + lane : tid;
+    const int eb = n > kWaveThreads ? ea + 32 : n;
+    const bool va = ea < n, vb = eb < n;
+    const Ray a = va ? lane_ray_m<MOTION>(p, (size_t)s.list_lane[ea]) : none;
+    const Ray b = vb ? lane_ray_m<MOTION>(p, (size_t)s.list_lane[eb]) : none;
+    win_hit<BUILD, MOTION>(p, s, a, va, b, vb, 0, 1, ta, ra, tb, rb);
+    if (va) s.list_meta[ea] = meta_of(ra);
+    if (vb) s.list_meta[eb] = meta_of(rb);
+    return;
+  }
+  const bool va = tid < n * split;
+  const Ray a = va ? lane_ray_m<MOTION>(p, (size_t)s.list_lane[tid / split]) : none;
+  win_hit<BUILD, MOTION>(p, s, a, va, none, false, tid % split, split, ta, ra, tb, rb);
+  for (int o = split / 2; o > 0; o >>= 1) {
+    merge_hit(ta, ra, __shfl_xor_sync(kFullMask, ta, o), __shfl_xor_sync(kFullMask, ra, o));
+  }
+  if (va && tid % split == 0) s.list_meta[tid / split] = meta_of(ra);
+}
+
 // Block-wide: test the n queued shadow rays on dense warps and count the
-// blocked ones of each lane and light.
-template <class Tab>
+// blocked ones of each lane and light.  A windowed build walks the windows
+// with a warp's cull; the others run every row of `tb`.
+template <int BUILD, class Tab>
 __device__ void drain_queue(const WaveParams& p, const Tab& tb, const WaveSmem& s, int n) {
   __syncthreads();  // the queue is complete
   const int split = wave_split(n);
   const int t = threadIdx.x;
-  if (split == 1) {
+  if constexpr (build_windowed(BUILD)) {
+    const Ray none = make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+    if (split == 1) {
+      // rounds of one ray a thread; every thread of a warp walks together
+      for (int base = 0; base < n; base += kWaveThreads) {
+        const int q = base + t;
+        int e = 0, li = 0;
+        Ray r = none;
+        float maxt = 0.0f;
+        if (q < n) queue_ray(s, q, r, maxt, e, li);
+        if (win_blocked<BUILD>(p, s, r, maxt, q < n, 0, 1)) {
+          atomicAdd(&s.blocked[blocked_word(e, li)], blocked_one(li));
+        }
+      }
+    } else {
+      int e = 0, li = 0;
+      Ray r = none;
+      float maxt = 0.0f;
+      const bool mine = t < n * split;
+      if (mine) queue_ray(s, t / split, r, maxt, e, li);
+      unsigned blocked = win_blocked<BUILD>(p, s, r, maxt, mine, t % split, split);
+      for (int o = split / 2; o > 0; o >>= 1) blocked |= __shfl_xor_sync(kFullMask, blocked, o);
+      if (mine && t % split == 0 && blocked) {
+        atomicAdd(&s.blocked[blocked_word(e, li)], blocked_one(li));
+      }
+    }
+  } else if (split == 1) {
     for (int q = t; q < n; q += kWaveThreads) {
       int e, li;
       if (queue_blocked(p, tb, s, q, 0, 1, e, li)) {
@@ -1047,14 +1386,17 @@ __device__ void drain_queue(const WaveParams& p, const Tab& tb, const WaveSmem& 
 }
 
 // Block-wide: the three stages on the n lanes of the list.
-template <class Tab>
+template <int BUILD, class Tab>
 __device__ void run_list(const WaveParams& p, const Tab& tb, const WaveSmem& s, int n,
                          int queue_cap) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   __syncthreads();  // the list is complete
   for (int k = tid; k < 2 * n; k += kWaveThreads) s.blocked[k] = 0u;
   const int split = wave_split(n);
-  if (split == 1) {
+  if constexpr (build_windowed(BUILD)) {
+    if (p.motion) win_hit_stage<BUILD, true>(p, s, n);
+    else win_hit_stage<BUILD, false>(p, s, n);
+  } else if (split == 1) {
     // n <= kChunk = 2 * kWaveThreads: entries tid and tid + kWaveThreads
     if (tid + kWaveThreads < n) {
       hit_pair(p, tb, s, tid, tid + kWaveThreads);
@@ -1088,7 +1430,7 @@ __device__ void run_list(const WaveParams& p, const Tab& tb, const WaveSmem& s, 
     for (int li = 0; li < p.n_lights; ++li) {
       for (int k = 0; k < light_rays(p, li); ++k) {
         if (qn + kWaveThreads > queue_cap) {
-          drain_queue(p, tb, s, qn);
+          drain_queue<BUILD>(p, tb, s, qn);
           qn = 0;
         }
         // The light's term again for each of an area light's rays: nothing
@@ -1116,7 +1458,7 @@ __device__ void run_list(const WaveParams& p, const Tab& tb, const WaveSmem& s, 
       }
     }
   }
-  if (qn > 0) drain_queue(p, tb, s, qn);
+  if (qn > 0) drain_queue<BUILD>(p, tb, s, qn);
   for (int e = tid; e < n; e += kWaveThreads) finish_entry(p, tb, s, e);
   __syncthreads();  // the list is free
 }
@@ -1136,43 +1478,59 @@ __device__ void flush_list(const WaveSmem& s, int n, int* listed, int* live) {
 // lanes.  Launched cooperatively: every block is resident, so the grid
 // barrier between the two phases cannot wait on a block that never runs.
 //
-// Two builds, one schedule.  WIDE = false (staged): the table fits a
-// block's shared memory (kernels/wavefront.py::wave_cap_geoms) and each
-// block stages it.  WIDE = true: a table over that cap, up to the gate's
-// WAVE_MAX_GEOMS, stays in global memory (TabW, read through the L2); a
-// block stages only the lights, its list, a chunk's meta and counts and the
-// shadow queue.  Every lane's arithmetic is the same in both.
-template <bool WIDE> struct WaveTab {
+// The builds (kBuild*), one schedule.  Staged: the table fits a block's
+// shared memory (kernels/wavefront.py::wave_cap_geoms) and each block
+// stages it.  Over that cap, up to the gate's WAVE_MAX_GEOMS, the table
+// stays in global memory and a block stages the lights, its list, a
+// chunk's meta and counts, the shadow queue and, windowed, the window
+// records (28 bytes of box and graze a window, 6.3 KB at the most).
+// Unculled: every lane tests every row (TabW).
+// Windowed: the hit stage and the shadow queue walk the windows with a
+// per-warp box cull (win_hit_stage, drain_queue), and the shading and
+// finish stages read the table where it lies in its own row order (TabT).
+// Every lane's arithmetic is the same in all: the cull drops only rows
+// whose hit is provably farther than the bound (box_hit's slack), and the
+// winner merges by (t, original row).
+template <int BUILD> struct WaveTab {
+  typedef TabT type;
+  static RTT_DEV TabT view(const WaveParams& p, const WaveSmem&) { return TabT{p.table, p.G}; }
+};
+template <> struct WaveTab<kBuildStaged> {
   typedef TabS type;
   static RTT_DEV TabS view(const WaveParams& p, const WaveSmem& s) { return TabS{s.xf4, s.rest, p.G}; }
 };
-template <> struct WaveTab<true> {
+template <> struct WaveTab<kBuildUnculled> {
   typedef TabW type;
   static RTT_DEV TabW view(const WaveParams& p, const WaveSmem&) {
     return TabW{p.xf, TabT{p.table, p.G}};
   }
 };
 
-template <bool WIDE>
+RTT_HD WaveLayout build_layout(int build, const WaveParams& p, int list_cap, int queue_cap) {
+  return wave_layout(build == kBuildStaged ? p.G : 0, p.n_cols, p.n_lights, list_cap, queue_cap,
+                     build_windowed(build) ? p.n_win : 0);
+}
+
+template <int BUILD>
 __global__ void __launch_bounds__(kWaveThreads, 3)
 wave_level_blocks_kernel(const WaveParams p, int list_cap, int queue_cap, int* ctr, int* live) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const WaveLayout lay = wave_layout(WIDE ? 0 : p.G, p.n_cols, p.n_lights, list_cap, queue_cap);
+  const WaveLayout lay = build_layout(BUILD, p, list_cap, queue_cap);
   const WaveSmem s = wave_smem(smem_raw, lay);
-  const typename WaveTab<WIDE>::type tb = WaveTab<WIDE>::view(p, s);
+  const typename WaveTab<BUILD>::type tb = WaveTab<BUILD>::view(p, s);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // Stage the tables once.  Columns 12.. (their 16-byte multiple) by one
   // bulk asynchronous copy; meanwhile the threads lay out the transforms,
   // copy the tail and the lights, and scan.  A wide table stages the
-  // lights alone.
+  // lights alone, and the windowed builds their window records.
   const uint32_t bar = smem_u32(s.bar);
   if (tid == 0) {
-    if constexpr (!WIDE) mbar_init(bar);
+    if constexpr (BUILD == kBuildStaged) mbar_init(bar);
     s.next[0] = atomicAdd(&ctr[0], 1);
   }
   __syncthreads();
-  if constexpr (!WIDE) {
+  if constexpr (BUILD == kBuildStaged) {
     const int n_rest = (p.n_cols - 12) * p.G;
     const uint32_t bulk = (uint32_t)(4 * n_rest) & ~15u;
     if (tid == 0) bulk_copy(smem_u32(s.rest), p.table + 12 * (size_t)p.G, bulk, bar);
@@ -1180,6 +1538,9 @@ wave_level_blocks_kernel(const WaveParams p, int list_cap, int queue_cap, int* c
     for (int k = (int)(bulk / 4) + tid; k < n_rest; k += kWaveThreads) {
       s.rest[k] = p.table[12 * (size_t)p.G + k];
     }
+  }
+  if constexpr (build_windowed(BUILD)) {
+    for (int k = tid; k < kWinRec * p.n_win; k += kWaveThreads) s.win[k] = p.win[k];
   }
   for (int k = tid; k < 8 * p.n_lights; k += kWaveThreads) s.lights[k] = p.lights[k];
 
@@ -1223,9 +1584,9 @@ wave_level_blocks_kernel(const WaveParams p, int list_cap, int queue_cap, int* c
 
   // Phase 2: every block takes chunks of the whole launch's list, so that
   // lanes clustered in a few scan steps spread over the card.
-  grid_barrier(&ctr[2]);
+  grid_barrier(&ctr[2]);  // also: the window records are in
   const long long n_live = *reinterpret_cast<volatile int*>(&ctr[1]);
-  if constexpr (!WIDE) mbar_wait(bar, 0);  // the bulk copy has landed (long since)
+  if constexpr (BUILD == kBuildStaged) mbar_wait(bar, 0);  // the bulk copy has landed (long since)
   const int chunk = wave_chunk(n_live, (int)gridDim.x);
   for (;;) {
     if (tid == 0) s.next[0] = atomicAdd(&ctr[3], 1);
@@ -1234,7 +1595,7 @@ wave_level_blocks_kernel(const WaveParams p, int list_cap, int queue_cap, int* c
     if (first >= n_live) break;
     const int n = (int)(n_live - first < chunk ? n_live - first : chunk);
     for (int k = tid; k < n; k += kWaveThreads) s.list_lane[k] = live[first + k];
-    run_list(p, tb, s, n, queue_cap);
+    run_list<BUILD>(p, tb, s, n, queue_cap);
   }
   if (tid == 0) {
     __threadfence();  // this block's last take comes before its count
@@ -1245,26 +1606,34 @@ wave_level_blocks_kernel(const WaveParams p, int list_cap, int queue_cap, int* c
   }
 }
 
-// The build of the kernel for a staged or a wide table.
-inline const void* wave_blocks_fn(bool wide) {
-  return wide ? (const void*)wave_level_blocks_kernel<true>
-              : (const void*)wave_level_blocks_kernel<false>;
+// The kernel of a build.
+inline const void* wave_blocks_fn(int build) {
+  switch (build) {
+    case kBuildStaged: return (const void*)wave_level_blocks_kernel<kBuildStaged>;
+    case kBuildUnculled: return (const void*)wave_level_blocks_kernel<kBuildUnculled>;
+    case kBuildWindows: return (const void*)wave_level_blocks_kernel<kBuildWindows>;
+    default: return (const void*)wave_level_blocks_kernel<kBuildWindowsCount>;
+  }
 }
 
-// The kernel's shared memory plan for this table on the current device,
-// its dynamic shared memory attribute set: capacities, bytes, resident
-// blocks per SM and the SM count.  0 or a CUDA error.  A winner row must
-// fit the 16 bits of a chunk's meta (kNoRow).
-inline int wave_blocks_plan(int G, int n_cols, int n_lights, bool wide, int& list_cap,
-                            int& queue_cap, size_t& bytes, int& per_sm, int& sms) {
+// The kernel's shared memory plan for this table and build on the current
+// device, its dynamic shared memory attribute set: capacities, bytes,
+// resident blocks per SM and the SM count.  0 or a CUDA error.  A winner
+// row must fit the 16 bits of a chunk's meta (kNoRow).
+inline int wave_blocks_plan(int G, int n_cols, int n_lights, int build, int n_win,
+                            int& list_cap, int& queue_cap, size_t& bytes, int& per_sm,
+                            int& sms) {
+  if (build < kBuildStaged || build > kBuildWindowsCount) return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  bytes = wave_plan(wide ? 0 : G, n_cols, n_lights, (size_t)optin, list_cap, queue_cap).bytes;
+  bytes = wave_plan(build == kBuildStaged ? G : 0, n_cols, n_lights, (size_t)optin, list_cap,
+                    queue_cap, build_windowed(build) ? n_win : 0)
+              .bytes;
   if (bytes > (size_t)optin || G >= (int)kNoRow) return (int)cudaErrorInvalidValue;
-  const void* fn = wave_blocks_fn(wide);
+  const void* fn = wave_blocks_fn(build);
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kWaveThreads, bytes);
@@ -1281,50 +1650,75 @@ inline int wave_blocks_plan(int G, int n_cols, int n_lights, bool wide, int& lis
 
 // The package's level: persistent blocks (wave_level_blocks_kernel),
 // launched cooperatively.  record: 1 for record mode (out then holds the
-// record rows after row 12).  xf: null for a table the block stages, else
-// the wide build's (G, 12) geom-major transforms, 16-byte aligned.  ctr:
-// five ints of device memory, zero, that no other launch uses meanwhile
-// (the kernel leaves them zero); live: R ints of scratch.
+// record rows after row 12).  build: kBuild*, with its operands, each
+// 16-byte aligned: the unculled build's xf, the (G, 12) geom-major
+// transforms; a windowed build's xp (G, kWinCols) permuted rows, win
+// (n_win, kWinRec) window records and wbeg (n_ranges + 1 ints: range r's
+// windows [wbeg[r], wbeg[r + 1]), from 0 to n_win); the counting build's
+// work (kWinWork counters it adds to).  ctr: five ints of device memory,
+// zero, that no other launch uses meanwhile (the kernel leaves them zero);
+// live: R ints of scratch.
 extern "C" int wave_level_launch(
     const float* q, const float* fuzz, const float* table, const float* lights,
     const uint8_t* tex, const float* twh, float* out,
     long long R, int G, int n_cols, int n_lights,
     const int* ranges, int n_ranges, int glossy, int has_tex,
     int n_tex, int tex_h, int tex_w, float min_tp,
-    int motion, int refraction, int area, int nss, int record, const float* xf, int* ctr,
-    int* live, void* stream) {
+    int motion, int refraction, int area, int nss, int record, int build, const float* xf,
+    const float* xp, const float* win, const int* wbeg, int n_win, unsigned long long* work,
+    int* ctr, int* live, void* stream) {
+  const auto al16 = [](const void* a) { return (uintptr_t)a % 16 == 0; };
   if (n_ranges > rtt::kMaxRanges || R < 0 || R > INT_MAX || n_lights > rtt::kMaxLights ||
-      n_cols < 12 || (uintptr_t)table % 16 != 0 || (uintptr_t)xf % 16 != 0 || nss < 1 ||
-      nss > 255) {
+      n_cols < 12 || !al16(table) || nss < 1 || nss > 255) {
     return (int)cudaErrorInvalidValue;
   }
+  const bool windowed = rtt::build_windowed(build);
+  if ((build == rtt::kBuildUnculled) != (xf != nullptr) || !al16(xf) ||
+      windowed != (xp != nullptr) || windowed != (win != nullptr) || !al16(xp) || !al16(win) ||
+      (build == rtt::kBuildWindowsCount) != (work != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (windowed) {
+    if (wbeg == nullptr || n_win < n_ranges || n_win > rtt::kMaxWindows || wbeg[0] != 0 ||
+        wbeg[n_ranges] != n_win) {
+      return (int)cudaErrorInvalidValue;
+    }
+    for (int k = 0; k < n_ranges; ++k) {
+      if (wbeg[k + 1] <= wbeg[k]) return (int)cudaErrorInvalidValue;
+    }
+  }
   if (R == 0) return 0;
-  const bool wide = xf != nullptr;
   int list_cap, queue_cap, per_sm, sms;
   size_t bytes;
-  const int err = rtt::wave_blocks_plan(G, n_cols, n_lights, wide, list_cap, queue_cap, bytes,
-                                        per_sm, sms);
+  const int err = rtt::wave_blocks_plan(G, n_cols, n_lights, build, n_win, list_cap, queue_cap,
+                                        bytes, per_sm, sms);
   if (err) return err;
   rtt::WaveParams p = rtt::make_params(
       q, fuzz, table, lights, tex, twh, out, R, G, n_cols, n_lights, ranges,
       n_ranges, glossy, has_tex, n_tex, tex_h, tex_w, min_tp, motion, refraction, area, nss,
       record);
   p.xf = xf;
+  if (windowed) {
+    p.xp = xp;
+    p.win = win;
+    p.n_win = n_win;
+    for (int k = 0; k <= n_ranges; ++k) p.wbeg[k] = wbeg[k];
+    p.work = work;
+  }
   void* args[] = {&p, &list_cap, &queue_cap, &ctr, &live};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      rtt::wave_blocks_fn(wide), dim3((unsigned)(per_sm * sms)),
+      rtt::wave_blocks_fn(build), dim3((unsigned)(per_sm * sms)),
       dim3(rtt::kWaveThreads), args, bytes, (cudaStream_t)stream);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-// What wave_level_launch would launch for this table (wide: 1 for the
-// build that leaves the table in global memory): out[0..5] = list
-// capacity, queue capacity, shared memory bytes, resident blocks per SM,
-// SMs, threads per block.
-extern "C" int wave_level_plan(int G, int n_cols, int n_lights, int wide, int* out) {
+// What wave_level_launch would launch for this table and build (n_win: a
+// windowed build's windows): out[0..5] = list capacity, queue capacity,
+// shared memory bytes, resident blocks per SM, SMs, threads per block.
+extern "C" int wave_level_plan(int G, int n_cols, int n_lights, int build, int n_win, int* out) {
   int list_cap = 0, queue_cap = 0, per_sm = 0, sms = 0;
   size_t bytes = 0;
-  const int err = rtt::wave_blocks_plan(G, n_cols, n_lights, wide != 0, list_cap, queue_cap,
+  const int err = rtt::wave_blocks_plan(G, n_cols, n_lights, build, n_win, list_cap, queue_cap,
                                         bytes, per_sm, sms);
   out[0] = list_cap; out[1] = queue_cap; out[2] = (int)bytes;
   out[3] = per_sm; out[4] = sms; out[5] = rtt::kWaveThreads;

@@ -110,9 +110,14 @@ def load_variant(fmad: bool) -> ctypes.CDLL:
         ctypes.c_float,                      # min_tp
         i, i, i, i,                          # motion refraction area_mask nss
     ]
-    lib.wave_level_launch.argtypes = level + [i, p, p, p, p]  # record xf ctr live stream
+    lib.wave_level_launch.argtypes = level + [
+        i, i,                                # record build
+        p, p, p, ctypes.POINTER(ctypes.c_int), i,  # xf perm_rows windows window_ranges n_win
+        p, p, p, p,                          # work ctr live stream
+    ]
     lib.wave_level_lane_launch.argtypes = level + [i, p]      # threads stream
-    lib.wave_level_plan.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]  # ... wide out
+    # G n_cols n_lights build n_win out
+    lib.wave_level_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
     for fn in (lib.wave_level_launch, lib.wave_level_lane_launch, lib.wave_level_plan):
         fn.restype = i
     ranges = ctypes.POINTER(ctypes.c_int)

@@ -31,8 +31,12 @@ kernel has two builds of one schedule (`wave_variant`): "staged", where
 each block copies the table into its shared memory, and "wide", for a
 table over what a block can hold (`wave_cap_geoms`: 1,669 geoms textured,
 1,723 untextured) up to WAVE_MAX_GEOMS, which reads the table from global
-memory through the L2 and each transform from a (G, 12) geom-major copy
-the launcher makes of the table's rows 0..11.
+memory and culls it by window: `with_windows` sorts each kind range's rows
+by the Morton code of their boxes, cuts them into windows of WAVE_WINDOW
+rows with one box each, and packs a permuted geom-major copy of the rows;
+a warp runs a window's geoms only when one of its rays can hit the box
+nearer than its best t so far (or its shadow ray's reach).  The winner
+merges by (t, original row), so the cull changes no bit.
 `wave_level_lane` launches the one-thread-per-lane schedule of the same
 stages, to be measured against; nothing in the package calls it.
 
@@ -75,6 +79,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ray_tracying_tpu_torch.accel.lbvh import geom_aabbs, morton_codes, row_graze
 from ray_tracying_tpu_torch.core import constants as C
 from ray_tracying_tpu_torch.kernels import _build, _coop
 from ray_tracying_tpu_torch.kernels.closest_hit import (
@@ -130,6 +135,27 @@ WAVE_LIST_MIN = 1024
 WAVE_QUEUE_MIN = 256
 WAVE_CHUNK = 512
 _SMEM_HEADER = 256
+# A wide table's windows (csrc/wavefront.cu: kWinRows, kWinCols, kWinRec,
+# kMaxWindows): rows a window, floats of a row of the permuted copy
+# (transform 12 | velocity 3 | original row as int32 bits), floats of a
+# window's record (box 6 | graze | first row | count << 16 as int32 bits),
+# and the most windows a table has (one range of WAVE_MAX_GEOMS rows cut
+# into windows, plus a partial window for each other range).
+WAVE_WINDOW = 32
+WIN_COLS = 16
+WIN_REC = 8
+WAVE_MAX_WINDOWS = WAVE_MAX_GEOMS // WAVE_WINDOW + WAVE_MAX_RANGES
+# Builds of the level kernel (csrc/wavefront.cu: kBuild*): the table staged
+# in each block; a wide table read whole by every lane (kept only to be
+# measured against); a wide table culled by window, its rows read by
+# 16-byte read-only loads of the permuted copy; the same counting the
+# tests it runs.
+WAVE_BUILDS = {"staged": 0, "unculled": 1, "windows": 2, "windows_count": 3}
+# Counters of the counting build, a live lane's: closest-hit geom tests run,
+# those of them in windows whose box the lane's own ray entered, window box
+# tests; shadow-ray geom tests run (each ray up to its blocker), box tests.
+WINDOW_WORK = ("closest_tests", "closest_wanted_tests", "closest_box_tests",
+               "shadow_tests", "shadow_box_tests")
 
 # Column offsets into the shaded table (kernels/geom_table.py).
 _M = GEOM_COLS  # first material column
@@ -169,6 +195,15 @@ class WaveTables:
     refraction: bool               # some material refracts (one-way)
     area: Tuple[bool, ...]         # per light: an area light (radius > 0)
     nss: int                       # shadow rays per area light (light_samples)
+    # The windowed build's operands (`with_windows`; None for a table a
+    # block stages): (G, WIN_COLS) permuted rows, (NW, WIN_REC) window
+    # records, the first window of each range followed by NW, and the
+    # table they were built from (its data pointer and version counter:
+    # `check_windows`).
+    perm_rows: Optional[torch.Tensor] = None
+    windows: Optional[torch.Tensor] = None
+    window_ranges: Tuple[int, ...] = ()
+    window_src: Tuple[int, int] = ()
 
 
 def fuzz_rows(tables: WaveTables) -> int:
@@ -203,8 +238,9 @@ def wave_smem_bytes(n_geoms: int, n_cols: int, n_lights: int) -> int:
     light table, then 16-byte aligned a list of WAVE_LIST_MIN live lanes,
     the winner row of each lane of a chunk of WAVE_CHUNK (4 bytes) and its
     count of blocked shadow rays per light (8 bytes, one a light), and a
-    queue of WAVE_QUEUE_MIN shadow rays (32 bytes each).  The wide build's
-    is that of no geoms: n_geoms = 0."""
+    queue of WAVE_QUEUE_MIN shadow rays (32 bytes each).  The wide builds'
+    is that of no geoms (n_geoms = 0), the windowed build's plus its window
+    records (4 * WIN_REC bytes a window)."""
     tables = _SMEM_HEADER + 4 * (n_cols * n_geoms + 8 * max(n_lights, 1))
     return (-(-tables // 16) * 16 + 4 * (WAVE_LIST_MIN + WAVE_CHUNK)
             + 8 * WAVE_CHUNK + 32 * WAVE_QUEUE_MIN)
@@ -226,6 +262,80 @@ def wave_variant(n_geoms: int, n_cols: int, n_lights: int) -> str:
     """The build of the level kernel a table takes: "staged" up to
     `wave_cap_geoms`, "wide" above it."""
     return "wide" if n_geoms > wave_cap_geoms(n_cols, n_lights) else "staged"
+
+
+def window_arrays(table_t: np.ndarray, ranges, boxes: np.ndarray):
+    """(perm_rows (G, WIN_COLS), windows (NW, WIN_REC), window_ranges) of a
+    shaded table: `table_t` the (n_cols, G) table, `boxes` (G, 6) each
+    row's box (`geom_aabbs` of its geom: a moving sphere's holds its time-1
+    extent, so one box serves every ray time in [0, 1]).
+
+    Within each kind range the rows are sorted (stably) by the 30-bit
+    Morton code of their box's centroid, over the whole table's extent; no
+    window crosses a range, so the kernel keeps its dispatch by kind, and a
+    range of one huge geom (a floor) is a window of its own.  A window
+    holds WAVE_WINDOW consecutive permuted rows (fewer at a range's end):
+    its box is the union of its members' boxes, its graze the largest
+    `row_graze` of its rows (the sphere test's slack, csrc/geom.cuh::
+    box_hit).  A permuted row is columns 0..14 of its table row (transform,
+    velocity) and its original row: winners, records and everything the
+    finish stage reads stay in the table's own row order."""
+    g = table_t.shape[1]
+    rows = np.ascontiguousarray(table_t[:GEOM_COLS].T)  # (G, 17)
+    codes = morton_codes((boxes[:, :3] + boxes[:, 3:]) * 0.5)
+    graze = row_graze(rows)
+    perm = np.arange(g, dtype=np.int64)
+    boxes_w, graze_w, span, bounds = [], [], [], [0]
+    for _, start, end in ranges:
+        perm[start:end] = start + np.argsort(codes[start:end], kind="stable")
+        for first in range(start, end, WAVE_WINDOW):
+            members = perm[first:min(first + WAVE_WINDOW, end)]
+            boxes_w.append(np.concatenate([boxes[members, :3].min(axis=0),
+                                           boxes[members, 3:].max(axis=0)]))
+            graze_w.append(graze[members].max())
+            span.append(first | (len(members) << 16))
+        bounds.append(len(span))
+    windows = np.zeros((len(span), WIN_REC), np.float32)
+    windows[:, :6] = np.asarray(boxes_w, np.float32).reshape(-1, 6)
+    windows[:, 6] = graze_w
+    windows[:, 7] = np.asarray(span, np.int32).view(np.float32)
+    perm_rows = np.zeros((g, WIN_COLS), np.float32)
+    perm_rows[:, :15] = rows[perm, :15]
+    perm_rows[:, 15] = perm.astype(np.int32).view(np.float32)
+    return perm_rows, windows, tuple(bounds)
+
+
+def with_windows(tables: WaveTables, scene: Scene) -> WaveTables:
+    """`tables` with the windowed build's operands (`window_arrays`), built
+    on the host in numpy from the detached table and `scene`'s geom boxes,
+    on the table's device.  They never carry a gradient."""
+    table_t = tables.table.detach().cpu().numpy()
+    ids = np.rint(table_t[16]).astype(np.int64)
+    perm_rows, windows, bounds = window_arrays(table_t, tables.ranges, geom_aabbs(scene)[ids])
+    dev = tables.table.device
+    return dataclasses.replace(
+        tables, perm_rows=torch.from_numpy(perm_rows).to(dev),
+        windows=torch.from_numpy(windows).to(dev), window_ranges=bounds,
+        window_src=(tables.table.data_ptr(), tables.table._version))
+
+
+def check_windows(tables: WaveTables) -> None:
+    """Raise unless `tables` has windows built from its own table as it
+    stands: the permuted rows are a copy of the table's transforms, so a
+    `dataclasses.replace` with another table, or an in-place edit of this
+    one, would leave the cull reading stale transforms while the finish
+    stage reads the new ones.  A detached view of the same table passes."""
+    if tables.windows is None:
+        raise ValueError("this build needs the table's windows (with_windows)")
+    if tables.window_src != (tables.table.data_ptr(), tables.table._version):
+        raise ValueError("the windows were built from another table, or the table changed "
+                         "since: rebuild them with with_windows")
+
+
+def window_spans(tables: WaveTables):
+    """(first row, count) of each window, as two int64 numpy arrays."""
+    span = tables.windows[:, 7].contiguous().view(torch.int32).cpu().numpy().astype(np.int64)
+    return span & 0xFFFF, span >> 16
 
 
 def wave_refusal(scene: Scene, use_bvh: bool = False,
@@ -288,7 +398,10 @@ def wave_tables(scene: Scene, differentiable: bool = False,
     differentiable: the table and the light table keep their autograd
     graph back to the scene's tensors (materials, transforms, lights), so
     that `WaveLevelFn`'s cotangents reach them; otherwise both are
-    detached.  The kernel always reads detached views."""
+    detached.  The kernel always reads detached views.
+
+    A table over `wave_cap_geoms` (the kernel's wide build) also gets its
+    windows (`with_windows`)."""
     table, ranges = pack_geom_table_shaded(scene, with_tex=scene.has_textures)
     lights = pack_light_table(scene)
     if not differentiable:
@@ -296,7 +409,7 @@ def wave_tables(scene: Scene, differentiable: bool = False,
     tex = twh = None
     if scene.has_textures:
         tex, twh = pack_tex_u8(scene)
-    return WaveTables(
+    tables = WaveTables(
         table=table.T.contiguous(),
         ranges=ranges,
         lights=lights.contiguous(),
@@ -310,6 +423,9 @@ def wave_tables(scene: Scene, differentiable: bool = False,
         area=tuple(bool(a) for a in scene.lights.is_area),
         nss=int(light_samples) if any(scene.lights.is_area) else 1,
     )
+    if wave_variant(scene.n_geoms, tables.table.shape[0], scene.n_lights) == "wide":
+        tables = with_windows(tables, scene)
+    return tables
 
 
 def _check_level_args(out_prev, fuzz, tables: WaveTables):
@@ -380,16 +496,7 @@ def wave_level_plain(
     # (Code/acceleration.cpp:103-118); rows in table order, strict <.
     # Spheres of a scene with motion blur are tested at the ray's time
     # (origin - velocity * time, Code/shapes.cpp:201-210).
-    best = (
-        torch.full((r,), _INF, dtype=torch.float32, device=dev),
-        torch.full((r,), -1, dtype=torch.int64, device=dev),
-        zero, zero, zero,
-    )
-    for kind, start, end in tables.ranges:
-        moving = tables.motion and kind == KIND_SPHERE
-        for g in range(start, end):
-            best = geom_step_n(g, best, rows[g], rb, kind, motion=moving)
-    best_t, best_row, bnx, bny, bnz = best
+    best_t, best_row, bnx, bny, bnz = closest_rows(rows, tables, rb)
     finite = torch.isfinite(best_t)
     hit_f = finite & live
     act_hit = torch.where(hit_f, 1.0, 0.0)
@@ -505,12 +612,9 @@ def wave_level_plain(
             srb = RayBlock(
                 torch.stack([sox, soy, soz, sdx, sdy, sdz, zero], dim=0)
             )
-            blocked = ~s_act
-            for kind, start, end in tables.ranges:
-                for g in range(start, end):
-                    if stats is not None:
-                        n_shadow_tests += int((~blocked).sum())
-                    blocked = blocked | (geom_t(rows[g], srb, kind) <= maxt)
+            blocked, tests = shadow_rows(rows, tables.ranges, srb, maxt, s_act,
+                                         stats is not None)
+            n_shadow_tests += tests
             vsum = vsum + torch.where(blocked, 0.0, 1.0)
             if stats is not None:
                 n_shadow += int(s_act.sum())
@@ -739,6 +843,42 @@ def wave_level_plain(
     )
 
 
+def closest_rows(rows, tables: WaveTables, rb: RayBlock):
+    """The closest hit of the rays `rb` over every table row (`rows`: the
+    rows as lists of floats), in row order with strict <: (best t, best
+    row, the winner's unnormalized normal).  Spheres of a scene with motion
+    blur are tested at the ray's time."""
+    r = rb.ox.shape[0]
+    dev = rb.ox.device
+    zero = torch.zeros(r, dtype=torch.float32, device=dev)
+    best = (
+        torch.full((r,), _INF, dtype=torch.float32, device=dev),
+        torch.full((r,), -1, dtype=torch.int64, device=dev),
+        zero, zero, zero,
+    )
+    for kind, start, end in tables.ranges:
+        moving = tables.motion and kind == KIND_SPHERE
+        for g in range(start, end):
+            best = geom_step_n(g, best, rows[g], rb, kind, motion=moving)
+    return best
+
+
+def shadow_rows(rows, ranges, srb: RayBlock, maxt: torch.Tensor, s_act: torch.Tensor,
+                count: bool):
+    """Any-hit of the shadow rays `srb` that cast (`s_act`) over every table
+    row in row order: (blocked (lanes that cast nothing count as blocked),
+    the geom tests of a loop that leaves each ray at its first blocker, when
+    `count`, else 0).  Blocked iff some geom has t <= maxt."""
+    blocked = ~s_act
+    tests = 0
+    for kind, start, end in ranges:
+        for g in range(start, end):
+            if count:
+                tests += int((~blocked).sum())
+            blocked = blocked | (geom_t(rows[g], srb, kind) <= maxt)
+    return blocked, tests
+
+
 def _level_args(out_prev, fuzz, tables: WaveTables, min_tp: float, out):
     """The launchers' common arguments, after the checks of what the kernel
     takes."""
@@ -790,19 +930,48 @@ def _raise_on(lib, err, what):
         )
 
 
-def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float,
-            record: bool = False) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no synchronization)."""
+def package_build(tables: WaveTables) -> str:
+    """The build of the level kernel the package launches for `tables`:
+    "staged" for a table a block stages, else "windows"."""
+    n_cols, g = tables.table.shape
+    return "staged" if wave_variant(g, n_cols, tables.n_lights) == "staged" else "windows"
+
+
+def _launch_build(out_prev, fuzz, tables: WaveTables, min_tp: float, record: bool,
+                  build: str, work: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch `build` (a key of WAVE_BUILDS) on the current stream (no
+    synchronization).  The unculled build reads each transform from a
+    (G, 12) geom-major copy of the table's rows 0..11, made here; the
+    windowed builds read the operands of `with_windows`; the counting build
+    adds its counts to `work` (len(WINDOW_WORK) int64 on the device)."""
     rows = OUT_ROWS + (record_rows(tables.n_lights, tables.has_tex) if record else 0)
     out = torch.empty((rows, out_prev.shape[1]), dtype=torch.float32,
                       device=out_prev.device)
     args = _level_args(out_prev, fuzz, tables, min_tp, out)
-    # the wide build reads each transform from a (G, 12) geom-major copy of
-    # the table's rows 0..11; a null pointer launches the staged build
-    n_cols, g = tables.table.shape
-    xf = None
-    if wave_variant(g, n_cols, tables.n_lights) == "wide":
+    xf = xp = win = None
+    wbeg = (ctypes.c_int * (WAVE_MAX_RANGES + 1))()
+    n_win = 0
+    if build == "unculled":
         xf = tables.table[:12].T.contiguous()
+    elif build != "staged":
+        check_windows(tables)
+        for t in (tables.perm_rows, tables.windows):
+            if t.device != out_prev.device or t.dtype != torch.float32 \
+                    or not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError("the windows must be contiguous 16-byte aligned float32, "
+                                 "on the rays' device")
+        xp, win = tables.perm_rows, tables.windows
+        n_win = win.shape[0]
+        if xp.shape != (tables.table.shape[1], WIN_COLS) or win.shape[1] != WIN_REC \
+                or len(tables.window_ranges) != len(tables.ranges) + 1:
+            raise ValueError("the windows are not this table's (with_windows)")
+        for k, w in enumerate(tables.window_ranges):
+            wbeg[k] = w
+    if (work is not None) != (build == "windows_count"):
+        raise ValueError("the counting build, and it alone, takes `work`")
+    if work is not None and (work.device != out_prev.device or work.dtype != torch.int64
+                             or work.numel() != len(WINDOW_WORK)):
+        raise ValueError(f"work must be {len(WINDOW_WORK)} int64 on the rays' device")
     lib = _build.load()
     with torch.cuda.device(out_prev.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -810,29 +979,55 @@ def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float,
         # the launch's list of live lanes (scratch, no initial value)
         live = torch.empty(out_prev.shape[1], dtype=torch.int32, device=out_prev.device)
         err = lib.wave_level_launch(
-            *args, int(record), None if xf is None else xf.data_ptr(),
-            ctr.data_ptr(), live.data_ptr(), stream)
-    _raise_on(lib, err, "wave_level kernel launch")
+            *args, int(record), WAVE_BUILDS[build],
+            *(None if t is None else t.data_ptr() for t in (xf, xp, win)), wbeg, n_win,
+            None if work is None else work.data_ptr(), ctr.data_ptr(), live.data_ptr(),
+            stream)
+    _raise_on(lib, err, f"wave_level kernel launch ({build} build)")
+    return out
+
+
+def _launch(out_prev, fuzz, tables: WaveTables, min_tp: float,
+            record: bool = False) -> torch.Tensor:
+    """Launch the package's build of the kernel (`package_build`), counted."""
+    out = _launch_build(out_prev, fuzz, tables, min_tp, record, package_build(tables))
     wave_level.launches += 1
     if record:
         wave_level.record_launches += 1
     return out
 
 
-def wave_plan(tables: WaveTables, device=None) -> dict:
+def wave_level_build(out_prev: torch.Tensor, fuzz: Optional[torch.Tensor],
+                     tables: WaveTables, build: str, min_tp: float = 0.0,
+                     record: bool = False,
+                     work: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The level by a named build of the kernel (WAVE_BUILDS), whichever the
+    package would take: only for measuring builds against each other
+    (chip_smoke.py).  CUDA tensors only; not counted in
+    `wave_level.launches`."""
+    if not out_prev.is_cuda:
+        raise ValueError("wave_level_build runs on the card only")
+    _check_level_args(out_prev, fuzz, tables)
+    return _launch_build(out_prev, fuzz, tables, min_tp, record, build, work)
+
+
+def wave_plan(tables: WaveTables, device=None, build: Optional[str] = None) -> dict:
     """What the kernel launches with for this table on the current card:
-    the build ("staged" or "wide", `wave_variant`), list and queue
-    capacities (entries), shared memory bytes of a block, resident blocks
-    per SM, SMs, threads per block."""
+    the variant ("staged" or "wide", `wave_variant`), the build
+    (`package_build`, or `build`), list and queue capacities (entries),
+    shared memory bytes of a block, resident blocks per SM, SMs, threads
+    per block."""
     n_cols, g = tables.table.shape
     variant = wave_variant(g, n_cols, tables.n_lights)
+    build = build or package_build(tables)
+    n_win = 0 if tables.windows is None else tables.windows.shape[0]
     lib = _build.load()
     out = (ctypes.c_int * 6)()
     with torch.cuda.device(device or tables.table.device):
-        err = lib.wave_level_plan(g, n_cols, tables.n_lights, int(variant == "wide"), out)
+        err = lib.wave_level_plan(g, n_cols, tables.n_lights, WAVE_BUILDS[build], n_win, out)
     _raise_on(lib, err, "wave_level plan")
     keys = ("list_cap", "queue_cap", "smem_bytes", "blocks_per_sm", "sms", "threads")
-    return dict(variant=variant, **dict(zip(keys, list(out))))
+    return dict(variant=variant, build=build, **dict(zip(keys, list(out))))
 
 
 def wave_level_lane(

@@ -9,7 +9,8 @@ compiler builds them.  Here g++ compiles each behind a short loop over
 lanes, with FMA contraction off as in the nvcc build, and every level of a
 trace goes through it and through `wave_level_plain` on the same rays and
 fuzz rows; the fused level's block schedule also runs from the same stage
-functions behind a host loop (HOST_BLOCKS), and so do the warp schedule of
+functions behind a host loop (HOST_BLOCKS: every build, the windowed ones'
+warps of 32 threads in a loop), and so do the warp schedule of
 the chunk sweeps (WARP_HOST: scan, live-lane list, warps of 32 lanes run in a
 loop, nearest chunk first) and that of the shadow any-hit (SHADOW_HOST: the
 12-column table staged by a block's threads, scan, list, warps of 32).  This
@@ -240,15 +241,191 @@ HOST_BLOCKS = """
 namespace {
 struct Counts { long long lists, drains, queued, max_queue; };
 
+// The windowed builds' warp walks (csrc/wavefront.cu: win_hit_range,
+// win_any_range), one warp's 32 threads in a loop: every thread box-tests
+// each window against its rays' bounds, the warp runs the window when some
+// thread wants it, reading its rows in place.  work: the counting build's
+// counters.
+struct HitThread { rtt::Ray a, b; bool va, vb; int j0, step; float ta, tb; int ra, rb; };
+struct AnyThread { rtt::Ray r; float maxt; bool open, blocked; int j0, step; };
+
+struct WinCtx {
+  const rtt::WaveParams& p;
+  const float* win;
+  long long* work;
+};
+
+template <int KIND, bool MOTION>
+void hit_range(WinCtx& x, int w0, int w1, HitThread* th) {
+  for (int w = w0; w < w1; ++w) {
+    const float* rec = x.win + rtt::kWinRec * w;
+    bool wa[32], wb[32], any = false;
+    for (int l = 0; l < 32; ++l) {
+      wa[l] = th[l].va && rtt::box_hit(rec, th[l].a, th[l].ta, rec[6]);
+      wb[l] = th[l].vb && rtt::box_hit(rec, th[l].b, th[l].tb, rec[6]);
+      any = any || wa[l] || wb[l];
+      x.work[2] += th[l].va + th[l].vb;
+    }
+    if (!any) continue;
+    const int first = rtt::win_first(rec), count = rtt::win_count(rec);
+    for (int l = 0; l < 32; ++l) {
+      HitThread& t = th[l];
+      const int ran = rtt::win_rows_hit<KIND, MOTION>(rtt::TabP{x.p.xp}, first, count, t.a, t.va,
+                                                      t.b, t.vb, t.j0, t.step, t.ta, t.ra, t.tb,
+                                                      t.rb);
+      x.work[0] += (long long)ran * (t.va + t.vb);
+      x.work[1] += (long long)ran * (wa[l] + wb[l]);
+    }
+  }
+}
+
+template <bool MOTION>
+void hit_warp(WinCtx& x, HitThread* th) {
+  const rtt::WaveParams& p = x.p;
+  for (int r = 0; r < p.n_ranges; ++r) {
+    const int w0 = p.wbeg[r], w1 = p.wbeg[r + 1];
+    switch (p.kind[r]) {
+      case rtt::kKindSphere: hit_range<rtt::kKindSphere, MOTION>(x, w0, w1, th); break;
+      case rtt::kKindCube: hit_range<rtt::kKindCube, false>(x, w0, w1, th); break;
+      case rtt::kKindRect: hit_range<rtt::kKindRect, false>(x, w0, w1, th); break;
+      default: hit_range<rtt::kKindPlane, false>(x, w0, w1, th); break;
+    }
+  }
+}
+
+template <int KIND>
+bool any_range(WinCtx& x, int w0, int w1, AnyThread* th) {
+  for (int w = w0; w < w1; ++w) {
+    bool open = false, want[32], any = false;
+    for (int l = 0; l < 32; ++l) open = open || th[l].open;
+    if (!open) return false;
+    const float* rec = x.win + rtt::kWinRec * w;
+    for (int l = 0; l < 32; ++l) {
+      want[l] = th[l].open && rtt::box_hit(rec, th[l].r, th[l].maxt, rec[6]);
+      any = any || want[l];
+      x.work[4] += th[l].open;
+    }
+    if (!any) continue;
+    const int first = rtt::win_first(rec), count = rtt::win_count(rec);
+    for (int l = 0; l < 32; ++l) {
+      if (!want[l]) continue;
+      AnyThread& t = th[l];
+      bool hit = false;
+      x.work[3] += rtt::win_any<KIND>(rtt::TabP{x.p.xp}, first, count, t.j0, t.step, t.r,
+                                      t.maxt, hit);
+      if (hit) { t.blocked = true; t.open = false; }
+    }
+  }
+  return true;
+}
+
+void any_warp(WinCtx& x, AnyThread* th) {
+  const rtt::WaveParams& p = x.p;
+  bool more = true;
+  for (int k = 0; k < p.n_ranges && more; ++k) {
+    const int w0 = p.wbeg[k], w1 = p.wbeg[k + 1];
+    switch (p.kind[k]) {
+      case rtt::kKindSphere: more = any_range<rtt::kKindSphere>(x, w0, w1, th); break;
+      case rtt::kKindCube: more = any_range<rtt::kKindCube>(x, w0, w1, th); break;
+      case rtt::kKindRect: more = any_range<rtt::kKindRect>(x, w0, w1, th); break;
+      default: more = any_range<rtt::kKindPlane>(x, w0, w1, th); break;
+    }
+  }
+}
+
+// The windowed hit stage (win_hit_stage): a long list gives each warp 64
+// neighbouring entries (two a thread, 32 apart), a list of kWaveThreads or
+// fewer one entry a thread, a short one each entry's rows split over
+// `split` neighbouring threads, merged by (t, row).
+void win_hit_list(WinCtx& x, const rtt::WaveSmem& s, int n) {
+  const rtt::WaveParams& p = x.p;
+  const int T = rtt::kWaveThreads, split = rtt::wave_split(n);
+  const rtt::Ray none = rtt::make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+  const auto ray = [&](int e) {
+    return p.motion ? rtt::lane_ray_m<true>(p, (size_t)s.list_lane[e])
+                    : rtt::lane_ray_m<false>(p, (size_t)s.list_lane[e]);
+  };
+  for (int warp = 0; warp < rtt::kWaveWarps; ++warp) {
+    HitThread th[32];
+    int ea[32], eb[32];
+    for (int l = 0; l < 32; ++l) {
+      const int tid = 32 * warp + l;
+      HitThread& t = th[l];
+      t.ta = t.tb = rtt::kInf;
+      t.ra = t.rb = -1;
+      if (split == 1) {
+        ea[l] = n > T ? 64 * warp + l : tid;
+        eb[l] = n > T ? ea[l] + 32 : n;
+        t.va = ea[l] < n; t.vb = eb[l] < n;
+        t.j0 = 0; t.step = 1;
+      } else {
+        ea[l] = tid / split; eb[l] = n;
+        t.va = tid < n * split; t.vb = false;
+        t.j0 = tid % split; t.step = split;
+      }
+      t.a = t.va ? ray(ea[l]) : none;
+      t.b = t.vb ? ray(eb[l]) : none;
+    }
+    if (p.motion) hit_warp<true>(x, th);
+    else hit_warp<false>(x, th);
+    for (int l = 0; l < 32; ++l) {
+      if (split == 1) {
+        if (th[l].va) s.list_meta[ea[l]] = rtt::meta_of(th[l].ra);
+        if (th[l].vb) s.list_meta[eb[l]] = rtt::meta_of(th[l].rb);
+      } else if (th[l].va && th[l].j0 == 0) {
+        float t = rtt::kInf;
+        int row = -1;
+        for (int j = 0; j < split; ++j) rtt::merge_hit(t, row, th[l + j].ta, th[l + j].ra);
+        s.list_meta[ea[l]] = rtt::meta_of(row);
+      }
+    }
+  }
+}
+
+// The windowed drain (drain_queue): rounds of one queued ray a thread, or
+// each ray's windows split over `split` neighbouring threads, OR-ed.
+void win_drain(WinCtx& x, const rtt::WaveSmem& s, int n) {
+  const int T = rtt::kWaveThreads, split = rtt::wave_split(n);
+  for (int base = 0; base < (split == 1 ? n : 1); base += T) {
+    for (int warp = 0; warp < rtt::kWaveWarps; ++warp) {
+      AnyThread th[32];
+      int e[32], li[32];
+      for (int l = 0; l < 32; ++l) {
+        const int t = 32 * warp + l;
+        const int q = split == 1 ? base + t : t / split;
+        th[l].open = split == 1 ? q < n : t < n * split;
+        th[l].blocked = false;
+        th[l].j0 = split == 1 ? 0 : t % split;
+        th[l].step = split;
+        th[l].maxt = 0.0f;
+        th[l].r = rtt::make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+        e[l] = li[l] = 0;
+        if (th[l].open) rtt::queue_ray(s, q, th[l].r, th[l].maxt, e[l], li[l]);
+      }
+      any_warp(x, th);
+      for (int l = 0; l < 32; ++l) {
+        if (split > 1 && th[l].j0 != 0) continue;
+        bool blocked = false;
+        for (int j = 0; j < split; ++j) blocked = blocked || th[l + j].blocked;
+        if (blocked) s.blocked[rtt::blocked_word(e[l], li[l])] += rtt::blocked_one(li[l]);
+      }
+    }
+  }
+}
+
 template <class Tab>
 void drain(const rtt::WaveParams& p, const Tab& tb, const rtt::WaveSmem& s, int n,
-           Counts& c) {
+           Counts& c, WinCtx* x) {
   const int split = rtt::wave_split(n);
-  for (int q = 0; q < n; ++q) {
-    int e = 0, li = 0;
-    bool blocked = false;
-    for (int j = 0; j < split; ++j) blocked = rtt::queue_blocked(p, tb, s, q, j, split, e, li) || blocked;
-    if (blocked) s.blocked[rtt::blocked_word(e, li)] += rtt::blocked_one(li);
+  if (x) {
+    win_drain(*x, s, n);
+  } else {
+    for (int q = 0; q < n; ++q) {
+      int e = 0, li = 0;
+      bool blocked = false;
+      for (int j = 0; j < split; ++j) blocked = rtt::queue_blocked(p, tb, s, q, j, split, e, li) || blocked;
+      if (blocked) s.blocked[rtt::blocked_word(e, li)] += rtt::blocked_one(li);
+    }
   }
   c.drains += 1; c.queued += n;
   if (n > c.max_queue) c.max_queue = n;
@@ -256,25 +433,29 @@ void drain(const rtt::WaveParams& p, const Tab& tb, const rtt::WaveSmem& s, int 
 
 template <class Tab>
 void run_list(const rtt::WaveParams& p, const Tab& tb, const rtt::WaveSmem& s, int n,
-              int queue_cap, Counts& c) {
+              int queue_cap, Counts& c, WinCtx* x) {
   const int T = rtt::kWaveThreads;
   const int split = rtt::wave_split(n);
   for (int k = 0; k < 2 * n; ++k) s.blocked[k] = 0u;
-  for (int e = 0; e < n && e < T; ++e) {
-    if (split == 1 && e + T < n) {  // a thread's two lanes side by side
-      rtt::hit_pair(p, tb, s, e, e + T);
-      continue;
-    }
-    for (int e1 = e; e1 < n; e1 += T) {
-      float t = rtt::kInf;
-      int row = -1;
-      for (int j = 0; j < split; ++j) {
-        float tj = rtt::kInf;
-        int rj = -1;
-        rtt::hit_entry(p, tb, s, e1, j, split, tj, rj);
-        rtt::merge_hit(t, row, tj, rj);
+  if (x) {
+    win_hit_list(*x, s, n);
+  } else {
+    for (int e = 0; e < n && e < T; ++e) {
+      if (split == 1 && e + T < n) {  // a thread's two lanes side by side
+        rtt::hit_pair(p, tb, s, e, e + T);
+        continue;
       }
-      s.list_meta[e1] = rtt::meta_of(row);
+      for (int e1 = e; e1 < n; e1 += T) {
+        float t = rtt::kInf;
+        int row = -1;
+        for (int j = 0; j < split; ++j) {
+          float tj = rtt::kInf;
+          int rj = -1;
+          rtt::hit_entry(p, tb, s, e1, j, split, tj, rj);
+          rtt::merge_hit(t, row, tj, rj);
+        }
+        s.list_meta[e1] = rtt::meta_of(row);
+      }
     }
   }
   int qn = 0;
@@ -287,7 +468,7 @@ void run_list(const rtt::WaveParams& p, const Tab& tb, const rtt::WaveSmem& s, i
     }
     for (int li = 0; li < p.n_lights; ++li) {
       for (int k = 0; k < rtt::light_rays(p, li); ++k) {
-        if (qn + T > queue_cap) { drain(p, tb, s, qn, c); qn = 0; }
+        if (qn + T > queue_cap) { drain(p, tb, s, qn, c, x); qn = 0; }
         for (int t = 0; t < T; ++t) {
           if (row[t] < 0) continue;
           const rtt::LightTerm lt = rtt::light_term(sh[t], s.lights, p.n_lights, li);
@@ -299,12 +480,15 @@ void run_list(const rtt::WaveParams& p, const Tab& tb, const rtt::WaveSmem& s, i
       }
     }
   }
-  if (qn > 0) drain(p, tb, s, qn, c);
+  if (qn > 0) drain(p, tb, s, qn, c, x);
   for (int e = 0; e < n; ++e) rtt::finish_entry(p, tb, s, e);
   c.lists += 1;
 }
 }  // namespace
 
+// build: csrc/wavefront.cu's kBuild*; the unculled build takes xf, a
+// windowed one xp, win, wbeg and n_win; work: the counting build's five
+// counters (every windowed build counts).
 extern "C" void wave_level_blocks_host(
     const float* q, const float* fuzz, const float* table, const float* lights,
     const uint8_t* tex, const float* twh, float* out,
@@ -312,13 +496,21 @@ extern "C" void wave_level_blocks_host(
     const int* ranges, int n_ranges, int glossy, int has_tex,
     int n_tex, int tex_h, int tex_w, float min_tp,
     int motion, int refraction, int area, int nss,
-    int n_blocks, int list_cap, int queue_cap, long long* counts, int record, const float* xf) {
+    int n_blocks, int list_cap, int queue_cap, long long* counts, int record, int build,
+    const float* xf, const float* xp, const float* win, const int* wbeg, int n_win,
+    long long* work) {
   rtt::WaveParams p = rtt::make_params(
       q, fuzz, table, lights, tex, twh, out, R, G, n_cols, n_lights, ranges,
       n_ranges, glossy, has_tex, n_tex, tex_h, tex_w, min_tp, motion, refraction, area, nss,
       record);
-  p.xf = xf;  // the wide build's transforms, or null (staged)
-  const rtt::WaveLayout lay = rtt::wave_layout(xf ? 0 : G, n_cols, n_lights, list_cap, queue_cap);
+  p.xf = xf;  // the unculled build's transforms, or null
+  const bool windowed = rtt::build_windowed(build);
+  if (windowed) {
+    p.xp = xp; p.win = win; p.n_win = n_win;
+    for (int k = 0; k <= n_ranges; ++k) p.wbeg[k] = wbeg[k];
+  }
+  const rtt::WaveLayout lay = rtt::wave_layout(build == rtt::kBuildStaged ? G : 0, n_cols, n_lights,
+                                               list_cap, queue_cap, windowed ? n_win : 0);
   const int T = rtt::kWaveThreads;
   // one shared memory per block; blocks take scan steps in turn
   std::vector<std::vector<rtt::F4>> bufs(n_blocks, std::vector<rtt::F4>(lay.bytes / sizeof(rtt::F4) + 1));
@@ -351,14 +543,18 @@ extern "C" void wave_level_blocks_host(
   for (int k = 0; k < 8 * n_lights; ++k) s.lights[k] = lights[k];
   Counts c = {0, 0, 0, 0};
   const size_t chunk = (size_t)rtt::wave_chunk((long long)live.size(), n_blocks);
+  WinCtx x{p, s.win, work};
   auto run_all = [&](const auto& tb) {
     for (size_t first = 0; first < live.size(); first += chunk) {
       const int n = (int)std::min<size_t>(chunk, live.size() - first);
       for (int k = 0; k < n; ++k) s.list_lane[k] = live[first + k];
-      run_list(p, tb, s, n, queue_cap, c);
+      run_list(p, tb, s, n, queue_cap, c, windowed ? &x : nullptr);
     }
   };
-  if (xf) {
+  if (windowed) {
+    for (int k = 0; k < rtt::kWinRec * n_win; ++k) s.win[k] = win[k];
+    run_all(rtt::TabT{table, G});
+  } else if (build == rtt::kBuildUnculled) {
     run_all(rtt::TabW{xf, rtt::TabT{table, G}});
   } else {
     for (int k = 0; k < 3 * G; ++k) s.xf4[k] = rtt::staged_xf(table, G, k);
@@ -369,14 +565,23 @@ extern "C" void wave_level_blocks_host(
 }
 
 // wave_plan: list and queue capacities and bytes a block takes within
-// `limit`, for the staged build or (wide) the one that stages no table.
+// `limit`, for the staged build or (wide) one that stages no table, with
+// n_win window records.
 extern "C" void wave_plan_host(int G, int n_cols, int n_lights, long long limit, int wide,
-                               long long* out) {
+                               int n_win, long long* out) {
   int list_cap, queue_cap;
   out[2] = (long long)rtt::wave_plan(wide ? 0 : G, n_cols, n_lights, (size_t)limit, list_cap,
-                                     queue_cap).bytes;
+                                     queue_cap, n_win).bytes;
   out[0] = list_cap; out[1] = queue_cap;
   out[3] = rtt::kWaveThreads; out[4] = rtt::kListCapMin; out[5] = rtt::kQueueCapMin;
+}
+
+// The window constants and the build codes, for the packer's to be held to.
+extern "C" void wave_window_consts(long long* out) {
+  out[0] = rtt::kWinRows; out[1] = rtt::kWinCols; out[2] = rtt::kWinRec;
+  out[3] = rtt::kMaxWindows; out[4] = rtt::kWinWork;
+  out[5] = rtt::kBuildStaged; out[6] = rtt::kBuildUnculled; out[7] = rtt::kBuildWindows;
+  out[8] = rtt::kBuildWindowsCount;
 }
 """
 
@@ -384,10 +589,12 @@ extern "C" void wave_plan_host(int G, int n_cols, int n_lights, long long limit,
 @pytest.fixture(scope="module")
 def host_blocks(tmp_path_factory):
     """`wave_level`'s signature over the g++ build of the block schedule;
-    the level also takes the grid, the capacities and a dict that receives
-    what the schedule did (chunks run, queue drains, rays queued, the
-    fullest drain).  Capacities default to what the kernel takes for the
-    table."""
+    the level also takes the grid, the capacities, the build (None: the
+    one the launcher picks, `package_build`; or a key of W.WAVE_BUILDS) and
+    dicts that receive what the schedule did (chunks run, queue drains,
+    rays queued, the fullest drain) and, for a windowed build, what it ran
+    (the counting build's counters, W.WINDOW_WORK).  Capacities default to
+    what the kernel takes for the table and build."""
     d = tmp_path_factory.mktemp("wave_blocks")
     src, out = str(d / "wave_blocks.cpp"), str(d / "libwave_blocks.so")
     with open(src, "w") as f:
@@ -402,40 +609,56 @@ def host_blocks(tmp_path_factory):
     lib.wave_level_blocks_host.argtypes = [
         p, p, p, p, p, p, p, ll, i, i, i,
         ctypes.POINTER(ctypes.c_int), i, i, i, i, i, i, ctypes.c_float, i, i, i, i,
-        i, i, i, ctypes.POINTER(ll), i, p,
+        i, i, i, ctypes.POINTER(ll), i, i, p, p, p, ctypes.POINTER(ctypes.c_int), i, p,
     ]
-    lib.wave_plan_host.argtypes = [i, i, i, ll, i, ctypes.POINTER(ll)]
+    lib.wave_plan_host.argtypes = [i, i, i, ll, i, i, ctypes.POINTER(ll)]
+    lib.wave_window_consts.argtypes = [ctypes.POINTER(ll)]
     lib.wave_level_blocks_host.restype = lib.wave_plan_host.restype = None
+    lib.wave_window_consts.restype = None
 
-    def plan(g, n_cols, n_lights, limit=W.WAVE_MAX_SMEM_BYTES, wide=False):
+    def plan(g, n_cols, n_lights, limit=W.WAVE_MAX_SMEM_BYTES, wide=False, n_win=0):
         res = (ll * 6)()
-        lib.wave_plan_host(g, n_cols, n_lights, limit, int(wide), res)
+        lib.wave_plan_host(g, n_cols, n_lights, limit, int(wide), n_win, res)
         return dict(zip(("list_cap", "queue_cap", "bytes", "threads", "list_min",
                          "queue_min"), list(res)))
 
     def level(out_prev, fuzz, tables, min_tp=0.0, n_blocks=3, list_cap=None,
-              queue_cap=None, counts=None, record=False):
+              queue_cap=None, counts=None, record=False, build=None, work=None):
         r = out_prev.shape[1]
         n_cols, g = tables.table.shape
-        # the build the launcher picks: wide (the geom-major transforms
-        # passed) for a table over the staged cap
-        wide = W.wave_variant(g, n_cols, tables.n_lights) == "wide"
-        xf = tables.table[:12].T.contiguous() if wide else None
-        chosen = plan(g, n_cols, tables.n_lights, wide=wide)
+        build = build or W.package_build(tables)
+        xf = tables.table[:12].T.contiguous() if build == "unculled" else None
+        windowed = build.startswith("windows")
+        n_win = tables.windows.shape[0] if windowed else 0
+        wbeg = (ctypes.c_int * (W.WAVE_MAX_RANGES + 1))(*tables.window_ranges) if windowed \
+            else None
+        chosen = plan(g, n_cols, tables.n_lights, wide=build != "staged", n_win=n_win)
         rows = W.OUT_ROWS + (W.record_rows(tables.n_lights, tables.has_tex) if record else 0)
         out = torch.full((rows, r), float("nan"), dtype=torch.float32)
         did = (ll * 4)()
+        ran = torch.zeros(len(W.WINDOW_WORK), dtype=torch.int64)
         lib.wave_level_blocks_host(
             out_prev.data_ptr(), *host_operands(fuzz, tables), out.data_ptr(), r, g,
             n_cols, tables.n_lights, *host_flags(tables, min_tp), n_blocks,
             list_cap or chosen["list_cap"], queue_cap or chosen["queue_cap"], did,
-            int(record), xf.data_ptr() if wide else None,
+            int(record), W.WAVE_BUILDS[build], None if xf is None else xf.data_ptr(),
+            tables.perm_rows.data_ptr() if windowed else None,
+            tables.windows.data_ptr() if windowed else None, wbeg, n_win, ran.data_ptr(),
         )
         if counts is not None:
             counts.update(zip(("lists", "drains", "queued", "max_queue"), list(did)))
+        if work is not None:
+            work.update(zip(W.WINDOW_WORK, ran.tolist()))
         return out
 
+    def consts():
+        res = (ll * 9)()
+        lib.wave_window_consts(res)
+        return dict(zip(("rows", "cols", "rec", "max_windows", "work",
+                         "staged", "unculled", "windows", "windows_count"), list(res)))
+
     level.plan = plan
+    level.consts = consts
     return level
 
 
@@ -587,11 +810,28 @@ def test_smem_formula_is_the_kernels(host_blocks):
         assert W.wave_variant(*tables.table.shape[::-1], tables.n_lights) == variant
 
 
+def test_windowed_smem_layout(host_blocks):
+    """The windowed build's shared memory is the unculled wide build's plus
+    its window records (WIN_REC floats a window); at the gate's edge it
+    still leaves room for three blocks of the level an SM (227 KB of 256 KB
+    with 1 KB reserved a block)."""
+    for g, n_cols, lights in [(1724, 31, 2), (3001, 32, 2), (6144, 32, 8)]:
+        n_win = -(-g // W.WAVE_WINDOW) + 1
+        wide = host_blocks.plan(g, n_cols, lights, wide=True)
+        win = host_blocks.plan(g, n_cols, lights, wide=True, n_win=n_win)
+        assert win["list_cap"] == wide["list_cap"] and win["queue_cap"] == wide["queue_cap"]
+        assert win["bytes"] == wide["bytes"] + 4 * W.WIN_REC * n_win
+        assert 3 * (win["bytes"] + 1024) <= 228 * 1024
+        least = host_blocks.plan(g, n_cols, lights, limit=0, wide=True, n_win=n_win)
+        assert least["bytes"] == W.wave_smem_bytes(0, n_cols, lights) + 4 * W.WIN_REC * n_win
+
+
 def test_block_schedule_wide_table_equals_plain_on_every_level(host_blocks):
     """A table over the staged cap (sphere_field(n=1800): 1,801 geoms,
-    untextured, over the 1,723 a block stages) through the wide build of the
-    block schedule (the table read where it lies, each transform from the
-    geom-major copy), every level of a trace against wave_level_plain."""
+    untextured, over the 1,723 a block stages) through the build the
+    launcher takes for it, the windowed block schedule (the table's rows in
+    Morton windows, each run by a warp when one of its rays enters the
+    window's box), every level of a trace against wave_level_plain."""
     from test_torch_wave_wide import live_lanes_only
 
     from ray_tracying_tpu_torch import models
@@ -600,6 +840,7 @@ def test_block_schedule_wide_table_equals_plain_on_every_level(host_blocks):
     tables = W.wave_tables(scene)
     assert tables.table.shape == (31, 1801)
     assert W.wave_variant(1801, 31, tables.n_lights) == "wide"
+    assert W.package_build(tables) == "windows" and tables.windows.shape[0] == 57 + 1
     o, d, tm = tile_rays(scene.camera, 6, 2, 48, 1, generator=torch.Generator().manual_seed(0))
     common = dict(device="cpu", return_levels=True, tables=tables)
     # the plain version on the lanes that enter live (lane-wise: the same
@@ -616,9 +857,11 @@ def test_block_schedule_wide_table_equals_plain_on_every_level(host_blocks):
 
 def test_block_schedule_wide_edge_splits_short_chunks(host_blocks):
     """The gate's edge, 6,144 geoms (sphere_field(n=6143)), one level of 40
-    live lanes through the wide block schedule: three blocks make chunks of
-    14 lanes, whose rows split over 8 threads each (slices of up to 768
-    rows of every range, merged by (t, row)); against wave_level_plain."""
+    live lanes through the windowed block schedule: three blocks make chunks
+    of 14 lanes, whose rows split over 8 threads each (every eighth row of
+    each window a warp runs, merged by (t, row)); against wave_level_plain,
+    and torch.equal to the unculled schedule, whose threads take slices of
+    up to 768 rows of every range."""
     from ray_tracying_tpu_torch import models
 
     scene = models.get("sphere_field", n=6143, res=(40, 27), device="cpu")
@@ -628,12 +871,329 @@ def test_block_schedule_wide_edge_splits_short_chunks(host_blocks):
     o, d, tm = tile_rays(scene.camera, 8, 1, 40, 1, generator=torch.Generator().manual_seed(0))
     n = o.shape[0]
     boot = torch.cat([o.T, d.T, tm[None], torch.ones((2, n))]).contiguous()
-    counts = {}
-    a = host_blocks(boot, None, tables, counts=counts)
+    counts, ran = {}, {}
+    a = host_blocks(boot, None, tables, counts=counts, work=ran)
     b = W.wave_level_plain(boot, None, tables)
     assert_same(a, b)
+    assert torch.equal(a, host_blocks(boot, None, tables, build="unculled"))
     assert counts["lists"] == 3  # chunks of 14, 14 and 12 lanes
     assert int((b[12] > 0).sum()) > 0
+    assert 0 < ran["closest_tests"] < n * W.WAVE_MAX_GEOMS // 4
+
+
+def wide_boot(o, d, tm, act=None):
+    """A bootstrap (9, R) queue of the rays (o, d, tm), all live unless
+    `act` says otherwise, throughput 1."""
+    n = o.shape[0]
+    act = torch.ones(n) if act is None else act
+    return torch.cat([o.T, d.T, tm[None], act[None], torch.ones((1, n))]).contiguous()
+
+
+def windowed_against_unculled(host_blocks, boot, fuzz, tables, record=False, **kw):
+    """The windowed schedule and the unculled one on the same level:
+    torch.equal, on the host as on the card.  Returns the windowed output
+    and what it ran."""
+    work = {}
+    a = host_blocks(boot, fuzz, tables, build="windows", record=record, work=work, **kw)
+    assert not torch.isnan(a).any()
+    assert torch.equal(a, host_blocks(boot, fuzz, tables, build="unculled", record=record,
+                                      **kw))
+    return a, work
+
+
+def test_window_build_is_the_kernels(host_blocks):
+    """The windows of a wide table (`window_arrays`): the constants are the
+    kernel's (rows a window, row and record widths, most windows, counters,
+    build codes); the permuted rows are a permutation of the table's rows,
+    each carrying columns 0..14 and its original row; every window lies in
+    one kind range (a range is cut into full windows and one partial one;
+    cube_city's floor is a window of its own); a window's box is the union
+    of its members' `geom_aabbs` boxes (a moving sphere's time-1 extent
+    included) and its graze their largest `row_graze`.  A table a block
+    stages gets none."""
+    from ray_tracying_tpu_torch import models
+    from ray_tracying_tpu_torch.accel.lbvh import geom_aabbs, row_graze
+
+    k = host_blocks.consts()
+    assert (k["rows"], k["cols"], k["rec"], k["max_windows"], k["work"]) == (
+        W.WAVE_WINDOW, W.WIN_COLS, W.WIN_REC, W.WAVE_MAX_WINDOWS, len(W.WINDOW_WORK))
+    assert {b: k[b] for b in W.WAVE_BUILDS} == W.WAVE_BUILDS
+    assert W.WAVE_WINDOW in (32, 64)
+    assert W.wave_tables(models.get("sphere_field", n=1000, res=(8, 6), device="cpu")).windows \
+        is None
+    moving = moving_field(1800)
+    for scene in (models.get("cube_city", n=2048, res=(8, 6), device="cpu"), moving,
+                  models.get("sphere_field", n=6143, res=(8, 6), device="cpu")):
+        tables = W.wave_tables(scene)
+        t = tables.table.T.numpy()
+        g = t.shape[0]
+        perm = tables.perm_rows[:, 15].contiguous().view(torch.int32).numpy().astype(np.int64)
+        assert sorted(perm.tolist()) == list(range(g))
+        assert np.array_equal(tables.perm_rows[:, :15].numpy(), t[perm, :15])
+        first, count = W.window_spans(tables)
+        assert tables.windows.shape == (len(first), W.WIN_REC) <= (W.WAVE_MAX_WINDOWS, 8)
+        assert tables.window_ranges[0] == 0 and tables.window_ranges[-1] == len(first)
+        boxes = geom_aabbs(scene)[np.rint(t[:, 16]).astype(np.int64)]
+        graze = row_graze(np.ascontiguousarray(t[:, :17]))
+        for (kind, start, end), w0, w1 in zip(tables.ranges, tables.window_ranges,
+                                              tables.window_ranges[1:]):
+            assert first[w0] == start and first[w1 - 1] + count[w1 - 1] == end
+            assert (first[w0 + 1:w1] == first[w0:w1 - 1] + W.WAVE_WINDOW).all()
+            assert (count[w0:w1 - 1] == W.WAVE_WINDOW).all() and 1 <= count[w1 - 1] <= W.WAVE_WINDOW
+            for w in range(w0, w1):
+                members = perm[first[w]:first[w] + count[w]]
+                assert (np.rint(t[members, 15]) == kind).all()
+                assert ((start <= members) & (members < end)).all()
+                box = tables.windows[w].numpy()
+                assert np.array_equal(box[:3], boxes[members, :3].min(axis=0))
+                assert np.array_equal(box[3:6], boxes[members, 3:].max(axis=0))
+                assert box[6] == graze[members].max()
+        if scene is moving:   # the time-1 extent is in the boxes
+            vel = scene.prims.velocity.numpy()
+            assert np.abs(vel).max() > 0.5
+            assert (boxes[:, 3:] - boxes[:, :3]).max() > 2 * 0.4 + 0.5
+    city = W.wave_tables(models.get("cube_city", n=2048, res=(8, 6), device="cpu"))
+    assert [k_ for k_, _, _ in city.ranges] == [1, 2]
+    assert city.window_ranges == (0, 64, 65) and W.window_spans(city)[1][-1] == 1
+
+
+def test_windows_refuse_another_table():
+    """The windowed builds read the transforms from the permuted copy that
+    `with_windows` made, the shading and finish stages from the table:
+    `check_windows`, which the launcher runs before every windowed launch,
+    passes the table the windows were built from and a detached view of it
+    (what `WaveLevelFn` hands the kernel, a differentiable table too), and
+    refuses another table, the same table edited in place since, and a
+    table without windows."""
+    import dataclasses
+
+    from ray_tracying_tpu_torch import models
+
+    scene = models.get("cube_city", n=2048, res=(8, 6), device="cpu")
+    tables = W.wave_tables(scene)
+    W.check_windows(tables)
+    W.check_windows(dataclasses.replace(tables, table=tables.table.detach()))
+    diff = W.wave_tables(scene, differentiable=True)
+    W.check_windows(dataclasses.replace(diff, table=diff.table.detach()))
+    with pytest.raises(ValueError, match="another table"):
+        W.check_windows(dataclasses.replace(tables, table=tables.table.clone()))
+    with pytest.raises(ValueError, match="with_windows"):
+        W.check_windows(W.wave_tables(models.get("sphere_field", n=100, res=(8, 6),
+                                                 device="cpu")))
+    tables.table[0, 0] += 1.0
+    with pytest.raises(ValueError, match="changed since"):
+        W.check_windows(tables)
+    W.check_windows(W.with_windows(tables, scene))
+
+
+def moving_field(n, res=(8, 6), seed=3):
+    """sphere_field(n=n) with every sphere moving: velocities up to 1.5 a
+    unit time in each axis (the boxes hold the time-1 extent)."""
+    import dataclasses
+
+    from ray_tracying_tpu_torch import models
+
+    scene = models.get("sphere_field", n=n, res=res, device="cpu")
+    rng = np.random.default_rng(seed)
+    vel = torch.from_numpy(rng.uniform(-1.5, 1.5, (scene.n_prims, 3)).astype(np.float32))
+    vel[scene.prims.kind != 0] = 0.0
+    return dataclasses.replace(scene, prims=dataclasses.replace(scene.prims, velocity=vel),
+                               has_motion=True)
+
+
+@pytest.mark.parametrize("n_rays,n_blocks", [(600, 1), (200, 1), (100, 1), (40, 1), (40, 3)],
+                         ids=["two_a_thread", "one_a_thread", "split2", "split4", "split8"])
+def test_windowed_tie_keeps_the_lower_row_under_every_split(host_blocks, n_rays, n_blocks):
+    """Two identical spheres at table rows i < j, in different windows,
+    the window of j visited first (their boxes grown, which only weakens
+    the cull, so that j's centroid sorts first and i's last): every ray
+    that hits them hits both at the same t, and the lower row i wins as in
+    the row-order loop, whether a thread runs two lanes, one, or a slice of
+    a lane's rows (split 2, 4, 8).  Record mode's winner ids say so; the
+    windowed and unculled schedules are torch.equal, and equal the plain
+    version."""
+    import dataclasses
+
+    from ray_tracying_tpu_torch import models
+    from ray_tracying_tpu_torch.accel.lbvh import geom_aabbs
+
+    scene = models.get("sphere_field", n=1800, res=(8, 6), device="cpu")
+    i, j = 100, 1500
+    prims = scene.prims
+    w2o, o2w = prims.w2o.clone(), prims.o2w.clone()
+    w2o[j], o2w[j] = w2o[i], o2w[i]
+    scene = dataclasses.replace(scene, prims=dataclasses.replace(prims, w2o=w2o, o2w=o2w))
+    tables = W.wave_tables(scene)
+    t = tables.table.T.numpy()
+    ids = np.rint(t[:, 16]).astype(np.int64)
+    ri, rj = int(np.nonzero(ids == i)[0][0]), int(np.nonzero(ids == j)[0][0])
+    assert ri < rj and np.array_equal(t[ri, :12], t[rj, :12])
+    boxes = geom_aabbs(scene)[ids]
+    far = np.abs(boxes).max() + 100.0
+    boxes[ri, 3:] = far       # i's centroid sorts last ...
+    boxes[rj, :3] = -far      # ... and j's first
+    perm_rows, windows, bounds = W.window_arrays(t.T, tables.ranges, boxes)
+    tables = dataclasses.replace(tables, perm_rows=torch.from_numpy(perm_rows),
+                                 windows=torch.from_numpy(windows), window_ranges=bounds)
+    perm = perm_rows[:, 15].view(np.int32)
+    pi, pj = int(np.nonzero(perm == ri)[0][0]), int(np.nonzero(perm == rj)[0][0])
+    assert pj < W.WAVE_WINDOW <= pi   # j in the first window, i in a later one
+    # rays from just off sphere i toward it
+    rng = np.random.default_rng(5)
+    c = o2w[i][:, 3].numpy()
+    r = float(np.linalg.norm(o2w[i][:, 0].numpy()))
+    u = rng.normal(size=(n_rays, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    o = torch.from_numpy((c - 1.5 * r * u).astype(np.float32))
+    d = u + 0.3 * rng.normal(size=(n_rays, 3))
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32))
+    boot = wide_boot(o, d, torch.zeros(n_rays))
+    a, _ = windowed_against_unculled(host_blocks, boot, None, tables, record=True,
+                                     n_blocks=n_blocks)
+    b = W.wave_level_plain(boot, None, tables, record=True)
+    assert_same(a[:13], b[:13])
+    assert torch.equal(a[13], b[13])
+    assert int((a[13] == i).sum()) > n_rays // 4 and not (a[13] == j).any()
+
+
+def test_windowed_moving_spheres_equal_plain(host_blocks):
+    """A wide table of moving spheres (sphere_field(n=1800), every sphere
+    with a velocity, ray times drawn in [0, 1]): each window's box holds its
+    members' time-1 extent, so the cull at any time keeps every hit; levels
+    0 and 1 through the windowed schedule against wave_level_plain."""
+    from test_torch_wave_wide import live_lanes_only
+
+    scene = moving_field(1800, res=(48, 27))
+    tables = W.wave_tables(scene)
+    assert tables.motion and tables.windows is not None
+    o, d, _ = tile_rays(scene.camera, 6, 2, 48, 1, generator=torch.Generator().manual_seed(0))
+    tm = torch.from_numpy(np.random.default_rng(7).random(o.shape[0]).astype(np.float32))
+    prev = wide_boot(o, d, tm)
+    plain_level = live_lanes_only(W.wave_level_plain, [])
+    for lv in range(2):
+        a, _ = windowed_against_unculled(host_blocks, prev, None, tables)
+        b = plain_level(prev, None, tables)
+        assert_same(a, b)
+        assert int((b[12] > 0).sum()) > (10 if lv == 0 else 0)
+        prev = b
+
+
+def test_windowed_keeps_the_fuzzy_grazing_hits_of_far_spheres(host_blocks):
+    """Queue 3's far spheres on a wide table, through the window cull: a
+    sphere of radius 0.12 at 150 units among eight others, a sphere of
+    radius 0.001 beside it (32 copies, which fill one window, so that the
+    window's box is the sphere's own), 1,800 spheres behind the camera to
+    make the table wide, and spheres at one far corner that line the copies
+    up with a window.  At that distance the sphere test's discriminant
+    cancels: rays on a ring at 0.9-1.3 radii around the larger sphere, and
+    at 9-13 radii around the tiny one, still test as hits.  The windowed
+    schedule keeps every such hit (torch.equal to the unculled one, equal to
+    the plain version); the tiny sphere's wide graze stays on its own
+    window; with every window's graze zeroed, the cull loses the tiny
+    sphere's far hits."""
+    import dataclasses
+
+    rng = np.random.default_rng(4)
+    far = [[0.0, 150.0, 0.0]] + rng.uniform([-40, 100, -20], [40, 160, 20], (8, 3)).tolist()
+    tiny = [3.0, 150.0, 2.0]
+    behind = rng.uniform([-60, -80, -30], [60, -20, 30], (1800, 3)).tolist()
+    tiny_id = len(far)   # the lowest of its copies wins
+
+    def field(pad):
+        spheres = ([{"location": c, "radius": 0.12} for c in far]
+                   + [{"location": tiny, "radius": 0.001}] * 32
+                   + [{"location": c, "radius": 0.3} for c in behind]
+                   + [{"location": [-70.0, -90.0, -40.0], "radius": 0.3}] * (1 + pad))
+        return W.wave_tables(rt.load_scene_dict(camera_dict(spheres=spheres), device="cpu"))
+
+    def perm_of(tables):
+        return tables.perm_rows[:, 15].contiguous().view(torch.int32).numpy()
+
+    pad = -int(np.nonzero(perm_of(field(0)) == tiny_id)[0][0]) % W.WAVE_WINDOW
+    tables = field(pad)
+    perm = perm_of(tables)
+    first, count = W.window_spans(tables)
+    w_tiny = int(np.nonzero(first == int(np.nonzero(perm == tiny_id)[0][0]))[0][0])
+    assert sorted(perm[first[w_tiny]:first[w_tiny] + count[w_tiny]].tolist()) == \
+        list(range(tiny_id, tiny_id + 32))
+    n = 6000
+    r1, rad1 = silhouette_rays(rng, n, far[0], 0.12)
+    r2, rad2 = silhouette_rays(rng, n, tiny, 0.01)
+    boot = torch.cat([torch.cat([r1, r2], dim=1), torch.ones((1, 2 * n))]).contiguous()
+    a, _ = windowed_against_unculled(host_blocks, boot, None, tables)
+    b = W.wave_level_plain(boot, None, tables, record=True)
+    assert_same(a, b[:13])
+    won = b[13]
+    assert int(((won[:n] == 0) & torch.from_numpy(rad1 > 0.12 * 1.02)).sum()) > 100
+    assert int((won[n:] == tiny_id).sum()) > 100 and (rad2 > 0.008).all()
+    # the tiny sphere's graze is its window's alone
+    graze = tables.windows[:, 6].numpy()
+    assert graze[w_tiny] == graze.max() and (np.delete(graze, w_tiny) < graze.max() / 100).all()
+    # Without the graze slack the same windows lose the tiny sphere's far hits.
+    bare = tables.windows.clone()
+    bare[:, 6] = 0.0
+    lost = host_blocks(boot, None, dataclasses.replace(tables, windows=bare), build="windows")
+    assert int((lost[12, n:] < a[12, n:]).sum()) > 100
+
+
+def test_windowed_record_rows_equal_plain_on_cube_city(host_blocks):
+    """Record mode through the windowed schedule on cube_city(n=2048)
+    (cubes and the floor's rect, two lights): levels 0 and 1, rows 0-12
+    those of the inference schedule, the winner ids and visibility equal to
+    wave_level_plain(record=True), every lane torch.equal to the unculled
+    schedule."""
+    from ray_tracying_tpu_torch import models
+
+    scene = models.get("cube_city", n=2048, res=(48, 27), device="cpu")
+    tables = W.wave_tables(scene)
+    o, d, tm = tile_rays(scene.camera, 12, 2, 48, 1, generator=torch.Generator().manual_seed(2))
+    act = random_act(o.shape[0], 0.8, seed=9)
+    prev = wide_boot(o, d, tm, act)
+    L = tables.n_lights
+    for lv in range(2):
+        a, _ = windowed_against_unculled(host_blocks, prev, None, tables, record=True)
+        b = W.wave_level_plain(prev, None, tables, record=True)
+        assert a.shape == b.shape == (13 + 1 + L, prev.shape[1])
+        assert torch.equal(a[:13], host_blocks(prev, None, tables))
+        assert_same(a[:13], b[:13])
+        assert torch.equal(a[13:], b[13:])
+        assert int((b[12] > 0).sum()) > 0
+        prev = b[:13].contiguous()
+
+
+def test_window_need_is_at_most_what_the_schedule_runs(host_blocks):
+    """chip_smoke.py's window counts of a plain level (`window_need_counts`:
+    what a per-ray cull by exact boxes cannot avoid, the closest hit against
+    its final best t) never exceed what the windowed schedule's counting ran
+    for the same lanes (box slack, the running best, a warp's union of
+    windows), and the counts the schedule ran are a fraction of the unculled
+    level's every test.  The counts leave the plain version's output and its
+    own counts as they are."""
+    import importlib.util
+
+    from ray_tracying_tpu_torch import models
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    scene = models.get("cube_city", n=2048, res=(64, 36), device="cpu")
+    tables = W.wave_tables(scene)
+    o, d, tm = tile_rays(scene.camera, 12, 8, 64, 1, generator=torch.Generator().manual_seed(1))
+    boot = wide_boot(o, d, tm)
+    need, alone = {}, {}
+    with smoke.window_need_counts(W, tables, boot[7] > 0, need):
+        counted = W.wave_level_plain(boot, None, tables, stats=need)
+    assert torch.equal(counted, W.wave_level_plain(boot, None, tables, stats=alone))
+    assert alone == {k: v for k, v in need.items() if "window" not in k}
+    _, ran = windowed_against_unculled(host_blocks, boot, None, tables, n_blocks=1)
+    n = boot.shape[1]
+    assert need["closest_window_tests"] <= ran["closest_wanted_tests"] <= ran["closest_tests"]
+    assert need["shadow_window_tests"] <= ran["shadow_tests"] * 1.02
+    assert need["closest_window_boxes"] == n * tables.windows.shape[0]
+    assert ran["closest_tests"] < need["closest_tests"] / 4
+    assert ran["shadow_tests"] < need["shadow_tests"] / 4
+    assert need["shadow_window_boxes"] <= ran["shadow_box_tests"]
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,10 @@ caps.  One level: `wave_level` on the CPU (the plain version, which is
 the wide kernel's plain version too) against `wave_level_call` in
 interpret mode on cube_city(n=2048) (2,049 geoms, cubes and a rect) and a
 textured sphere_field(n=3000) (3,001 geoms, spherical UV), levels 0 and 1
-on the same rays.  The whole fused trace of cube_city against JAX's
+on the same rays, and the g++ build of the kernel's windowed block
+schedule (tests/test_torch_kernel_source.py's `host_blocks`: the table's
+rows in Morton windows culled per warp by box) on the same rays against
+the same reference.  The whole fused trace of cube_city against JAX's
 `trace_wavefront(..., shrink=())`: radiance and per-level counts; it runs
 through `wave_level` and never the general path.  Differentiable mode
 takes the same scene fused, with the general path's gradients.
@@ -31,6 +34,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from test_torch_kernel_source import host_blocks  # noqa: F401  (a fixture)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -256,11 +260,12 @@ def test_gate_equals_the_jax_gate_on_the_geom_count(textured):
 
 @pytest.mark.parametrize("level", [0, 1])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_wide_level_matches_jax_kernel(jax_refs, case, level):
+def test_wide_level_matches_jax_kernel(jax_refs, host_blocks, case, level):
     """One level of wave_level (the plain version on the CPU) against
     wave_level_call in interpret mode on the same rays (mixed act mask and
     throughput): level 0, and level 1 fed by JAX's level 0 (reflected
-    rays).  The table takes the kernel's wide build."""
+    rays).  The table takes the kernel's wide build; the g++ build of its
+    windowed block schedule holds to the same reference on the same rays."""
     from test_torch_wavefront import assert_level_close
 
     from ray_tracying_tpu_torch.kernels import wavefront as wf
@@ -274,11 +279,14 @@ def test_wide_level_matches_jax_kernel(jax_refs, case, level):
     else:
         prev = torch.from_numpy(np.ascontiguousarray(jax_refs(case)[f"{case}_level0"][:9]))
         assert int((prev[7] > 0).sum()) > 20
+    assert wf.package_build(tables) == "windows" and tables.windows is not None
     got = wf.wave_level(prev, None, tables).numpy()
     ref = jax_refs(case)[f"{case}_level{level}"]
     assert got.shape == ref.shape == (13, BLOCK)
     assert_level_close(got, ref, prev.numpy()[7] > 0)
     assert got[12].sum() > 20
+    windowed = host_blocks(prev, None, tables).numpy()
+    assert_level_close(windowed, ref, prev.numpy()[7] > 0)
 
 
 def test_wide_trace_matches_jax_fused_path(jax_refs, monkeypatch):
