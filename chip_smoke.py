@@ -18,11 +18,16 @@ plain PyTorch version on the card (the fused level bit for bit on every
 level of a full-width flagship tile), measures the fused level's kernel
 against the one-thread-per-lane schedule of the same stages in turns
 (phase wave_redesign_ab: per level, and one flagship frame each, byte-equal),
-its staged build against its two wide ones on the flagship's table (phase
-wave_build_ab: per level, bit-equal), the wide tables' windowed build
-against the unculled one on every lane of every level (phase
-wide_window_ab: torch.equal, record mode too, in turns, with the tests a
-lane its counting build ran),
+the package's route (a window cull over the staged table, windows and
+rows) against the staged build, which every culled build is held to, and
+against the two wide builds on the flagship's table (phase
+wave_build_ab: per level, bit-equal, record mode too), every fused golden
+and the flagship tile traced by both (phase staged_goldens, tile_breakdown:
+radiance torch.equal), the flagship frame by the route before the window
+cull in turns (main_path), each table's window cull against the staged
+build (or, past what it takes, the unculled one) on every lane of every
+level (phase wide_window_ab: torch.equal, record mode too, in turns, with
+the tests a lane its counting build ran),
 the warp schedule of the three chunk kernels against the one-thread-per-lane
 sweep it replaced (phase sweep_redesign_ab: level-0, level-1 and shadow rays
 of the 20,001-geom scene, plain and textured, bit-equal) and the shadow
@@ -601,6 +606,86 @@ def general_routing():
         yield
     finally:
         PL.trace_wavefront = real
+
+
+@contextlib.contextmanager
+def parent_route(W):
+    """The routing before every table was culled by window, for main_path's
+    frames: the unculled staged build for a table it takes
+    (`W.stages_table`), without windows (`wave_tables` built them only for
+    a wider table), and the package's route above that.  `W.package_build`
+    and `W.with_windows` are swapped while it lasts (the launches are
+    counted as the package's); the run fails if the package never asked
+    them, as it would if a caller held its own reference to either."""
+    build, windows = W.package_build, W.with_windows
+    asked = []
+
+    def parent_build(tables):
+        asked.append("build")
+        return "staged" if W.stages_table(tables) else build(tables)
+
+    def parent_windows(tables, scene):
+        asked.append("windows")
+        return tables if W.stages_table(tables) else windows(tables, scene)
+
+    W.package_build, W.with_windows = parent_build, parent_windows
+    try:
+        yield
+    finally:
+        W.package_build, W.with_windows = build, windows
+    if set(asked) != {"build", "windows"}:
+        fail("the route before the window cull was not taken: the package did not ask "
+             "the swapped package_build and with_windows")
+
+
+def staged_level(W):
+    """A level_fn for trace_wavefront: the staged build (the reference the
+    package's window-culled builds are held to), uncounted."""
+    def level(out_prev, fuzz, tables, min_tp=0.0):
+        return W.wave_level_build(out_prev, fuzz, tables, "staged", min_tp)
+    return level
+
+
+# The goldens that take the fused level (phase 4), each traced once more
+# by the staged build (`staged_golden_traces`): (scene, samples a side,
+# light samples).
+FUSED_GOLDENS = (("bvh_det", 1, 1), ("bvh_glossy", 8, 1), ("det_basic", 1, 1),
+                 ("det_mirrors", 1, 1), ("texture", 1, 1), ("dof", 6, 1), ("motion", 6, 1),
+                 ("glossy", 6, 1), ("softshadow", 4, 16))
+
+
+def staged_golden_traces(rt, W, dev):
+    """Phase staged_goldens: every golden the fused level takes, its whole
+    image traced twice from one seed, through the package's route (the
+    window cull) and through the staged build (`staged_level`): the
+    radiance torch.equal, or the run fails.  The draws come from one
+    generator in the same order both times, the queue shrink is the
+    default.  Returns the rows."""
+    from ray_tracying_tpu_torch.render.integrator import trace_wavefront
+    from ray_tracying_tpu_torch.render.pipeline import tile_rays
+
+    rows = []
+    for name, sqrt_spp, samples in FUSED_GOLDENS:
+        scene = load_demo(rt, name, dev)
+        if W.wave_refusal(scene, False, samples) is not None:
+            fail(f"{name} no longer takes the fused level")
+        tables = W.wave_tables(scene, light_samples=samples)
+        width, height = scene.camera.resolution
+        o, d, tm = tile_rays(scene.camera, 0, height, width, sqrt_spp,
+                             generator=torch.Generator(device=dev).manual_seed(17))
+        rad = {}
+        for build, level_fn in (("route", W.wave_level), ("staged", staged_level(W))):
+            rad[build] = trace_wavefront(scene, o, d, tm, samples, tables=tables,
+                                         level_fn=level_fn,
+                                         generator=torch.Generator(device=dev).manual_seed(18))
+        row = dict(scene=name, lanes=o.shape[0], geoms=scene.n_geoms,
+                   route=W.package_build(tables), windows=tables.windows.shape[0],
+                   radiance_equal=bool(torch.equal(rad["route"], rad["staged"])))
+        say("staged_goldens", **row)
+        rows.append(row)
+        if not row["radiance_equal"]:
+            fail(f"{name}: the window-culled route and the staged build trace other radiance")
+    return rows
 
 
 def accel_frame(rt, scene, opts, seed, dev):
@@ -1513,12 +1598,13 @@ def ptxas_numbers(report):
 
 def wave_plan_phase(W, _build, tables, scene):
     """Phase wave_plan: what ptxas reports for each build of the level
-    kernel (wave_level_blocks_kernel<kBuild*>: staged; the wide table's
-    unculled build, kept to be measured against; the windowed build and
-    its counting build), the plan the flagship's table
-    launches with on this card (the staged build), and the largest table a
-    block stages and the gate takes.  Returns the plan, with each build's
-    ptxas numbers under "builds"."""
+    kernel (wave_level_blocks_kernel<kBuild*>: staged, the reference; the
+    wide table's unculled build, kept to be measured against; the windowed
+    build and its counting build; the staged windowed build), the plan the
+    flagship's table launches with on this card (the package's build, the
+    staged windowed one), and the largest table a block stages and the
+    gate takes.  Returns the plan, with each build's ptxas numbers under
+    "builds"."""
     reports = {b: ptxas_report(_build, f"wave_level_blocks_kernelILi{code}E")
                for b, code in W.WAVE_BUILDS.items()}
     plan = W.wave_plan(tables)
@@ -1531,8 +1617,8 @@ def wave_plan_phase(W, _build, tables, scene):
         gate_max_geoms=W.WAVE_MAX_GEOMS)
     if _build.last_build["compiled"] and not all(reports.values()):
         fail("ptxas reported nothing for a build of wave_level_blocks_kernel")
-    if plan["variant"] != "staged":
-        fail(f"the flagship's table takes the {plan['variant']} build")
+    if plan["build"] != "staged_windows":
+        fail(f"the flagship's table takes the {plan['build']} build")
     plan["builds"] = {b: ptxas_numbers(r) for b, r in reports.items()}
     return plan
 
@@ -1598,59 +1684,57 @@ def wave_redesign_ab(rt, W, scene, tables, inputs, fuzz, opts, n_levels):
 
 def wave_build_ab(W, scene, tables, inputs, fuzz, n_levels):
     """Phase wave_build_ab: the level kernel's builds on the flagship's
-    table (141 geoms, which a block stages), on the inputs of every level
-    of one full-width tile: the staged build, which wave_level launches for
-    it, against the unculled wide build and the windowed build (its windows
-    built here, `W.with_windows`), each launched through
-    `W.wave_level_build` (the package gives them only a table over
-    wave_cap_geoms; these launches are not counted).  Outputs torch.equal,
-    ms of each by CUDA events in turns (staged, wide, windowed, windowed,
-    wide, staged), the wide builds' plans.  Whether the staged build still
-    pays on a table it stages, and whether a window cull would.  Returns
-    the summary row."""
-    n_cols, g = tables.table.shape
-    win_tables = W.with_windows(tables, scene)
-    windowed = "windows"
-    calls = {"staged": lambda prev, fz: W.wave_level(prev, fz, tables),
-             "wide": lambda prev, fz: W.wave_level_build(prev, fz, tables, "unculled"),
-             "windowed": lambda prev, fz: W.wave_level_build(prev, fz, win_tables, windowed)}
-    plans = {k: W.wave_plan(win_tables, build=b)
-             for k, b in (("wide", "unculled"), ("windowed", windowed))}
+    table (141 geoms, which a block stages with its windows), on the inputs
+    of every level of one full-width tile: the package's route
+    (`W.package_build`: the window cull over the staged table, windows and
+    rows) against the staged build (every lane tests every row; the
+    reference), the wide windowed build (the window cull reading the rows
+    where they lie) and the unculled wide build, the last three launched
+    through `W.wave_level_build` (not counted).  Every output torch.equal
+    to the staged build's, the route's record mode too, or the run fails;
+    ms of each by CUDA events in turns (route, staged, windows, unculled,
+    unculled, windows, staged, route), each build's plan.  Returns the
+    summary row."""
+    g = tables.table.shape[1]
+    route = W.package_build(tables)
+    builds = {"route": route, "staged": "staged", "windows": "windows", "unculled": "unculled"}
+    calls = {k: (lambda prev, fz, b=b, record=False: W.wave_level_build(prev, fz, tables, b,
+                                                                        record=record))
+             for k, b in builds.items()}
+    plans = {k: W.wave_plan(tables, build=b) for k, b in builds.items()}
+    order = ("route", "staged", "windows", "unculled")
     rows = []
     for lv in range(n_levels):
         prev, fz = inputs[lv], fuzz[lv]
         ref = calls["staged"](prev, fz)
-        equal = {k: bool(torch.equal(calls[k](prev, fz), ref)) for k in ("wide", "windowed")}
+        equal = {k: bool(torch.equal(calls[k](prev, fz), ref)) for k in order[1:] if k != "staged"}
+        equal["route"] = bool(torch.equal(calls["route"](prev, fz), ref))
         del ref
+        equal["route_record"] = bool(torch.equal(calls["route"](prev, fz, record=True),
+                                                 calls["staged"](prev, fz, record=True)))
         t = {}
-        for turn, k in (("staged", "staged"), ("wide", "wide"), ("windowed", "windowed"),
-                        ("windowed_again", "windowed"), ("wide_again", "wide"),
-                        ("staged_again", "staged")):
+        for turn in order + tuple(f"{k}_again" for k in reversed(order)):
+            k = turn.replace("_again", "")
             t[turn] = cuda_ms(lambda: calls[k](prev, fz), 5)
         rows.append(dict(level=lv, live=int((prev[7] > 0).sum()),
-                         staged_ms=[t["staged"], t["staged_again"]],
-                         wide_ms=[t["wide"], t["wide_again"]],
-                         windowed_ms=[t["windowed"], t["windowed_again"]],
-                         bitwise_equal=equal["wide"], windowed_bitwise_equal=equal["windowed"]))
+                         **{f"{k}_ms": [t[k], t[f"{k}_again"]] for k in order},
+                         bitwise_equal=equal))
         say("wave_build_ab", **rows[-1])
         if not all(equal.values()):
-            fail(f"a wide build differs from the staged one on the flagship's level {lv}: "
-                 f"{equal}")
+            fail(f"a build differs from the staged one on the flagship's level {lv}: {equal}")
 
     def total(key, levels):
         return sum(sum(r[key]) / 2 for r in rows if r["level"] in levels)
 
     deep = range(1, n_levels)
-    summary = dict(geoms=g, lanes=inputs[0].shape[1], windows=win_tables.windows.shape[0],
-                   level0_staged_ms=total("staged_ms", [0]), level0_wide_ms=total("wide_ms", [0]),
-                   level0_windowed_ms=total("windowed_ms", [0]),
-                   levels_1_10_staged_ms=total("staged_ms", deep),
-                   levels_1_10_wide_ms=total("wide_ms", deep),
-                   levels_1_10_windowed_ms=total("windowed_ms", deep),
-                   wide_smem_bytes=plans["wide"]["smem_bytes"],
-                   wide_blocks_per_sm=plans["wide"]["blocks_per_sm"],
-                   windowed_smem_bytes=plans["windowed"]["smem_bytes"],
-                   windowed_blocks_per_sm=plans["windowed"]["blocks_per_sm"],
+    summary = dict(geoms=g, lanes=inputs[0].shape[1], windows=tables.windows.shape[0],
+                   route=route, every_level_equal=True,
+                   **{f"level0_{k}_ms": total(f"{k}_ms", [0]) for k in order},
+                   **{f"levels_1_10_{k}_ms": total(f"{k}_ms", deep) for k in order},
+                   slower_than_staged_levels=[r["level"] for r in rows
+                                              if min(r["route_ms"]) > max(r["staged_ms"])],
+                   **{f"{k}_smem_bytes": plans[k]["smem_bytes"] for k in order},
+                   **{f"{k}_blocks_per_sm": plans[k]["blocks_per_sm"] for k in order},
                    nvidia_smi=smi_line())
     say("wave_build_ab", **summary)
     return summary
@@ -1673,8 +1757,9 @@ def record_mode_phase(W, scene, tables, inputs, fuzz, n_levels, per_test, stride
     wave_level_plain(record=True) on one lane in `stride`, drawn at random
     each level (`lane_sample`; the plain version is lane-wise, so a subset
     of lanes is a plain run of its own);
-    level 0 with and without record in turns by CUDA events, with the
-    record launch's bound; then the backward of one level at that width
+    level 0 with and without record in turns by CUDA events, beside the
+    staged build's record launch (the route before the window cull), with
+    the record launch's bound; then the backward of one level at that width
     (WaveLevelFn: the rebuild's forward and autograd, twice to equal bits)
     and its gather's reduction alone, as shipped (segment_sum) and as an
     atomic index_add_.  Returns the summary row."""
@@ -1716,9 +1801,14 @@ def record_mode_phase(W, scene, tables, inputs, fuzz, n_levels, per_test, stride
     prev, fz = inputs[0], fuzz[0]
     n = prev.shape[1]
     t = {}
-    for turn, record in (("inference", False), ("record", True), ("record_again", True),
+    for turn, record in (("inference", False), ("record", True), ("record_staged", True),
+                         ("record_staged_again", True), ("record_again", True),
                          ("inference_again", False)):
-        t[turn] = cuda_ms(lambda: W.wave_level(prev, fz, tables, record=record), 5)
+        if "staged" in turn:
+            t[turn] = cuda_ms(lambda: W.wave_level_build(prev, fz, tables, "staged",
+                                                         record=True), 5)
+        else:
+            t[turn] = cuda_ms(lambda: W.wave_level(prev, fz, tables, record=record), 5)
     live = int((prev[7] > 0).sum())
     scale = n / need0["lanes"]
     shadow_tests = need0["shadow_tests"] * scale
@@ -1732,6 +1822,7 @@ def record_mode_phase(W, scene, tables, inputs, fuzz, n_levels, per_test, stride
     summary = dict(
         lanes=n, level0_inference_ms=[t["inference"], t["inference_again"]],
         level0_record_ms=[t["record"], t["record_again"]],
+        level0_record_staged_ms=[t["record_staged"], t["record_staged_again"]],
         record_over_inference=(t["record"] + t["record_again"]) / (t["inference"] + t["inference_again"]),
         record_plain_ms_every_nth_lane=plain_ms, stride=stride,
         record_shadow_rays_estimated=need0["shadow_rays"] * scale,
@@ -1746,7 +1837,10 @@ def record_mode_phase(W, scene, tables, inputs, fuzz, n_levels, per_test, stride
 
     leaves = [x.detach().clone().requires_grad_(True)
               for x in (prev, tables.table, tables.lights)]
-    out = W.WaveLevelFn.apply(leaves[0], fz, leaves[1], leaves[2], tables, 0.0)
+    # the launcher culls only by windows built from the table it is given
+    leaf_tables = W.with_windows(dataclasses.replace(tables, table=leaves[1], lights=leaves[2]),
+                                 scene)
+    out = W.WaveLevelFn.apply(leaves[0], fz, leaves[1], leaves[2], leaf_tables, 0.0)
     cot = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(8), device=dev)
 
     def backward():
@@ -2006,8 +2100,11 @@ def shrink_phase(rt, W, G, scene, tables, o, d, tm, fuzz, full_levels, sched, op
     launches each; (b) each level's launch at its width (the shrunk levels'
     inputs rebuilt with the trace's own compaction and their fuzz gathered
     by dest: the outputs equal the trace's, and bit-equal to the plain
-    version on the live lanes) against the same level at full width, in
-    turns, with the shrunk levels' bounds; the compactions' ms; (c) the
+    version on the live lanes) against the same level at full width and
+    against the staged build at its width (the route before the window
+    cull), in turns, with the shrunk levels' bounds; the compactions' ms;
+    the levels the package's route is slower on than the staged build;
+    (c) the
     tile traced with draws from a generator both ways, in turns; (d) the
     flagship frame through render_to_srgb_u8 with the pipeline's shrink and
     with it turned off (tile_shrink patched to ()), in turns, from one seed
@@ -2074,14 +2171,22 @@ def shrink_phase(rt, W, G, scene, tables, o, d, tm, fuzz, full_levels, sched, op
             del out
         t = {}
         for turn, (q, f) in (("full", (full_in, fuzz[lv])), ("at_width", (inp, fz)),
+                             ("staged", (inp, fz)), ("staged_again", (inp, fz)),
                              ("at_width_again", (inp, fz)), ("full_again", (full_in, fuzz[lv]))):
-            t[turn] = cuda_ms(lambda: W.wave_level(q, f, tables), 3)
+            if turn.startswith("staged"):
+                t[turn] = cuda_ms(lambda: W.wave_level_build(q, f, tables, "staged"), 3)
+            else:
+                t[turn] = cuda_ms(lambda: W.wave_level(q, f, tables), 3)
         lrow.update(ms=[t["at_width"], t["at_width_again"]],
+                    staged_ms=[t["staged"], t["staged_again"]],
                     full_width_ms=[t["full"], t["full_again"]])
         say("shrink", **lrow)
         levels_rows.append(lrow)
     row.update(compaction_ms=compaction_ms,
                levels_ms=sum(sum(r["ms"]) / 2 for r in levels_rows),
+               levels_staged_ms=sum(sum(r["staged_ms"]) / 2 for r in levels_rows),
+               slower_than_staged_levels=[r["level"] for r in levels_rows
+                                          if min(r["ms"]) > max(r["staged_ms"])],
                levels_full_width_ms=sum(sum(r["full_width_ms"]) / 2 for r in levels_rows))
     # (c)
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -2432,32 +2537,33 @@ def sampled_plain(W, tables, samples):
 WINDOW_REPS = 3
 
 
-def window_ab(W, prev, fz, tables, name, lv, base="unculled"):
-    """Phase wide_window_ab, one level of a tile: the windowed build
-    against `base`, both launched through `W.wave_level_build` (not
-    counted).  A wide table: the package's windowed build against the
-    unculled build (every lane tests every row; kept only to be measured
-    against).  A table a block stages, given its windows
-    (`W.with_windows`): the windowed build against the staged one, which
-    the package launches.  Outputs `torch.equal` on every lane, in
-    inference and in record mode; ms of each by CUDA events in turns
-    (windowed, base, base, windowed); the counting build's tests a live
-    lane (W.WINDOW_WORK), its output equal too.  Returns the row."""
+def window_ab(W, prev, fz, tables, name, lv):
+    """Phase wide_window_ab, one level of a tile: the package's build (a
+    window cull, `W.package_build`) against the build it is held to, both
+    launched through `W.wave_level_build` (not counted): the staged build
+    (every lane tests every row of the staged table) where it takes the
+    table (`W.stages_table`: the route before the window cull), else the
+    unculled wide build (the same from global memory; kept only to be
+    measured against).  Outputs `torch.equal` on every lane, in inference
+    and in record mode; ms of each by CUDA events in turns (windowed, base,
+    base, windowed); the counting build's tests a live lane
+    (W.WINDOW_WORK), its output equal too.  Returns the row."""
     def run(build, record=False, work=None):
         return W.wave_level_build(prev, fz, tables, build, record=record, work=work)
 
+    new = W.package_build(tables)
+    base = "staged" if W.stages_table(tables) else "unculled"
     live = int((prev[7] > 0).sum())
-    a = run("windows")
+    a = run(new)
     equal = bool(torch.equal(a, run(base)))
     work = torch.zeros(len(W.WINDOW_WORK), dtype=torch.int64, device=prev.device)
     count_equal = bool(torch.equal(a, run("windows_count", work=work)))
     del a
-    rec_equal = bool(torch.equal(run("windows", record=True), run(base, record=True)))
+    rec_equal = bool(torch.equal(run(new, record=True), run(base, record=True)))
     t = {}
-    for turn, build in (("new", "windows"), ("old", base), ("old_again", base),
-                        ("new_again", "windows")):
+    for turn, build in (("new", new), ("old", base), ("old_again", base), ("new_again", new)):
         t[turn] = cuda_ms(lambda: run(build), WINDOW_REPS)
-    row = dict(case=name, level=lv, lanes=prev.shape[1], live=live, build="windows", base=base,
+    row = dict(case=name, level=lv, lanes=prev.shape[1], live=live, build=new, base=base,
                windowed_ms=[t["new"], t["new_again"]],
                **{f"{base}_ms": [t["old"], t["old_again"]]},
                every_lane_equal=equal, record_rows_equal=rec_equal,
@@ -2466,13 +2572,13 @@ def window_ab(W, prev, fz, tables, name, lv, base="unculled"):
                   for k, v in zip(W.WINDOW_WORK, work.tolist())})
     say("wide_window_ab", **row)
     if not (equal and rec_equal and count_equal):
-        fail(f"{name}: the windowed build differs from the {base} one on level {lv} "
+        fail(f"{name}: the {new} build differs from the {base} one on level {lv} "
              f"(inference {equal}, record {rec_equal}, counting {count_equal})")
     return row
 
 
 def levels_against_plain(W, I, name, scene, tables, o, d, tm, prev, gen, levels, row,
-                         stride, phase="fused_widened", win_tables=None):
+                         stride, phase="fused_widened"):
     """Part (a) of phase fused_widened (and phase wide_edge): every level of
     the tile by the kernel, each fed by the kernel's own previous level,
     against wave_level_plain on one in `stride` of the live lanes of that
@@ -2486,25 +2592,21 @@ def levels_against_plain(W, I, name, scene, tables, o, d, tm, prev, gen, levels,
     start and read after the last launch: row["launches"] is every launch
     of this check (each level once, one record-mode launch, 5 timed
     repetitions of levels 0 and 1), and the run fails if it is not that.
-    A wide table also runs phase wide_window_ab on every level (`window_ab`,
-    uncounted launches) and gets, for levels 0 and 1, a second bound: the
-    tests a per-ray window cull cannot avoid; `win_tables` (a staged table
-    with its windows) runs it against the staged build.  Updates `row`;
-    returns the per-level rows."""
+    Every level also runs phase wide_window_ab (`window_ab`, uncounted
+    launches: the package's window cull against the staged or the unculled
+    build), and levels 0 and 1 get the bound on the tests a per-ray window
+    cull cannot avoid (what the package's build runs), the bound on every
+    test apart.  Updates `row`; returns the per-level rows."""
     from ray_tracying_tpu_torch.render.integrator import level_fuzz
 
     dev = prev.device
     n = prev.shape[1]
     samples, ms = [], {}
-    wide = tables.windows is not None
     ab = {}
     W.wave_level.launches = 0
     for lv in range(levels):
         fz = level_fuzz(tables, gen, n, dev)
-        if wide:
-            ab[lv] = window_ab(W, prev, fz, tables, name, lv)
-        elif win_tables is not None:
-            ab[lv] = window_ab(W, prev, fz, win_tables, name, lv, base="staged")
+        ab[lv] = window_ab(W, prev, fz, tables, name, lv)
         a = W.wave_level(prev, fz, tables)
         live = prev[7] > 0
         idx = lane_sample(torch.nonzero(live).squeeze(1), stride, 1000 + lv)
@@ -2555,31 +2657,31 @@ def levels_against_plain(W, I, name, scene, tables, o, d, tm, prev, gen, levels,
             every = level_bound(W, tables, n, full, smp["hits"])
             lvl.update(ms=ms[lv], shadow_rays_estimated=need.get("shadow_rays", 0) * scale,
                        **every)
-            if wide:
-                # The windowed build the package launches runs no more than
-                # a cull lets through: its bound is the bound on the tests
-                # a per-ray window cull cannot avoid; the bound on every
-                # test (what the unculled build runs) keeps its own name.
-                per = 1.0 / max(1, smp["q"].shape[1])
-                culled = dict(live=smp["live"],
-                              closest_tests=need["closest_window_tests"] * scale,
-                              shadow_tests=need["shadow_window_tests"] * scale)
-                boxes = (need["closest_window_boxes"] + need["shadow_window_boxes"]) * scale
-                lvl.update(
-                    bound_all_tests_ms=every["bound_ms"], bound_all_tests_by=every["bound_by"],
-                    **level_bound(W, tables, n, culled, smp["hits"], box_tests=boxes),
-                    needed_closest_tests_per_live_lane=need["closest_window_tests"] * per,
-                    needed_shadow_tests_per_live_lane=need["shadow_window_tests"] * per,
-                    needed_box_tests_per_live_lane=(need["closest_window_boxes"]
-                                                    + need["shadow_window_boxes"]) * per)
-                row.update({f"level{lv}_{k}": lvl[k] for k in (
-                    "bound_all_tests_ms", "bound_all_tests_by",
-                    "needed_closest_tests_per_live_lane", "needed_shadow_tests_per_live_lane",
-                    "needed_box_tests_per_live_lane")})
-                row.update({f"level{lv}_windowed_ms": ab[lv]["windowed_ms"],
-                            f"level{lv}_unculled_ms": ab[lv]["unculled_ms"],
-                            **{f"level{lv}_{k}": ab[lv][k] for k in ab[lv]
-                               if k.startswith("ran_")}})
+            # The windowed build the package launches runs no more than
+            # a cull lets through: its bound is the bound on the tests
+            # a per-ray window cull cannot avoid; the bound on every
+            # test (what the staged and unculled builds run) keeps its
+            # own name.
+            per = 1.0 / max(1, smp["q"].shape[1])
+            culled = dict(live=smp["live"],
+                          closest_tests=need["closest_window_tests"] * scale,
+                          shadow_tests=need["shadow_window_tests"] * scale)
+            boxes = (need["closest_window_boxes"] + need["shadow_window_boxes"]) * scale
+            lvl.update(
+                bound_all_tests_ms=every["bound_ms"], bound_all_tests_by=every["bound_by"],
+                **level_bound(W, tables, n, culled, smp["hits"], box_tests=boxes),
+                needed_closest_tests_per_live_lane=need["closest_window_tests"] * per,
+                needed_shadow_tests_per_live_lane=need["shadow_window_tests"] * per,
+                needed_box_tests_per_live_lane=(need["closest_window_boxes"]
+                                                + need["shadow_window_boxes"]) * per)
+            row.update({f"level{lv}_{k}": lvl[k] for k in (
+                "bound_all_tests_ms", "bound_all_tests_by",
+                "needed_closest_tests_per_live_lane", "needed_shadow_tests_per_live_lane",
+                "needed_box_tests_per_live_lane")})
+            row.update({f"level{lv}_windowed_ms": ab[lv]["windowed_ms"],
+                        f"level{lv}_{base}_ms": ab[lv][f"{base}_ms"],
+                        **{f"level{lv}_{k}": ab[lv][k] for k in ab[lv]
+                           if k.startswith("ran_")}})
             row.update({f"level{lv}_ms": ms[lv], f"level{lv}_plain_ms": plain_ms,
                         f"level{lv}_bound_ms": lvl["bound_ms"],
                         f"level{lv}_bound_by": lvl["bound_by"], f"level{lv}_live": smp["live"],
@@ -2662,21 +2764,18 @@ def fused_widened_phase(rt, W, CH, dev, n_levels):
         n = o.shape[0]
         prev = torch.cat([o.T, d.T, tm[None], torch.ones((2, n), device=dev)]).contiguous()
         n_cols = tables.table.shape[0]
-        wide = W.wave_variant(scene.n_geoms, n_cols, scene.n_lights) == "wide"
+        build = W.package_build(tables)
+        wide = build == "windows"
         row = dict(case=name, geoms=scene.n_geoms, n_cols=n_cols,
                    kinds=[k for k, _, _ in tables.ranges], lights=scene.n_lights,
                    area=list(tables.area), light_samples=samples, samples_sqrt=sqrt_spp,
                    lanes=n, levels=levels, cap_geoms=W.wave_cap_geoms(n_cols, scene.n_lights),
-                   variant=W.wave_variant(scene.n_geoms, n_cols, scene.n_lights),
+                   build=build,
                    nvidia_smi=smi)
         # every live lane of a table a block stages; one in WIDE_STRIDE, at
         # random, of a wide one
-        # the textured 1,501-geom table, which a block stages: its windows too,
-        # the windowed build measured against the staged one (wide_window_ab)
-        win_tables = W.with_windows(tables, scene) if name == "sphere_field_textured" else None
         per_level = levels_against_plain(W, I, name, scene, tables, o, d, tm, prev, gen,
-                                         levels, row, WIDE_STRIDE if wide else 1,
-                                         win_tables=win_tables)
+                                         levels, row, WIDE_STRIDE if wide else 1)
         row.update(
             bitwise_equal_levels=sum(lv_["bitwise_equal"] for lv_ in per_level),
             disagreeing_lanes=per_level[-1]["disagreeing_lanes_so_far"],
@@ -2819,8 +2918,7 @@ def wide_edge_phase(rt, W, dev):
     n = o.shape[0]
     prev = torch.cat([o.T, d.T, tm[None], torch.ones((2, n), device=dev)]).contiguous()
     row = dict(case="sphere_field_6143", geoms=scene.n_geoms, n_cols=tables.table.shape[0],
-               lanes=n, levels=2, variant=W.wave_variant(scene.n_geoms, tables.table.shape[0],
-                                                         scene.n_lights),
+               lanes=n, levels=2, build=W.package_build(tables),
                over_the_gate=W.wave_refusal(over), nvidia_smi=smi_line())
     per_level = levels_against_plain(W, I, "sphere_field_6143", scene, tables, o, d, tm, prev,
                                      gen, 2, row, WIDE_STRIDE, phase="wide_edge")
@@ -3160,12 +3258,19 @@ def main():
         nvidia_smi_name_power_limit=smi, torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    # ---- phase 2: build
+    # ---- phase 2: build.  The --fmad=true variant (phase fma_variant) is
+    # compiled beside the package's build, in a process of its own, which
+    # is joined before any check starts.
+    fused_build = subprocess.Popen([sys.executable, "-c", (
+        "import sys; sys.path.insert(0, %r); "
+        "from ray_tracying_tpu_torch.kernels import _build; _build.build(fmad=True)") % REPO])
     _build.load()
+    if fused_build.wait() != 0:
+        fail("the --fmad=true variant of the kernels did not build")
     ptxas = [ln.strip() for ln in _build.last_build["log"].splitlines()
              if "registers" in ln or "spill" in ln or "entry function" in ln]
     # wave_level (blocks: the staged build, the wide table's unculled and
-    # windowed build and its counting build) and its
+    # windowed build and its counting build, the staged windowed build) and its
     # one-thread-per-lane schedule, three brute
     # kernels by one thread per lane and their three warp kernels; the two
     # one-thread-per-lane traversals and the traversal's warp kernel (closest
@@ -3173,8 +3278,8 @@ def main():
     # one-thread-per-lane sweeps (the chunked brute, and each of the three
     # chunk kernels with its counting build); seven warp sweeps (the three
     # chunk kernels, each with its counting build, and the chunked brute)
-    if sum("entry function" in ln for ln in ptxas) != 31 and _build.last_build["compiled"]:
-        fail("the build did not report thirty-one kernels")
+    if sum("entry function" in ln for ln in ptxas) != 32 and _build.last_build["compiled"]:
+        fail("the build did not report thirty-two kernels")
     say("build", seconds=round(_build.last_build["seconds"], 2),
         compiled=_build.last_build["compiled"], flags=_build.last_build["flags"],
         library=os.path.relpath(_build.last_build["path"], REPO), ptxas=ptxas)
@@ -3268,6 +3373,8 @@ def main():
     golden_check(rt, "glossy", "glossy_s6.ppm", 6, "stochastic", 3)
     golden_check(rt, "softshadow", "softshadow_s4_l16.ppm", 4, "stochastic", 3,
                  light_samples=16, expect_path="fused")
+    # the same goldens' traces by the package's route and by the staged build
+    staged_goldens = staged_golden_traces(rt, W, dev)
 
     # The general path's other branch, with the counts set to 0 just
     # before: the compacted two-way queue (det_twoway: untextured, so the
@@ -3354,6 +3461,29 @@ def main():
              "its golden")
     if any(main_dropped):
         fail(f"the flagship frames dropped {main_dropped} continuations")
+    # The frame by the route before the window cull (`parent_route`: the
+    # staged build, no windows built) and by the package's, in turns from
+    # seed 0: seconds, and the images byte-equal.
+    ab_s, ab_img = {}, {}
+    for turn in ("route", "parent", "parent_again", "route_again"):
+        with parent_route(W) if turn.startswith("parent") else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ab_img[turn] = rt.render_to_srgb_u8(scene, opts,
+                                                torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+            ab_s[turn] = time.time() - t0
+    main_ab = dict(route_seconds=[ab_s["route"], ab_s["route_again"]],
+                   parent_route_seconds=[ab_s["parent"], ab_s["parent_again"]],
+                   bytes_equal=all(np.array_equal(x, ab_img["route"]) for x in ab_img.values()))
+    main_ab.update(
+        route_primary_rays_per_s=n_rays * 2 / sum(main_ab["route_seconds"]),
+        parent_route_primary_rays_per_s=n_rays * 2 / sum(main_ab["parent_route_seconds"]))
+    del ab_img
+    say("main_path", case="the package's route against the route before the window cull, "
+        "in turns", **main_ab, nvidia_smi=smi)
+    if not main_ab["bytes_equal"]:
+        fail("the flagship frame differs between the window-culled route and the staged build")
 
     # Per-level counters of one full-width tile (the second: rows with
     # cubes), traced without shrink: its levels are the full-width inputs
@@ -3393,20 +3523,37 @@ def main():
             lambda: [level_fuzz(tables, gen, w, dev) for w in ws], 3)
         breakdown[f"trace_ms_{turn}"] = cuda_ms(lambda: trace_wavefront(
             scene, o, d, tm, fuzz=fuzz, tables=tables, shrink=sched), 3)
+    level_ms = {}
+    for turn in ("route", "staged", "staged_again", "route_again"):
+        fn = W.wave_level if turn.startswith("route") else staged_level(W)
+        level_ms[turn] = [cuda_ms(lambda: fn(inputs[lv], fuzz[lv], tables), 3)
+                          for lv in range(n_levels)]
+    # the tile's trace once more through the staged build: the radiance
+    # torch.equal to the package's route (the main path's shrink schedule)
+    rad_route = trace_wavefront(scene, o, d, tm, fuzz=fuzz, tables=tables)
+    rad_staged = trace_wavefront(scene, o, d, tm, fuzz=fuzz, tables=tables,
+                                 level_fn=staged_level(W))
+    breakdown["staged_trace_radiance_equal"] = bool(torch.equal(rad_route, rad_staged))
+    del rad_route, rad_staged
     say("tile_breakdown",
         rays_ms=cuda_ms(lambda: tile_rays(scene.camera, y0, tile_rows, width, 4, generator=gen), 3),
-        level_ms=[cuda_ms(lambda: W.wave_level(inputs[lv], fuzz[lv], tables), 3)
-                  for lv in range(n_levels)], **breakdown)
+        level_ms=[(a + b) / 2 for a, b in zip(level_ms["route"], level_ms["route_again"])],
+        level_ms_turns={k: v for k, v in level_ms.items()}, **breakdown, nvidia_smi=smi)
+    if not breakdown["staged_trace_radiance_equal"]:
+        fail("the flagship tile's radiance differs between the route and the staged build")
     shrink_row = shrink_phase(rt, W, G, scene, tables, o, d, tm, fuzz, levels, tile_sched,
                               opts, n_levels)
 
     # ---- phase 6: the kernel at the main path's shapes: every level of
     # that tile against the plain version on the same input (bit-equal, or
     # the run fails), and for level 0 and a deep level the kernel's time
-    # and roofline bound.  The plain version runs at full width on those
-    # two levels (their plain_ms are the full-width times) and on the live
-    # lanes alone on the others (`plain_on_live`: lane-wise, dead lanes
-    # zero), which keeps the run within its time.
+    # and roofline bound: on the tests a per-ray window cull needs
+    # (`window_need_counts` around the plain call), what the package's
+    # build runs, and apart on every test; beside them the tests a live
+    # lane the counting build ran.  The plain version runs at full width on
+    # those two levels (their plain_ms are the full-width times) and on the
+    # live lanes alone on the others (`plain_on_live`: lane-wise, dead
+    # lanes zero), which keeps the run within its time.
     deep = 4
     rows_out = {}
     plain0 = None
@@ -3417,7 +3564,8 @@ def main():
         torch.cuda.synchronize()
         t0 = time.time()
         if lv in (0, deep):
-            b = W.wave_level_plain(prev, fuzz[lv], tables, stats=need)
+            with window_need_counts(W, tables, prev[7] > 0, need):
+                b = W.wave_level_plain(prev, fuzz[lv], tables, stats=need)
         else:
             b = plain_on_live(W, prev, fuzz[lv], tables, need)
         torch.cuda.synchronize()
@@ -3448,10 +3596,31 @@ def main():
                 + FLOPS_PER_HIT_LANE * int(stats.hits[lv])
             bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
             ops_ms = flops / PEAK_F32_FLOPS * 1e3
-            row.update(ms=ms, bound_ms=max(bytes_ms, ops_ms),
-                       bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                       bytes_ms=bytes_ms, operations_ms=ops_ms,
-                       fmad_false_floor_ms=max(bytes_ms, 2 * ops_ms), needed_bytes=n_bytes)
+            # the tests a per-ray window cull needs, and the box tests
+            culled = per_test * (need["closest_window_tests"] + need["shadow_window_tests"]) \
+                + FLOPS_PER_HIT_LANE * int(stats.hits[lv]) \
+                + FLOPS_PER_BOX_TEST * (need["closest_window_boxes"] + need["shadow_window_boxes"])
+            culled_ms = culled / PEAK_F32_FLOPS * 1e3
+            work = torch.zeros(len(W.WINDOW_WORK), dtype=torch.int64, device=dev)
+            counted = W.wave_level_build(prev, fuzz[lv], tables, "windows_count", work=work)
+            if not torch.equal(counted, W.wave_level(prev, fuzz[lv], tables)):
+                fail(f"the counting build differs from the package's on level {lv}")
+            del counted
+            live_n = max(1, need["live"])
+            row.update(ms=ms, bound_ms=max(bytes_ms, culled_ms),
+                       bound_by="bytes" if bytes_ms >= culled_ms else "operations",
+                       bytes_ms=bytes_ms, operations_ms=culled_ms,
+                       fmad_false_floor_ms=max(bytes_ms, 2 * culled_ms), needed_bytes=n_bytes,
+                       bound_all_tests_ms=max(bytes_ms, ops_ms),
+                       bound_all_tests_by="bytes" if bytes_ms >= ops_ms else "operations",
+                       operations_all_tests_ms=ops_ms,
+                       fmad_false_floor_all_tests_ms=max(bytes_ms, 2 * ops_ms),
+                       needed_closest_tests_per_live_lane=need["closest_window_tests"] / live_n,
+                       needed_shadow_tests_per_live_lane=need["shadow_window_tests"] / live_n,
+                       needed_box_tests_per_live_lane=(need["closest_window_boxes"]
+                                                       + need["shadow_window_boxes"]) / live_n,
+                       **{f"ran_{k}_per_live_lane": v / live_n
+                          for k, v in zip(W.WINDOW_WORK, work.tolist())})
         rows_out[lv] = row
         say("kernel_at_width", level=lv, **row)
         if not res["bitwise_equal"]:
@@ -3704,15 +3873,24 @@ def main():
         "library_ms": None,
         "lanes": n,
         "shape_note": "level 0 of one full-width flagship tile; "
-                      f"deep_* is level {deep} of the same tile",
+                      f"deep_* is level {deep} of the same tile; bound_ms is the bound on "
+                      "the tests a per-ray window cull needs (what the package's build "
+                      "runs), bound_all_tests_ms the bound on every test",
+        "bound_all_tests_ms": r0["bound_all_tests_ms"],
+        "bound_all_tests_by": r0["bound_all_tests_by"],
+        **{k: r0[k] for k in r0 if k.startswith(("needed_", "ran_"))},
         "deep_ms": r1["ms"],
         "deep_plain_ms": r1["plain_ms"],
         "deep_bound_ms": r1["bound_ms"],
         "deep_bound_by": r1["bound_by"],
+        "deep_bound_all_tests_ms": r1["bound_all_tests_ms"],
         "fmad_false_floor_ms": r0["fmad_false_floor_ms"],
+        "fmad_false_floor_all_tests_ms": r0["fmad_false_floor_all_tests_ms"],
         "lane_schedule_ms": sum(ab[0]["lane_ms"]) / 2,
         "lane_schedule_deep_ms": sum(ab[deep]["lane_ms"]) / 2,
-        "flagship_wide_build": builds,
+        "flagship_build_ab": builds,
+        "main_path_ab": main_ab,
+        "staged_goldens_radiance_equal": sum(r["radiance_equal"] for r in staged_goldens),
         "builds_ptxas": plan["builds"],
         "blocks_per_sm": plan["blocks_per_sm"],
         "smem_bytes": plan["smem_bytes"],
@@ -3723,6 +3901,7 @@ def main():
             "max_abs_err": 0.0,
             "ms": sum(rec_mode["level0_record_ms"]) / 2,
             "inference_ms_same_turns": sum(rec_mode["level0_inference_ms"]) / 2,
+            "staged_build_ms_same_turns": sum(rec_mode["level0_record_staged_ms"]) / 2,
             "plain_ms_every_nth_lane": rec_mode["record_plain_ms_every_nth_lane"],
             "stride": rec_mode["stride"],
             "bound_ms": rec_mode["bound_ms"],
@@ -3731,21 +3910,27 @@ def main():
             "level0_backward_ms": rec_mode["level0_backward_ms"],
             "level0_gather_segment_sum_ms": rec_mode["level0_gather_segment_sum_ms"],
             "level0_gather_index_add_ms": rec_mode["level0_gather_index_add_ms"],
+            "diff_tiled_forward_backward_seconds": diff["tiled"]["forward_backward_seconds"],
         },
         "shrunk_levels": [
-            {k: r[k] for k in ("level", "width", "live", "ms", "full_width_ms", "bound_ms",
-                               "bound_by") if k in r}
+            {k: r[k] for k in ("level", "width", "live", "ms", "staged_ms", "full_width_ms",
+                               "bound_ms", "bound_by") if k in r}
             for r in shrink_row["levels"] if r["width"] != n],
         "shrink_compaction_ms": shrink_row["compaction_ms"],
+        "shrunk_levels_slower_than_staged": shrink_row["slower_than_staged_levels"],
         "sharded": sharded,
         "widened": {
             name: {k: row.get(k) for k in (
                 "level0_ms", "level0_plain_ms", "level0_bound_ms", "level0_bound_by",
-                "level1_ms", "level1_bound_ms",
+                "level0_bound_all_tests_ms", "level0_windowed_ms", "level0_staged_ms",
+                "level0_needed_closest_tests_per_live_lane",
+                "level0_needed_shadow_tests_per_live_lane",
+                "level1_ms", "level1_bound_ms", "level1_bound_all_tests_ms",
                 "lanes", "geoms", "light_samples", "disagreeing_lanes", "max_abs_err",
-                "fused_frame_seconds", "fused_unshrunk_frame_seconds", "general_frame_seconds",
+                "fused_frame_seconds",
+                "fused_unshrunk_frame_seconds", "general_frame_seconds",
                 "fused_launches", "window_ab")}
-            for name, row in widened.items() if row["variant"] == "staged"
+            for name, row in widened.items() if row["build"] == "staged_windows"
         },
         # tables over what a block stages: the kernel's wide build
         "wide": {
@@ -3754,7 +3939,8 @@ def main():
                     "geoms", "lanes", "level0_ms", "level1_ms", "stride", "level0_bound_ms",
                     "level0_bound_by", "level1_bound_ms", "level1_bound_by", "smem_bytes",
                     "blocks_per_sm", "disagreeing_lanes", "max_abs_err",
-                    "fused_frame_seconds", "general_frame_seconds")},
+                    "fused_frame_seconds",
+                    "general_frame_seconds")},
                 plain_ms_every_nth_lane=row["level0_plain_ms"],
                 level1_plain_ms_every_nth_lane=row["level1_plain_ms"],
                 # the bound of the windowed build the package launches: the
@@ -3762,12 +3948,13 @@ def main():
                 # every test, what the unculled build runs, apart)
                 bound_ms=row["level0_bound_ms"], bound_by=row["level0_bound_by"],
                 bound_all_tests_ms=row["level0_bound_all_tests_ms"],
-                # the windowed build against the unculled one (wide_window_ab),
+                # the windowed build against the unculled one, or the staged one
+                # where it takes the table (wide_window_ab),
                 # the tests a live lane it needs and the counting build ran
                 **{k: v for k, v in row.items()
                    if k.startswith(("level0_", "level1_"))
-                   and any(x in k for x in ("windowed", "unculled", "needed", "all_tests",
-                                            "ran_"))},
+                   and any(x in k for x in ("windowed", "unculled", "staged", "needed",
+                                            "all_tests", "ran_"))},
                 window_ab=row.get("window_ab"),
                 launches=row.get("fused_launches", row["launches"]),
                 launches_note=("the fused frame's, counted (fused_widened)"
@@ -3777,7 +3964,7 @@ def main():
                 accel_path_fused_frame_seconds=accel_seconds.get(f"{name}_fused"),
                 accel_path_general_frame_seconds=accel_seconds.get(f"{name}_brute"))
             for name, row in list(widened.items()) + [(edge["case"], edge)]
-            if row["variant"] == "wide"
+            if row["build"] == "windows"
         },
     }] + brute_entries + accel_entries}), flush=True)
 

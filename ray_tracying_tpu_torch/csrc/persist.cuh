@@ -107,19 +107,31 @@ static __device__ __forceinline__ void mbar_init(uint32_t bar) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// One arrival that expects `bytes` of asynchronous copy, and the copy of
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
-// `src` to shared `dst`, which completes the barrier's phase; with no
-// bytes, the arrival alone completes it.
-static __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                                 uint32_t bar) {
+// One arrival on the mbarrier at `bar` that expects `bytes` of
+// asynchronous copy before its phase completes.
+static __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// The copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from global `src` to shared `dst`, counted on the mbarrier at `bar`.
+static __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                                 uint32_t bar) {
   if (bytes) {
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
         :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
   }
+}
+
+// One arrival that expects `bytes` of asynchronous copy, and the copy
+// (bulk_load), which completes the barrier's phase; with no bytes, the
+// arrival alone completes it.
+static __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                                 uint32_t bar) {
+  mbar_expect(bar, bytes);
+  bulk_load(dst, src, bytes, bar);
 }
 
 // All blocks of a cooperative launch meet here.

@@ -22,12 +22,12 @@
 //
 // Design (wave_level_blocks_kernel), one cooperative launch a level:
 // - Persistent blocks.  The grid is the resident block count.  A block
-//   stages the shaded table and the light table in shared memory once:
-//   columns 12.. by one bulk asynchronous copy on an mbarrier, while its
-//   threads lay out the transforms (three 16-byte words a geom) and scan.
-//   A table over what a block can stage (up to the gate's 6,144 geoms)
-//   takes the kernel's windowed build instead (below); the schedule is the
-//   same.
+//   stages the shaded table, the light table and the table's windows
+//   (below) in shared memory once: columns 12.. and the windows' permuted
+//   rows by bulk asynchronous copies on an mbarrier, while its threads lay
+//   out the transforms (three 16-byte words a geom) and the window records,
+//   and scan.  A table over what a block can stage (up to the gate's 6,144
+//   geoms) stays in global memory; the schedule is the same.
 // - Phase 1, scan.  Blocks take steps of kScanLanes lanes from a counter,
 //   four lanes a thread.  A dead lane gets its 13 zero rows at once, as
 //   16-byte stores where four neighbours are dead, and costs nothing more.
@@ -47,24 +47,25 @@
 //   blocked rays per light (one byte a light).
 //   finish: the winner's normal from the same geom test on its row,
 //   shading in light order with those counts, texture, spawn, 13 rows.
-// The windowed build, for a wide table.  Where every lane tests every geom,
-// a wide table's level is bound by those tests (2,049-6,144 a ray and as
-// many a shadow ray), and reading the table through the L2 costs little
-// beside them; only fewer tests help.  So the host sorts each kind range's
-// rows by the Morton code of their boxes and cuts them into windows of
-// kWinRows rows, each with its box and graze (kernels/wavefront.py::
-// window_arrays), and packs a permuted geom-major copy of the rows; a block
-// stages the window records.  In the hit stage a warp walks the windows of
+// The window cull, for every table.  Where every lane tests every geom, a
+// level is bound by those tests (141 a ray on the flagship's table,
+// 2,049-6,144 on the wide ones, and as many a shadow ray), and where the
+// table lies costs little beside them; only fewer tests help.  So the host
+// sorts each kind range's rows by the Morton code of their boxes and cuts
+// them into windows of kWinRows rows, each with its box and graze
+// (kernels/wavefront.py::window_arrays), and packs a permuted geom-major
+// copy of the rows; a block stages the window records, and the permuted
+// rows where they fit.  In the hit stage a warp walks the windows of
 // each range in Morton order: each lane box-tests the window against its
 // rays' best t so far (box_hit, geom.cuh: the slack keeps every hit the
-// geom test could report), and the warp runs the window's rows (16-byte
-// read-only loads) when some lane wants it; the winner merges by (t,
+// geom test could report), and the warp runs the window's rows (shared
+// memory, or 16-byte read-only loads) when some lane wants it; the winner merges by (t,
 // original row), so the visiting order changes nothing.  The shadow
 // queue's rays walk the windows in row order, each lane until its first
 // blocker, the warp until no lane is open.  The shading and finish stages
-// read the table where it lies, in its own row order.
+// read the table in its own row order.
 // Only who computes which lane, and when, differs from wave_lane (one
-// thread, one lane, all three stages), and the windowed build only skips
+// thread, one lane, all three stages), and the windowed builds only skip
 // rows whose hit is provably farther than the bound: every lane's
 // arithmetic is the same, so every build equals the plain version bit for
 // bit.  The stage functions
@@ -129,17 +130,25 @@ constexpr int kMaxSplit = 8;
 constexpr int kSmemHeader = 256;  // mbarrier, per-warp counts
 constexpr uint32_t kNoRow = 0xffffu;
 
-// Builds of wave_level_blocks_kernel: the table staged in each block; a
-// wide table read whole by every lane (the first wide build, kept only to
-// be measured against); a wide table culled by window, its rows read by
-// 16-byte read-only loads; the same counting the tests it runs (WinWork).
+// Builds of wave_level_blocks_kernel: the table staged in each block and
+// read whole by every lane (kept as the reference the culled builds are
+// held to); a wide table read whole by every lane (the first wide build,
+// kept only to be measured against); a table culled by window, its rows
+// read by 16-byte read-only loads (a table over what a block stages); the
+// same counting the tests it runs (WinWork); a table culled by window with
+// the table, its window records and its permuted rows staged in each block
+// (every table a block stages whole: the package's build for them).
 constexpr int kBuildStaged = 0;
 constexpr int kBuildUnculled = 1;
 constexpr int kBuildWindows = 2;
 constexpr int kBuildWindowsCount = 3;
+constexpr int kBuildStagedWindows = 4;
 RTT_HD constexpr bool build_windowed(int b) { return b >= kBuildWindows; }
+RTT_HD constexpr bool build_stages_table(int b) {
+  return b == kBuildStaged || b == kBuildStagedWindows;
+}
 
-// A wide table's windows (kernels/wavefront.py::window_arrays): within each
+// A table's windows (kernels/wavefront.py::window_arrays): within each
 // kind range the rows in the Morton order of their boxes, kWinRows
 // consecutive ones a window.  A permuted row is kWinCols floats (transform
 // 12 | velocity 3 | its original row, int bits); a window's record kWinRec
@@ -388,25 +397,31 @@ RTT_DEV int win_first(const float* rec) { return (int)(f32_as_u32(rec[7]) & 0xff
 RTT_DEV int win_count(const float* rec) { return (int)(f32_as_u32(rec[7]) >> 16); }
 
 // Permuted rows as a table view: row j (a permuted index) at rows +
-// kWinCols * j in global memory, read by 16-byte read-only loads.  col()
-// serves the velocity columns 12..14 of a moving sphere's test.
-struct TabP {
+// kWinCols * j, in global memory read by 16-byte read-only loads (TabP), or
+// staged in a block's shared memory (TabPS: a warp that walks a window
+// reads one row at a time, a broadcast).  col() serves the velocity columns
+// 12..14 of a moving sphere's test.
+template <bool STAGED>
+struct TabPerm {
   const float* rows;
   RTT_DEV const float* at(int j) const { return rows + kWinCols * (size_t)j; }
+  RTT_DEV F4 word(const float* a) const { return STAGED ? load4(a) : ldg4(a); }
   RTT_DEV Xform xf(int j) const {
     const float* a = at(j);
-    return xform_of(ldg4(a), ldg4(a + 4), ldg4(a + 8));
+    return xform_of(word(a), word(a + 4), word(a + 8));
   }
   RTT_DEV float col(int c, int j) const { return at(j)[c]; }
   RTT_DEV int orig(int j) const { return (int)f32_as_u32(at(j)[15]); }
 };
+typedef TabPerm<false> TabP;
+typedef TabPerm<true> TabPS;
 
 // Rows first + j0, first + j0 + step, ... below first + count of a window
 // for ray r: the running closest (t, original row), merged by (t, row)
 // lexicographically (merge_hit), so that whatever order the rows come in
 // the winner is the row-order strict-< loop's.  Returns the rows run.
-template <int KIND, bool MOTION>
-RTT_DEV int win_closest(const TabP& tp, int first, int count, int j0, int step, const Ray& r,
+template <int KIND, bool MOTION, class TP>
+RTT_DEV int win_closest(const TP& tp, int first, int count, int j0, int step, const Ray& r,
                         float& t, int& row) {
   float nx, ny, nz;
   int ran = 0;
@@ -418,8 +433,8 @@ RTT_DEV int win_closest(const TabP& tp, int first, int count, int j0, int step, 
 }
 
 // Two rays through every row of a window, one read of each row.
-template <int KIND, bool MOTION>
-RTT_DEV void win_closest2(const TabP& tp, int first, int count, const Ray& a, const Ray& b,
+template <int KIND, bool MOTION, class TP>
+RTT_DEV void win_closest2(const TP& tp, int first, int count, const Ray& a, const Ray& b,
                           float& ta, int& ra, float& tb, int& rb) {
   float nx, ny, nz;
   for (int j = first; j < first + count; ++j) {
@@ -432,8 +447,8 @@ RTT_DEV void win_closest2(const TabP& tp, int first, int count, const Ray& a, co
 
 // A thread's rows of a window in the hit stage: both rays (vb; then j0 = 0,
 // step = 1), or ray a's slice.  Returns the rows run for each valid ray.
-template <int KIND, bool MOTION>
-RTT_DEV int win_rows_hit(const TabP& tp, int first, int count, const Ray& a, bool va,
+template <int KIND, bool MOTION, class TP>
+RTT_DEV int win_rows_hit(const TP& tp, int first, int count, const Ray& a, bool va,
                          const Ray& b, bool vb, int j0, int step, float& ta, int& ra,
                          float& tb, int& rb) {
   if (vb) {
@@ -446,8 +461,8 @@ RTT_DEV int win_rows_hit(const TabP& tp, int first, int count, const Ray& a, boo
 // A shadow ray's slice of a window: true at its first blocker (t <= maxt),
 // where it leaves.  Shadow rays carry time 0: nothing moves.  Returns the
 // rows run.
-template <int KIND>
-RTT_DEV int win_any(const TabP& tp, int first, int count, int j0, int step, const Ray& r,
+template <int KIND, class TP>
+RTT_DEV int win_any(const TP& tp, int first, int count, int j0, int step, const Ray& r,
                     float maxt, bool& blocked) {
   float nx, ny, nz;
   int ran = 0;
@@ -911,13 +926,14 @@ RTT_DEV void wave_lane(const WaveParams& p, const float* tab, const float* light
 // counts of blocked shadow rays (kChunk entries of two words, one byte a
 // light: an area light's nss <= 32 rays fit), the queue (two 16-byte words
 // a shadow ray: origin and d.x; d.y, d.z, max t, and the chunk entry |
-// light << 16), and a windowed build's window records (n_win).
+// light << 16), a windowed build's window records (n_win) and, where the
+// block stages them, its permuted rows (n_perm of kWinCols floats).
 struct WaveLayout {
-  size_t xf4, rest, lights, list_lane, list_meta, blocked, queue, win, bytes;
+  size_t xf4, rest, lights, list_lane, list_meta, blocked, queue, win, perm, bytes;
 };
 
 RTT_HD WaveLayout wave_layout(int G, int n_cols, int n_lights, int list_cap, int queue_cap,
-                              int n_win = 0) {
+                              int n_win, int n_perm) {
   WaveLayout o;
   o.xf4 = kSmemHeader;
   o.rest = o.xf4 + 48 * (size_t)G;
@@ -928,20 +944,31 @@ RTT_HD WaveLayout wave_layout(int G, int n_cols, int n_lights, int list_cap, int
   o.blocked = o.list_meta + 4 * (size_t)kChunk;
   o.queue = o.blocked + 8 * (size_t)kChunk;
   o.win = o.queue + 32 * (size_t)queue_cap;
-  o.bytes = o.win + 4 * (size_t)kWinRec * n_win;
+  o.perm = o.win + 4 * (size_t)kWinRec * n_win;
+  o.bytes = o.perm + 4 * (size_t)kWinCols * n_perm;
   return o;
 }
 
-// The preferred capacities where they fit `limit` bytes, else the least.
-RTT_HD WaveLayout wave_plan(int G, int n_cols, int n_lights, size_t limit,
-                            int& list_cap, int& queue_cap, int n_win = 0) {
+// The layout of a build at the given capacities: the table staged by the
+// staged builds (G rows), window records by the windowed ones (n_win),
+// permuted rows by kBuildStagedWindows.
+RTT_HD WaveLayout build_layout(int build, int G, int n_cols, int n_lights, int n_win,
+                               int list_cap, int queue_cap) {
+  return wave_layout(build_stages_table(build) ? G : 0, n_cols, n_lights, list_cap, queue_cap,
+                     build_windowed(build) ? n_win : 0, build == kBuildStagedWindows ? G : 0);
+}
+
+// A build's layout at the preferred capacities where they fit `limit`
+// bytes, else at the least.
+RTT_HD WaveLayout build_plan(int build, int G, int n_cols, int n_lights, int n_win, size_t limit,
+                             int& list_cap, int& queue_cap) {
   list_cap = kListCap;
   queue_cap = kQueueCap;
-  WaveLayout o = wave_layout(G, n_cols, n_lights, list_cap, queue_cap, n_win);
+  WaveLayout o = build_layout(build, G, n_cols, n_lights, n_win, list_cap, queue_cap);
   if (o.bytes > limit) {
     list_cap = kListCapMin;
     queue_cap = kQueueCapMin;
-    o = wave_layout(G, n_cols, n_lights, list_cap, queue_cap, n_win);
+    o = build_layout(build, G, n_cols, n_lights, n_win, list_cap, queue_cap);
   }
   return o;
 }
@@ -959,6 +986,7 @@ struct WaveSmem {
   uint32_t* blocked;  // entry e: words 2e (lights 0-3) and 2e + 1 (4-7)
   F4* queue;
   float* win;
+  float* perm;
 };
 
 RTT_DEV WaveSmem wave_smem(unsigned char* base, const WaveLayout& o) {
@@ -975,6 +1003,7 @@ RTT_DEV WaveSmem wave_smem(unsigned char* base, const WaveLayout& o) {
   s.blocked = reinterpret_cast<uint32_t*>(base + o.blocked);
   s.queue = reinterpret_cast<F4*>(base + o.queue);
   s.win = reinterpret_cast<float*>(base + o.win);
+  s.perm = reinterpret_cast<float*>(base + o.perm);
   return s;
 }
 
@@ -1166,6 +1195,19 @@ __global__ void wave_level_lane_kernel(const WaveParams p) {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// The permuted rows a windowed build walks: where the launch left them
+// (TabP), or kBuildStagedWindows's copy in the block's shared memory (TabPS).
+template <int BUILD> struct WinRows {
+  static __device__ __forceinline__ TabP view(const WaveParams& p, const WaveSmem&) {
+    return TabP{p.xp};
+  }
+};
+template <> struct WinRows<kBuildStagedWindows> {
+  static __device__ __forceinline__ TabPS view(const WaveParams&, const WaveSmem& s) {
+    return TabPS{s.perm};
+  }
+};
+
 // A lane's share of what the counting build counts in one walk.
 struct WinCount {
   uint32_t tests, wanted, boxes;
@@ -1192,8 +1234,9 @@ __device__ void win_hit_range(const WaveParams& p, const WaveSmem& s, int w0,
     const bool wb = vb && box_hit(rec, b, tb, rec[6]);
     if constexpr (BUILD == kBuildWindowsCount) c.boxes += (uint32_t)va + (uint32_t)vb;
     if (!__any_sync(kFullMask, wa || wb)) continue;
-    const int ran = win_rows_hit<KIND, MOTION>(TabP{p.xp}, win_first(rec), win_count(rec), a,
-                                               va, b, vb, j0, step, ta, ra, tb, rb);
+    const int ran = win_rows_hit<KIND, MOTION>(WinRows<BUILD>::view(p, s), win_first(rec),
+                                               win_count(rec), a, va, b, vb, j0, step, ta, ra,
+                                               tb, rb);
     if constexpr (BUILD == kBuildWindowsCount) {
       c.tests += (uint32_t)ran * ((uint32_t)va + (uint32_t)vb);
       c.wanted += (uint32_t)ran * ((uint32_t)wa + (uint32_t)wb);
@@ -1251,7 +1294,8 @@ __device__ bool win_any_range(const WaveParams& p, const WaveSmem& s, int w0,
     if (!__any_sync(kFullMask, want)) continue;
     bool hit = false;
     const int ran =
-        want ? win_any<KIND>(TabP{p.xp}, win_first(rec), win_count(rec), j0, step, r, maxt, hit)
+        want ? win_any<KIND>(WinRows<BUILD>::view(p, s), win_first(rec), win_count(rec), j0,
+                             step, r, maxt, hit)
              : 0;
     if (hit) {
       blocked = true;
@@ -1478,16 +1522,21 @@ __device__ void flush_list(const WaveSmem& s, int n, int* listed, int* live) {
 // lanes.  Launched cooperatively: every block is resident, so the grid
 // barrier between the two phases cannot wait on a block that never runs.
 //
-// The builds (kBuild*), one schedule.  Staged: the table fits a block's
-// shared memory (kernels/wavefront.py::wave_cap_geoms) and each block
-// stages it.  Over that cap, up to the gate's WAVE_MAX_GEOMS, the table
-// stays in global memory and a block stages the lights, its list, a
-// chunk's meta and counts, the shadow queue and, windowed, the window
-// records (28 bytes of box and graze a window, 6.3 KB at the most).
-// Unculled: every lane tests every row (TabW).
-// Windowed: the hit stage and the shadow queue walk the windows with a
-// per-warp box cull (win_hit_stage, drain_queue), and the shading and
-// finish stages read the table where it lies in its own row order (TabT).
+// The builds (kBuild*), one schedule.  Where the table, its window records
+// and its permuted rows fit a block's shared memory beside the rest
+// (kernels/wavefront.py::wave_cap_geoms), each block stages all three
+// (kBuildStagedWindows, the package's build): columns 12.. and the
+// permuted rows by bulk asynchronous copies on one mbarrier, the
+// transforms and the window records by the threads.  Over that cap, up to
+// the gate's WAVE_MAX_GEOMS, the table stays in global memory and a block
+// stages the lights, its list, a chunk's meta and counts, the shadow queue
+// and the window records (kBuildWindows; 28 bytes of box and graze a
+// window, 6.3 KB at the most).  In both the hit stage and the shadow queue
+// walk the windows with a per-warp box cull (win_hit_stage, drain_queue);
+// the shading and finish stages read the table in its own row order (TabS
+// staged, TabT where it lies).  Staged: the staged table, every lane
+// testing every row, the reference the culled builds are held to.
+// Unculled: the same over a wide table in global memory (TabW).
 // Every lane's arithmetic is the same in all: the cull drops only rows
 // whose hit is provably farther than the bound (box_hit's slack), and the
 // winner merges by (t, original row).
@@ -1499,6 +1548,7 @@ template <> struct WaveTab<kBuildStaged> {
   typedef TabS type;
   static RTT_DEV TabS view(const WaveParams& p, const WaveSmem& s) { return TabS{s.xf4, s.rest, p.G}; }
 };
+template <> struct WaveTab<kBuildStagedWindows> : WaveTab<kBuildStaged> {};
 template <> struct WaveTab<kBuildUnculled> {
   typedef TabW type;
   static RTT_DEV TabW view(const WaveParams& p, const WaveSmem&) {
@@ -1506,34 +1556,36 @@ template <> struct WaveTab<kBuildUnculled> {
   }
 };
 
-RTT_HD WaveLayout build_layout(int build, const WaveParams& p, int list_cap, int queue_cap) {
-  return wave_layout(build == kBuildStaged ? p.G : 0, p.n_cols, p.n_lights, list_cap, queue_cap,
-                     build_windowed(build) ? p.n_win : 0);
-}
-
 template <int BUILD>
 __global__ void __launch_bounds__(kWaveThreads, 3)
 wave_level_blocks_kernel(const WaveParams p, int list_cap, int queue_cap, int* ctr, int* live) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const WaveLayout lay = build_layout(BUILD, p, list_cap, queue_cap);
+  const WaveLayout lay = build_layout(BUILD, p.G, p.n_cols, p.n_lights, p.n_win, list_cap,
+                                      queue_cap);
   const WaveSmem s = wave_smem(smem_raw, lay);
   const typename WaveTab<BUILD>::type tb = WaveTab<BUILD>::view(p, s);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // Stage the tables once.  Columns 12.. (their 16-byte multiple) by one
-  // bulk asynchronous copy; meanwhile the threads lay out the transforms,
-  // copy the tail and the lights, and scan.  A wide table stages the
-  // lights alone, and the windowed builds their window records.
+  // Stage the tables once.  Columns 12.. (their 16-byte multiple) and, for
+  // kBuildStagedWindows, the permuted rows by bulk asynchronous copies on
+  // one mbarrier; meanwhile the threads lay out the transforms, copy the
+  // tail, the lights and the window records, and scan.  A wide table
+  // stages the lights alone, and the windowed build its window records.
   const uint32_t bar = smem_u32(s.bar);
   if (tid == 0) {
-    if constexpr (BUILD == kBuildStaged) mbar_init(bar);
+    if constexpr (build_stages_table(BUILD)) mbar_init(bar);
     s.next[0] = atomicAdd(&ctr[0], 1);
   }
   __syncthreads();
-  if constexpr (BUILD == kBuildStaged) {
+  if constexpr (build_stages_table(BUILD)) {
     const int n_rest = (p.n_cols - 12) * p.G;
     const uint32_t bulk = (uint32_t)(4 * n_rest) & ~15u;
-    if (tid == 0) bulk_copy(smem_u32(s.rest), p.table + 12 * (size_t)p.G, bulk, bar);
+    if (tid == 0) {
+      const uint32_t rows = BUILD == kBuildStagedWindows ? 4u * kWinCols * (uint32_t)p.G : 0u;
+      mbar_expect(bar, bulk + rows);
+      bulk_load(smem_u32(s.rest), p.table + 12 * (size_t)p.G, bulk, bar);
+      if constexpr (BUILD == kBuildStagedWindows) bulk_load(smem_u32(s.perm), p.xp, rows, bar);
+    }
     for (int k = tid; k < 3 * p.G; k += kWaveThreads) s.xf4[k] = staged_xf(p.table, p.G, k);
     for (int k = (int)(bulk / 4) + tid; k < n_rest; k += kWaveThreads) {
       s.rest[k] = p.table[12 * (size_t)p.G + k];
@@ -1586,7 +1638,7 @@ wave_level_blocks_kernel(const WaveParams p, int list_cap, int queue_cap, int* c
   // lanes clustered in a few scan steps spread over the card.
   grid_barrier(&ctr[2]);  // also: the window records are in
   const long long n_live = *reinterpret_cast<volatile int*>(&ctr[1]);
-  if constexpr (BUILD == kBuildStaged) mbar_wait(bar, 0);  // the bulk copy has landed (long since)
+  if constexpr (build_stages_table(BUILD)) mbar_wait(bar, 0);  // the bulk copies have landed
   const int chunk = wave_chunk(n_live, (int)gridDim.x);
   for (;;) {
     if (tid == 0) s.next[0] = atomicAdd(&ctr[3], 1);
@@ -1612,7 +1664,8 @@ inline const void* wave_blocks_fn(int build) {
     case kBuildStaged: return (const void*)wave_level_blocks_kernel<kBuildStaged>;
     case kBuildUnculled: return (const void*)wave_level_blocks_kernel<kBuildUnculled>;
     case kBuildWindows: return (const void*)wave_level_blocks_kernel<kBuildWindows>;
-    default: return (const void*)wave_level_blocks_kernel<kBuildWindowsCount>;
+    case kBuildWindowsCount: return (const void*)wave_level_blocks_kernel<kBuildWindowsCount>;
+    default: return (const void*)wave_level_blocks_kernel<kBuildStagedWindows>;
   }
 }
 
@@ -1623,15 +1676,13 @@ inline const void* wave_blocks_fn(int build) {
 inline int wave_blocks_plan(int G, int n_cols, int n_lights, int build, int n_win,
                             int& list_cap, int& queue_cap, size_t& bytes, int& per_sm,
                             int& sms) {
-  if (build < kBuildStaged || build > kBuildWindowsCount) return (int)cudaErrorInvalidValue;
+  if (build < kBuildStaged || build > kBuildStagedWindows) return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  bytes = wave_plan(build == kBuildStaged ? G : 0, n_cols, n_lights, (size_t)optin, list_cap,
-                    queue_cap, build_windowed(build) ? n_win : 0)
-              .bytes;
+  bytes = build_plan(build, G, n_cols, n_lights, n_win, (size_t)optin, list_cap, queue_cap).bytes;
   if (bytes > (size_t)optin || G >= (int)kNoRow) return (int)cudaErrorInvalidValue;
   const void* fn = wave_blocks_fn(build);
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);

@@ -26,17 +26,20 @@ spread over every block, each run on dense warps in three stages (closest
 hit without the normal, two lanes a thread, each transform read as three
 16-byte broadcasts; every shadow ray that matters queued and tested on
 dense warps; shading with a count of blocked rays per light).  Each lane's
-arithmetic is that of the plain version, so the two are bit-equal.  The
-kernel has two builds of one schedule (`wave_variant`): "staged", where
-each block copies the table into its shared memory, and "wide", for a
-table over what a block can hold (`wave_cap_geoms`: 1,669 geoms textured,
-1,723 untextured) up to WAVE_MAX_GEOMS, which reads the table from global
-memory and culls it by window: `with_windows` sorts each kind range's rows
-by the Morton code of their boxes, cuts them into windows of WAVE_WINDOW
-rows with one box each, and packs a permuted geom-major copy of the rows;
-a warp runs a window's geoms only when one of its rays can hit the box
-nearer than its best t so far (or its shadow ray's reach).  The winner
-merges by (t, original row), so the cull changes no bit.
+arithmetic is that of the plain version, so the two are bit-equal.  Every
+table is culled by window: `with_windows` sorts each kind range's rows by
+the Morton code of their boxes, cuts them into windows of WAVE_WINDOW rows
+with one box each, and packs a permuted geom-major copy of the rows; a warp
+runs a window's geoms only when one of its rays can hit the box nearer than
+its best t so far (or its shadow ray's reach).  The winner merges by (t,
+original row), so the cull changes no bit.  `package_build` names the
+build: "staged_windows" where a block's shared memory holds the table, its
+window records and its permuted rows (`wave_cap_geoms`: 1,106 geoms
+textured, 1,130 untextured, with one light), which each block copies in;
+"windows" above that up to WAVE_MAX_GEOMS, the rows read from global
+memory.  The unculled "staged" build (every lane tests every row of the
+staged table) stays as the reference the culled builds are held to on the
+card; nothing in the package launches it.
 `wave_level_lane` launches the one-thread-per-lane schedule of the same
 stages, to be measured against; nothing in the package calls it.
 
@@ -121,11 +124,11 @@ WAVE_MAX_RANGES = 4
 WAVE_THREADS = 256
 # A block of the level holds in dynamic shared memory its copy of the
 # shaded table and the light table, a list of live lanes, a count of
-# blocked shadow rays per light for each lane of a chunk and a queue of
-# shadow rays; the launcher opts in with
-# cudaFuncAttributeMaxDynamicSharedMemorySize, up to the 227 KB a block can
-# have on sm_90.  A larger table takes the kernel's wide build, whose
-# blocks stage everything but the table.
+# blocked shadow rays per light for each lane of a chunk, a queue of
+# shadow rays, the table's window records and its permuted rows; the
+# launcher opts in with cudaFuncAttributeMaxDynamicSharedMemorySize, up to
+# the 227 KB a block can have on sm_90.  A larger table takes the kernel's
+# wide build, whose blocks stage everything but the table and its rows.
 WAVE_MAX_SMEM_BYTES = 232448
 # The least staging list and shadow queue (entries) a block runs with, the
 # chunk of lanes it runs at once, and its header (csrc/wavefront.cu:
@@ -135,7 +138,7 @@ WAVE_LIST_MIN = 1024
 WAVE_QUEUE_MIN = 256
 WAVE_CHUNK = 512
 _SMEM_HEADER = 256
-# A wide table's windows (csrc/wavefront.cu: kWinRows, kWinCols, kWinRec,
+# A table's windows (csrc/wavefront.cu: kWinRows, kWinCols, kWinRec,
 # kMaxWindows): rows a window, floats of a row of the permuted copy
 # (transform 12 | velocity 3 | original row as int32 bits), floats of a
 # window's record (box 6 | graze | first row | count << 16 as int32 bits),
@@ -145,12 +148,20 @@ WAVE_WINDOW = 32
 WIN_COLS = 16
 WIN_REC = 8
 WAVE_MAX_WINDOWS = WAVE_MAX_GEOMS // WAVE_WINDOW + WAVE_MAX_RANGES
+# Half the side of a box every ray starts in: that of a legacy plane whose
+# test takes points along a whole line (`plane_boxes`), so that every warp
+# runs its window.
+_OPEN_BOX = 1e15
 # Builds of the level kernel (csrc/wavefront.cu: kBuild*): the table staged
-# in each block; a wide table read whole by every lane (kept only to be
-# measured against); a wide table culled by window, its rows read by
-# 16-byte read-only loads of the permuted copy; the same counting the
-# tests it runs.
-WAVE_BUILDS = {"staged": 0, "unculled": 1, "windows": 2, "windows_count": 3}
+# in each block and read whole by every lane (the reference the culled
+# builds are held to); a wide table read whole by every lane (kept only to
+# be measured against); a table culled by window, its rows read by 16-byte
+# read-only loads of the permuted copy (the package's build over
+# `wave_cap_geoms`); the same counting the tests it runs; a table culled by
+# window with the table, its window records and its permuted rows staged in
+# each block (the package's build up to `wave_cap_geoms`).
+WAVE_BUILDS = {"staged": 0, "unculled": 1, "windows": 2, "windows_count": 3,
+               "staged_windows": 4}
 # Counters of the counting build, a live lane's: closest-hit geom tests run,
 # those of them in windows whose box the lane's own ray entered, window box
 # tests; shadow-ray geom tests run (each ray up to its blocker), box tests.
@@ -195,10 +206,10 @@ class WaveTables:
     refraction: bool               # some material refracts (one-way)
     area: Tuple[bool, ...]         # per light: an area light (radius > 0)
     nss: int                       # shadow rays per area light (light_samples)
-    # The windowed build's operands (`with_windows`; None for a table a
-    # block stages): (G, WIN_COLS) permuted rows, (NW, WIN_REC) window
-    # records, the first window of each range followed by NW, and the
-    # table they were built from (its data pointer and version counter:
+    # The windowed builds' operands (`with_windows`; `wave_tables` gives
+    # every table its windows): (G, WIN_COLS) permuted rows, (NW, WIN_REC)
+    # window records, the first window of each range followed by NW, and
+    # the table they were built from (its data pointer and version counter:
     # `check_windows`).
     perm_rows: Optional[torch.Tensor] = None
     windows: Optional[torch.Tensor] = None
@@ -232,36 +243,56 @@ def pack_tex_u8(scene: Scene):
     return tex, scene.tex_wh.T.to(torch.float32).contiguous()
 
 
-def wave_smem_bytes(n_geoms: int, n_cols: int, n_lights: int) -> int:
-    """Least dynamic shared memory of one block of the level's staged build
-    (csrc/wavefront.cu::wave_layout): header, the staged shaded table and
-    light table, then 16-byte aligned a list of WAVE_LIST_MIN live lanes,
-    the winner row of each lane of a chunk of WAVE_CHUNK (4 bytes) and its
-    count of blocked shadow rays per light (8 bytes, one a light), and a
-    queue of WAVE_QUEUE_MIN shadow rays (32 bytes each).  The wide builds'
-    is that of no geoms (n_geoms = 0), the windowed build's plus its window
-    records (4 * WIN_REC bytes a window)."""
+def wave_smem_bytes(n_geoms: int, n_cols: int, n_lights: int, n_win: int = 0,
+                    n_perm: int = 0) -> int:
+    """Least dynamic shared memory of one block of the level
+    (csrc/wavefront.cu::wave_layout): header, the staged shaded table
+    (n_geoms rows) and light table, then 16-byte aligned a list of
+    WAVE_LIST_MIN live lanes, the winner row of each lane of a chunk of
+    WAVE_CHUNK (4 bytes) and its count of blocked shadow rays per light (8
+    bytes, one a light), a queue of WAVE_QUEUE_MIN shadow rays (32 bytes
+    each), n_win window records (4 * WIN_REC bytes each) and n_perm
+    permuted rows (4 * WIN_COLS bytes each).  The staged build stages the
+    table alone; the staged windowed build the table, its window records
+    and its permuted rows (n_perm = n_geoms); the wide windowed build the
+    window records alone (n_geoms = 0)."""
     tables = _SMEM_HEADER + 4 * (n_cols * n_geoms + 8 * max(n_lights, 1))
     return (-(-tables // 16) * 16 + 4 * (WAVE_LIST_MIN + WAVE_CHUNK)
-            + 8 * WAVE_CHUNK + 32 * WAVE_QUEUE_MIN)
+            + 8 * WAVE_CHUNK + 32 * WAVE_QUEUE_MIN + 4 * WIN_REC * n_win
+            + 4 * WIN_COLS * n_perm)
+
+
+def max_windows(n_geoms: int) -> int:
+    """The most windows a table of n_geoms rows has (`window_arrays`: each
+    of up to WAVE_MAX_RANGES kind ranges adds at most one partial window)."""
+    return n_geoms // WAVE_WINDOW + WAVE_MAX_RANGES
+
+
+def staged_smem_bytes(n_geoms: int, n_cols: int, n_lights: int) -> int:
+    """Least shared memory of a block of the staged windowed build for a
+    table of n_geoms rows, whatever its kind ranges (`max_windows`)."""
+    return wave_smem_bytes(n_geoms, n_cols, n_lights, max_windows(n_geoms), n_geoms)
 
 
 def wave_cap_geoms(n_cols: int, n_lights: int) -> int:
-    """The most geoms whose table a block of the level stages
-    (`wave_smem_bytes` within WAVE_MAX_SMEM_BYTES); a larger table takes
-    the wide build."""
-    g = (WAVE_MAX_SMEM_BYTES - wave_smem_bytes(0, n_cols, n_lights)) // (4 * n_cols)
-    while wave_smem_bytes(g + 1, n_cols, n_lights) <= WAVE_MAX_SMEM_BYTES:
+    """The most geoms whose table, window records and permuted rows a block
+    of the level stages (`staged_smem_bytes` within WAVE_MAX_SMEM_BYTES); a
+    larger table takes the "windows" build (`package_build`)."""
+    per_geom = 4 * n_cols + 4 * WIN_COLS + 4 * WIN_REC // WAVE_WINDOW
+    g = (WAVE_MAX_SMEM_BYTES - staged_smem_bytes(0, n_cols, n_lights)) // per_geom
+    while staged_smem_bytes(g + 1, n_cols, n_lights) <= WAVE_MAX_SMEM_BYTES:
         g += 1
-    while wave_smem_bytes(g, n_cols, n_lights) > WAVE_MAX_SMEM_BYTES:
+    while staged_smem_bytes(g, n_cols, n_lights) > WAVE_MAX_SMEM_BYTES:
         g -= 1
     return g
 
 
-def wave_variant(n_geoms: int, n_cols: int, n_lights: int) -> str:
-    """The build of the level kernel a table takes: "staged" up to
-    `wave_cap_geoms`, "wide" above it."""
-    return "wide" if n_geoms > wave_cap_geoms(n_cols, n_lights) else "staged"
+def stages_table(tables: WaveTables) -> bool:
+    """Whether a block's shared memory holds the table alone, as the
+    unculled staged build and the one-thread-per-lane schedule stage it
+    (1,669 geoms textured, 1,723 untextured, with one light)."""
+    n_cols, g = tables.table.shape
+    return wave_smem_bytes(g, n_cols, tables.n_lights) <= WAVE_MAX_SMEM_BYTES
 
 
 def window_arrays(table_t: np.ndarray, ranges, boxes: np.ndarray):
@@ -277,12 +308,16 @@ def window_arrays(table_t: np.ndarray, ranges, boxes: np.ndarray):
     holds WAVE_WINDOW consecutive permuted rows (fewer at a range's end):
     its box is the union of its members' boxes, its graze the largest
     `row_graze` of its rows (the sphere test's slack, csrc/geom.cuh::
-    box_hit).  A permuted row is columns 0..14 of its table row (transform,
-    velocity) and its original row: winners, records and everything the
-    finish stage reads stay in the table's own row order."""
+    box_hit).  A legacy plane's box is first grown to every point its test
+    takes (`plane_boxes`; the Morton code is of the box as given), and a
+    window's box is rounded outward to f32.  A permuted row is columns
+    0..14 of its table row (transform, velocity) and its original row:
+    winners, records and everything the finish stage reads stay in the
+    table's own row order."""
     g = table_t.shape[1]
     rows = np.ascontiguousarray(table_t[:GEOM_COLS].T)  # (G, 17)
     codes = morton_codes((boxes[:, :3] + boxes[:, 3:]) * 0.5)
+    boxes = plane_boxes(rows, boxes)
     graze = row_graze(rows)
     perm = np.arange(g, dtype=np.int64)
     boxes_w, graze_w, span, bounds = [], [], [], [0]
@@ -296,13 +331,87 @@ def window_arrays(table_t: np.ndarray, ranges, boxes: np.ndarray):
             span.append(first | (len(members) << 16))
         bounds.append(len(span))
     windows = np.zeros((len(span), WIN_REC), np.float32)
-    windows[:, :6] = np.asarray(boxes_w, np.float32).reshape(-1, 6)
+    windows[:, :6] = _round_out(np.asarray(boxes_w).reshape(-1, 6))
     windows[:, 6] = graze_w
     windows[:, 7] = np.asarray(span, np.int32).view(np.float32)
     perm_rows = np.zeros((g, WIN_COLS), np.float32)
     perm_rows[:, :15] = rows[perm, :15]
     perm_rows[:, 15] = perm.astype(np.int32).view(np.float32)
     return perm_rows, windows, tuple(bounds)
+
+
+def _round_out(boxes: np.ndarray) -> np.ndarray:
+    """(N, 6) f32 of (N, 6) f64 [min xyz | max xyz] boxes, each bound
+    rounded outward."""
+    b = boxes.astype(np.float32)
+    lo, hi = b[:, :3], b[:, 3:]
+    lo[...] = np.where(lo > boxes[:, :3], np.nextafter(lo, np.float32(-np.inf)), lo)
+    hi[...] = np.where(hi < boxes[:, 3:], np.nextafter(hi, np.float32(np.inf)), hi)
+    return b
+
+
+def plane_boxes(rows: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """(G, 6) f64: `boxes` with the box of each legacy plane row of a
+    (G, 17) geom table grown to hold every point its test takes; every
+    other row's box as it is.
+
+    The test (csrc/geom.cuh::plane_t_x) takes the unit normal n of corners
+    a, b, c in f32 (replayed here; the "w2o" columns of a plane hold a, b,
+    c, e) and a point p of the plane through a whose edge functions
+    cross(p1 - p0, p - p0) . n are all at least EPS_PLANE_EDGE in triangle
+    (b, e, c) or (a, b, c).  A corner off that plane (e, where the four are
+    not in one plane) acts through its projection along n.  Where the edge
+    functions of a triangle are S at the opposite corners, the points they
+    take are those of the triangle with each corner v_k moved by eps / S *
+    (2 v_k - v_j - v_l) (its barycentric coordinates at least -eps / S;
+    for S < 0 the same corners bound what is left), with eps
+    |EPS_PLANE_EDGE| plus a bound on the f32 rounding of the edge
+    functions.  That holds while the corners move less than the quad is
+    wide; a plane whose corners move further (a sliver), or with a triangle
+    of no area (a repeated corner: its test takes a strip along a whole
+    line), gets a box every ray starts in.  A plane whose normal the test
+    finds degenerate never reports a hit and keeps its box."""
+    out = boxes.astype(np.float64)
+    plane = np.nonzero(np.rint(rows[:, 15]) == KIND_PLANE)[0]
+    k32 = rows[plane, :12].astype(np.float32).reshape(-1, 4, 3)
+    e1, e2 = k32[:, 1] - k32[:, 0], k32[:, 2] - k32[:, 0]
+    n = np.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+                  e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+                  e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], axis=1)
+    ln = np.sqrt(n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1] + n[:, 2] * n[:, 2])
+    hits = ln >= np.float32(C.EPS_PARALLEL)
+    plane, k32, n, ln = plane[hits], k32[hits], n[hits], ln[hits]
+    if plane.size == 0:
+        return out
+    nu = (n / ln[:, None]).astype(np.float64)
+    k = k32.astype(np.float64)
+    off = ((k - k[:, :1]) * nu[:, None]).sum(axis=2) / (nu * nu).sum(axis=1)[:, None]
+    k = k - off[..., None] * nu[:, None]   # the corners on the test's plane
+    lo, hi = k.min(axis=1), k.max(axis=1)
+    wide = np.linalg.norm(hi - lo, axis=1)
+    edges = ((1, 3), (3, 2), (2, 1), (0, 1), (1, 2), (2, 0))
+    longest = np.max([np.linalg.norm(k[:, j] - k[:, i], axis=1) for i, j in edges], axis=0)
+    # the f32 rounding of an edge function: a few ulp of |p1 - p0| times
+    # |p - p0| + |p| + |p0|, with |p - p0| at most twice the quad's width
+    # (or the box is open); 64 ulp of |p1 - p0| (width + coordinates)
+    eps = abs(C.EPS_PLANE_EDGE) + 2.0 ** -18 * longest * (wide + np.abs(k).max(axis=(1, 2)))
+    open_ = np.zeros(plane.size, bool)
+    reg_lo, reg_hi = lo.copy(), hi.copy()
+    for tri in ((1, 3, 2), (0, 1, 2)):
+        v = k[:, tri]
+        s = (np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]) * nu).sum(axis=1)
+        open_ |= s == 0.0
+        coef = eps / np.where(s == 0.0, 1.0, s)
+        moved = v + coef[:, None, None] * (3.0 * v - v.sum(axis=1, keepdims=True))
+        reg_lo = np.minimum(reg_lo, moved.min(axis=1))
+        reg_hi = np.maximum(reg_hi, moved.max(axis=1))
+    growth = np.maximum(lo - reg_lo, reg_hi - hi).max(axis=1)
+    open_ |= ~(growth <= wide)
+    grown = np.concatenate([np.minimum(out[plane, :3], reg_lo),
+                            np.maximum(out[plane, 3:], reg_hi)], axis=1)
+    grown[open_] = [-_OPEN_BOX] * 3 + [_OPEN_BOX] * 3
+    out[plane] = grown
+    return out
 
 
 def with_windows(tables: WaveTables, scene: Scene) -> WaveTables:
@@ -400,8 +509,8 @@ def wave_tables(scene: Scene, differentiable: bool = False,
     that `WaveLevelFn`'s cotangents reach them; otherwise both are
     detached.  The kernel always reads detached views.
 
-    A table over `wave_cap_geoms` (the kernel's wide build) also gets its
-    windows (`with_windows`)."""
+    Every table also gets its windows (`with_windows`), which every build
+    the package launches culls by (`package_build`)."""
     table, ranges = pack_geom_table_shaded(scene, with_tex=scene.has_textures)
     lights = pack_light_table(scene)
     if not differentiable:
@@ -423,9 +532,7 @@ def wave_tables(scene: Scene, differentiable: bool = False,
         area=tuple(bool(a) for a in scene.lights.is_area),
         nss=int(light_samples) if any(scene.lights.is_area) else 1,
     )
-    if wave_variant(scene.n_geoms, tables.table.shape[0], scene.n_lights) == "wide":
-        tables = with_windows(tables, scene)
-    return tables
+    return with_windows(tables, scene)
 
 
 def _check_level_args(out_prev, fuzz, tables: WaveTables):
@@ -931,10 +1038,12 @@ def _raise_on(lib, err, what):
 
 
 def package_build(tables: WaveTables) -> str:
-    """The build of the level kernel the package launches for `tables`:
-    "staged" for a table a block stages, else "windows"."""
+    """The build of the level kernel the package launches for `tables`, a
+    window cull for every table: "staged_windows" up to `wave_cap_geoms`
+    (each block stages the table, its window records and its permuted
+    rows), "windows" above it (the rows read from global memory)."""
     n_cols, g = tables.table.shape
-    return "staged" if wave_variant(g, n_cols, tables.n_lights) == "staged" else "windows"
+    return "staged_windows" if g <= wave_cap_geoms(n_cols, tables.n_lights) else "windows"
 
 
 def _launch_build(out_prev, fuzz, tables: WaveTables, min_tp: float, record: bool,
@@ -1013,12 +1122,10 @@ def wave_level_build(out_prev: torch.Tensor, fuzz: Optional[torch.Tensor],
 
 def wave_plan(tables: WaveTables, device=None, build: Optional[str] = None) -> dict:
     """What the kernel launches with for this table on the current card:
-    the variant ("staged" or "wide", `wave_variant`), the build
-    (`package_build`, or `build`), list and queue capacities (entries),
-    shared memory bytes of a block, resident blocks per SM, SMs, threads
-    per block."""
+    the build (`package_build`, or `build`), list and queue capacities
+    (entries), shared memory bytes of a block, resident blocks per SM, SMs,
+    threads per block."""
     n_cols, g = tables.table.shape
-    variant = wave_variant(g, n_cols, tables.n_lights)
     build = build or package_build(tables)
     n_win = 0 if tables.windows is None else tables.windows.shape[0]
     lib = _build.load()
@@ -1027,7 +1134,7 @@ def wave_plan(tables: WaveTables, device=None, build: Optional[str] = None) -> d
         err = lib.wave_level_plan(g, n_cols, tables.n_lights, WAVE_BUILDS[build], n_win, out)
     _raise_on(lib, err, "wave_level plan")
     keys = ("list_cap", "queue_cap", "smem_bytes", "blocks_per_sm", "sms", "threads")
-    return dict(variant=variant, build=build, **dict(zip(keys, list(out))))
+    return dict(build=build, **dict(zip(keys, list(out))))
 
 
 def wave_level_lane(
@@ -1048,7 +1155,7 @@ def wave_level_lane(
     out = torch.empty((OUT_ROWS, out_prev.shape[1]), dtype=torch.float32,
                       device=out_prev.device)
     args = _level_args(out_prev, fuzz, tables, min_tp, out)
-    if wave_variant(*tables.table.shape[::-1], tables.n_lights) == "wide":
+    if not stages_table(tables):
         raise NotImplementedError("the one-thread-per-lane schedule stages the whole table")
     lib = _build.load()
     with torch.cuda.device(out_prev.device):

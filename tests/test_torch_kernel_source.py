@@ -244,7 +244,8 @@ struct Counts { long long lists, drains, queued, max_queue; };
 // The windowed builds' warp walks (csrc/wavefront.cu: win_hit_range,
 // win_any_range), one warp's 32 threads in a loop: every thread box-tests
 // each window against its rays' bounds, the warp runs the window when some
-// thread wants it, reading its rows in place.  work: the counting build's
+// thread wants it, reading its rows where the build has them (the launch's
+// permuted rows, or the block's staged copy).  work: the counting build's
 // counters.
 struct HitThread { rtt::Ray a, b; bool va, vb; int j0, step; float ta, tb; int ra, rb; };
 struct AnyThread { rtt::Ray r; float maxt; bool open, blocked; int j0, step; };
@@ -253,7 +254,27 @@ struct WinCtx {
   const rtt::WaveParams& p;
   const float* win;
   long long* work;
+  const float* perm;  // the permuted rows the build reads
+  bool staged;        // through TabPS (a block's copy), else TabP
 };
+
+template <int KIND, bool MOTION>
+int rows_hit(WinCtx& x, int first, int count, HitThread& t) {
+  if (x.staged) {
+    return rtt::win_rows_hit<KIND, MOTION>(rtt::TabPS{x.perm}, first, count, t.a, t.va, t.b, t.vb,
+                                           t.j0, t.step, t.ta, t.ra, t.tb, t.rb);
+  }
+  return rtt::win_rows_hit<KIND, MOTION>(rtt::TabP{x.perm}, first, count, t.a, t.va, t.b, t.vb,
+                                         t.j0, t.step, t.ta, t.ra, t.tb, t.rb);
+}
+
+template <int KIND>
+int rows_any(WinCtx& x, int first, int count, AnyThread& t, bool& hit) {
+  if (x.staged) {
+    return rtt::win_any<KIND>(rtt::TabPS{x.perm}, first, count, t.j0, t.step, t.r, t.maxt, hit);
+  }
+  return rtt::win_any<KIND>(rtt::TabP{x.perm}, first, count, t.j0, t.step, t.r, t.maxt, hit);
+}
 
 template <int KIND, bool MOTION>
 void hit_range(WinCtx& x, int w0, int w1, HitThread* th) {
@@ -270,9 +291,7 @@ void hit_range(WinCtx& x, int w0, int w1, HitThread* th) {
     const int first = rtt::win_first(rec), count = rtt::win_count(rec);
     for (int l = 0; l < 32; ++l) {
       HitThread& t = th[l];
-      const int ran = rtt::win_rows_hit<KIND, MOTION>(rtt::TabP{x.p.xp}, first, count, t.a, t.va,
-                                                      t.b, t.vb, t.j0, t.step, t.ta, t.ra, t.tb,
-                                                      t.rb);
+      const int ran = rows_hit<KIND, MOTION>(x, first, count, t);
       x.work[0] += (long long)ran * (t.va + t.vb);
       x.work[1] += (long long)ran * (wa[l] + wb[l]);
     }
@@ -311,8 +330,7 @@ bool any_range(WinCtx& x, int w0, int w1, AnyThread* th) {
       if (!want[l]) continue;
       AnyThread& t = th[l];
       bool hit = false;
-      x.work[3] += rtt::win_any<KIND>(rtt::TabP{x.p.xp}, first, count, t.j0, t.step, t.r,
-                                      t.maxt, hit);
+      x.work[3] += rows_any<KIND>(x, first, count, t, hit);
       if (hit) { t.blocked = true; t.open = false; }
     }
   }
@@ -488,7 +506,8 @@ void run_list(const rtt::WaveParams& p, const Tab& tb, const rtt::WaveSmem& s, i
 
 // build: csrc/wavefront.cu's kBuild*; the unculled build takes xf, a
 // windowed one xp, win, wbeg and n_win; work: the counting build's five
-// counters (every windowed build counts).
+// counters (every windowed build counts).  The staged builds copy the table
+// into the block's buffer, kBuildStagedWindows its permuted rows too.
 extern "C" void wave_level_blocks_host(
     const float* q, const float* fuzz, const float* table, const float* lights,
     const uint8_t* tex, const float* twh, float* out,
@@ -509,8 +528,8 @@ extern "C" void wave_level_blocks_host(
     p.xp = xp; p.win = win; p.n_win = n_win;
     for (int k = 0; k <= n_ranges; ++k) p.wbeg[k] = wbeg[k];
   }
-  const rtt::WaveLayout lay = rtt::wave_layout(build == rtt::kBuildStaged ? G : 0, n_cols, n_lights,
-                                               list_cap, queue_cap, windowed ? n_win : 0);
+  const rtt::WaveLayout lay =
+      rtt::build_layout(build, G, n_cols, n_lights, n_win, list_cap, queue_cap);
   const int T = rtt::kWaveThreads;
   // one shared memory per block; blocks take scan steps in turn
   std::vector<std::vector<rtt::F4>> bufs(n_blocks, std::vector<rtt::F4>(lay.bytes / sizeof(rtt::F4) + 1));
@@ -543,7 +562,8 @@ extern "C" void wave_level_blocks_host(
   for (int k = 0; k < 8 * n_lights; ++k) s.lights[k] = lights[k];
   Counts c = {0, 0, 0, 0};
   const size_t chunk = (size_t)rtt::wave_chunk((long long)live.size(), n_blocks);
-  WinCtx x{p, s.win, work};
+  const bool staged_rows = build == rtt::kBuildStagedWindows;
+  WinCtx x{p, s.win, work, staged_rows ? s.perm : xp, staged_rows};
   auto run_all = [&](const auto& tb) {
     for (size_t first = 0; first < live.size(); first += chunk) {
       const int n = (int)std::min<size_t>(chunk, live.size() - first);
@@ -553,25 +573,27 @@ extern "C" void wave_level_blocks_host(
   };
   if (windowed) {
     for (int k = 0; k < rtt::kWinRec * n_win; ++k) s.win[k] = win[k];
-    run_all(rtt::TabT{table, G});
-  } else if (build == rtt::kBuildUnculled) {
+  }
+  if (build == rtt::kBuildUnculled) {
     run_all(rtt::TabW{xf, rtt::TabT{table, G}});
-  } else {
+  } else if (rtt::build_stages_table(build)) {
     for (int k = 0; k < 3 * G; ++k) s.xf4[k] = rtt::staged_xf(table, G, k);
     for (int k = 0; k < (n_cols - 12) * G; ++k) s.rest[k] = table[12 * G + k];
+    if (staged_rows) memcpy(s.perm, xp, sizeof(float) * rtt::kWinCols * G);
     run_all(rtt::TabS{s.xf4, s.rest, G});
+  } else {
+    run_all(rtt::TabT{table, G});
   }
   counts[0] = c.lists; counts[1] = c.drains; counts[2] = c.queued; counts[3] = c.max_queue;
 }
 
-// wave_plan: list and queue capacities and bytes a block takes within
-// `limit`, for the staged build or (wide) one that stages no table, with
-// n_win window records.
-extern "C" void wave_plan_host(int G, int n_cols, int n_lights, long long limit, int wide,
+// build_plan: list and queue capacities and bytes a block of `build` takes
+// within `limit` (n_win: a windowed build's window records).
+extern "C" void wave_plan_host(int build, int G, int n_cols, int n_lights, long long limit,
                                int n_win, long long* out) {
   int list_cap, queue_cap;
-  out[2] = (long long)rtt::wave_plan(wide ? 0 : G, n_cols, n_lights, (size_t)limit, list_cap,
-                                     queue_cap, n_win).bytes;
+  out[2] = (long long)rtt::build_plan(build, G, n_cols, n_lights, n_win, (size_t)limit, list_cap,
+                                      queue_cap).bytes;
   out[0] = list_cap; out[1] = queue_cap;
   out[3] = rtt::kWaveThreads; out[4] = rtt::kListCapMin; out[5] = rtt::kQueueCapMin;
 }
@@ -581,7 +603,7 @@ extern "C" void wave_window_consts(long long* out) {
   out[0] = rtt::kWinRows; out[1] = rtt::kWinCols; out[2] = rtt::kWinRec;
   out[3] = rtt::kMaxWindows; out[4] = rtt::kWinWork;
   out[5] = rtt::kBuildStaged; out[6] = rtt::kBuildUnculled; out[7] = rtt::kBuildWindows;
-  out[8] = rtt::kBuildWindowsCount;
+  out[8] = rtt::kBuildWindowsCount; out[9] = rtt::kBuildStagedWindows;
 }
 """
 
@@ -611,14 +633,14 @@ def host_blocks(tmp_path_factory):
         ctypes.POINTER(ctypes.c_int), i, i, i, i, i, i, ctypes.c_float, i, i, i, i,
         i, i, i, ctypes.POINTER(ll), i, i, p, p, p, ctypes.POINTER(ctypes.c_int), i, p,
     ]
-    lib.wave_plan_host.argtypes = [i, i, i, ll, i, i, ctypes.POINTER(ll)]
+    lib.wave_plan_host.argtypes = [i, i, i, i, ll, i, ctypes.POINTER(ll)]
     lib.wave_window_consts.argtypes = [ctypes.POINTER(ll)]
     lib.wave_level_blocks_host.restype = lib.wave_plan_host.restype = None
     lib.wave_window_consts.restype = None
 
-    def plan(g, n_cols, n_lights, limit=W.WAVE_MAX_SMEM_BYTES, wide=False, n_win=0):
+    def plan(g, n_cols, n_lights, limit=W.WAVE_MAX_SMEM_BYTES, build="staged", n_win=0):
         res = (ll * 6)()
-        lib.wave_plan_host(g, n_cols, n_lights, limit, int(wide), n_win, res)
+        lib.wave_plan_host(W.WAVE_BUILDS[build], g, n_cols, n_lights, limit, n_win, res)
         return dict(zip(("list_cap", "queue_cap", "bytes", "threads", "list_min",
                          "queue_min"), list(res)))
 
@@ -628,11 +650,11 @@ def host_blocks(tmp_path_factory):
         n_cols, g = tables.table.shape
         build = build or W.package_build(tables)
         xf = tables.table[:12].T.contiguous() if build == "unculled" else None
-        windowed = build.startswith("windows")
+        windowed = W.WAVE_BUILDS[build] >= W.WAVE_BUILDS["windows"]
         n_win = tables.windows.shape[0] if windowed else 0
         wbeg = (ctypes.c_int * (W.WAVE_MAX_RANGES + 1))(*tables.window_ranges) if windowed \
             else None
-        chosen = plan(g, n_cols, tables.n_lights, wide=build != "staged", n_win=n_win)
+        chosen = plan(g, n_cols, tables.n_lights, build=build, n_win=n_win)
         rows = W.OUT_ROWS + (W.record_rows(tables.n_lights, tables.has_tex) if record else 0)
         out = torch.full((rows, r), float("nan"), dtype=torch.float32)
         did = (ll * 4)()
@@ -652,25 +674,41 @@ def host_blocks(tmp_path_factory):
         return out
 
     def consts():
-        res = (ll * 9)()
+        res = (ll * 10)()
         lib.wave_window_consts(res)
         return dict(zip(("rows", "cols", "rec", "max_windows", "work",
-                         "staged", "unculled", "windows", "windows_count"), list(res)))
+                         "staged", "unculled", "windows", "windows_count", "staged_windows"),
+                        list(res)))
 
     level.plan = plan
     level.consts = consts
     return level
 
 
+# The builds a table a block stages is run by: the package's (None: the
+# window cull, `package_build`), and the staged build it is held to on the card.
+STAGED_TABLE_BUILDS = [None, "staged"]
+
+
+@pytest.mark.parametrize("build", STAGED_TABLE_BUILDS, ids=["package", "staged"])
 @pytest.mark.parametrize("path,rows,spp_sqrt", WAVE_CASES)
-def test_block_schedule_equals_plain_on_every_level(host_blocks, path, rows, spp_sqrt):
+def test_block_schedule_equals_plain_on_every_level(host_blocks, path, rows, spp_sqrt, build):
     """Every level of a trace through the block schedule (three blocks,
     the kernel's capacities) against wave_level_plain; every output row is
-    written (the host buffer starts as NaN)."""
+    written (the host buffer starts as NaN).  Each scene by the package's
+    build, the window cull over the staged table, windows and rows (cubes,
+    rects, legacy planes, glass, area lights, moving spheres, spherical
+    UV), and by the unculled staged build."""
     scene, o, d, tm, draws = scene_and_rays(path, rows, spp_sqrt, seed=0)
     common = dict(draws, device="cpu", return_levels=True)
+    tables = W.wave_tables(scene, light_samples=draws["light_samples"])
+    assert W.package_build(tables) == "staged_windows"
+
+    def level(out_prev, fuzz, tables_, min_tp=0.0):
+        return host_blocks(out_prev, fuzz, tables_, min_tp, build=build)
+
     _, plain = trace_wavefront(scene, o, d, tm, level_fn=W.wave_level_plain, **common)
-    _, host = trace_wavefront(scene, o, d, tm, level_fn=host_blocks, **common)
+    _, host = trace_wavefront(scene, o, d, tm, level_fn=level, **common)
     assert len(host) == len(plain) == n_levels(scene)
     if len(plain) > 1:
         assert int((plain[0][7] > 0).sum()) > 0
@@ -727,22 +765,24 @@ def test_block_schedule_tiles(host_blocks, case):
         assert int((act > 0).sum()) % 32 and counts["lists"] == 3
 
 
+@pytest.mark.parametrize("build", STAGED_TABLE_BUILDS, ids=["package", "staged"])
 @pytest.mark.parametrize("case", ["mixed_mask_vec4", "ragged_width_odd"])
-def test_block_schedule_record_rows_equal_plain(host_blocks, case):
+def test_block_schedule_record_rows_equal_plain(host_blocks, case, build):
     """Record mode through the block schedule (every hit lane queues every
     light's shadow ray, the finish stage writes the record rows, the scan
     writes a dead lane's) against wave_level_plain(record=True): rows 0..12
     those of the inference schedule, the winner ids and visibility equal,
-    the texel within float tolerance; every row written."""
+    the texel within float tolerance; every row written.  By the package's
+    build and by the staged one."""
     n = {"ragged_width_odd": 3 * 1024 + 517}.get(case, 4 * 1024)
     act = random_act(n, 0.6, seed=5)
     tables, boot, fz = block_case(act, seed=3)
     counts, again = {}, {}
-    a = host_blocks(boot, fz, tables, counts=counts, record=True)
+    a = host_blocks(boot, fz, tables, counts=counts, record=True, build=build)
     b = W.wave_level_plain(boot, fz, tables, record=True)
     L = tables.n_lights
     assert a.shape == b.shape == (13 + 1 + L + 3, n) and not torch.isnan(a).any()
-    assert torch.equal(a[:13], host_blocks(boot, fz, tables, counts=again))
+    assert torch.equal(a[:13], host_blocks(boot, fz, tables, counts=again, build=build))
     assert_same(a[:13], b[:13])
     assert torch.equal(a[13 : 14 + L], b[13 : 14 + L])
     np.testing.assert_allclose(a[14 + L :].numpy(), b[14 + L :].numpy(), rtol=RTOL, atol=ATOL)
@@ -777,11 +817,17 @@ def test_smem_formula_is_the_kernels(host_blocks):
     """kernels/wavefront.py::wave_smem_bytes is the layout of
     csrc/wavefront.cu at its least capacities, the kernel takes the
     preferred ones where they fit, and the cap in geoms sits at the edge.
-    The wide build's layout is the staged one's without the table
-    (`wave_smem_bytes(0, ...)`, whatever the table's size), it takes its
-    preferred capacities in a few tens of KB, and the build switches from
-    staged to wide exactly past `wave_cap_geoms`, where wave_tables starts
-    packing the geom-major transforms."""
+    The staged build's layout holds the table alone; the package's build
+    for a table a block stages (staged_windows) also its window records and
+    permuted rows (`staged_smem_bytes` at the most windows a table of that
+    size can have); the wide builds' layout is the staged one's without the
+    table (`wave_smem_bytes(0, ...)`, whatever the table's size), and they
+    take their preferred capacities in a few tens of KB.  The package's
+    build switches from staged_windows to windows exactly past
+    `wave_cap_geoms`; `stages_table` (the unculled staged build's and the
+    lane schedule's table alone) exactly past 1,723 / 1,669 geoms."""
+    import dataclasses
+
     for g, n_cols, lights in [(0, 31, 1), (141, 32, 2), (1000, 31, 8), (1700, 32, 3)]:
         least = host_blocks.plan(g, n_cols, lights, limit=0)
         assert least["list_cap"] == W.WAVE_LIST_MIN and least["queue_cap"] == W.WAVE_QUEUE_MIN
@@ -789,41 +835,69 @@ def test_smem_formula_is_the_kernels(host_blocks):
         assert host_blocks.plan(g, n_cols, lights, limit=least["bytes"]) == least
         big = host_blocks.plan(g, n_cols, lights, limit=10 ** 9)
         assert big["list_cap"] > least["list_cap"] and big["bytes"] > least["bytes"]
+    for g, n_cols, lights in [(1, 31, 1), (141, 32, 2), (1000, 31, 8), (1106, 32, 3)]:
+        n_win = W.max_windows(g)
+        least = host_blocks.plan(g, n_cols, lights, limit=0, build="staged_windows", n_win=n_win)
+        assert least["list_cap"] == W.WAVE_LIST_MIN and least["queue_cap"] == W.WAVE_QUEUE_MIN
+        assert least["bytes"] == W.staged_smem_bytes(g, n_cols, lights) \
+            == W.wave_smem_bytes(g, n_cols, lights, n_win, g)
     for g, n_cols, lights in [(1724, 31, 2), (3001, 32, 2), (6144, 32, 8)]:
-        least = host_blocks.plan(g, n_cols, lights, limit=0, wide=True)
+        least = host_blocks.plan(g, n_cols, lights, limit=0, build="unculled")
         assert least["list_cap"] == W.WAVE_LIST_MIN and least["queue_cap"] == W.WAVE_QUEUE_MIN
         assert least["bytes"] == W.wave_smem_bytes(0, n_cols, lights)
-        wide = host_blocks.plan(g, n_cols, lights, wide=True)
+        wide = host_blocks.plan(g, n_cols, lights, build="unculled")
         assert wide["list_cap"] > least["list_cap"] and wide["bytes"] <= 32 * 1024
+    from ray_tracying_tpu_torch import models
+
+    base = W.wave_tables(models.get("sphere_field", n=8, res=(8, 6), device="cpu"))
+
+    def sized(g, n_cols, lights):
+        return dataclasses.replace(base, table=torch.zeros((n_cols, g)), n_lights=lights)
+
     for n_cols in (31, 32):
         for lights in (1, 2, 8):
             cap = W.wave_cap_geoms(n_cols, lights)
-            assert W.wave_smem_bytes(cap, n_cols, lights) <= W.WAVE_MAX_SMEM_BYTES
-            assert W.wave_smem_bytes(cap + 1, n_cols, lights) > W.WAVE_MAX_SMEM_BYTES
-            assert W.wave_variant(cap, n_cols, lights) == "staged"
-            assert W.wave_variant(cap + 1, n_cols, lights) == "wide"
-            assert W.wave_variant(W.WAVE_MAX_GEOMS, n_cols, lights) == "wide"
-    from ray_tracying_tpu_torch import models
+            assert W.staged_smem_bytes(cap, n_cols, lights) <= W.WAVE_MAX_SMEM_BYTES
+            assert W.staged_smem_bytes(cap + 1, n_cols, lights) > W.WAVE_MAX_SMEM_BYTES
+            assert W.package_build(sized(cap, n_cols, lights)) == "staged_windows"
+            assert W.package_build(sized(cap + 1, n_cols, lights)) == "windows"
+            assert W.package_build(sized(W.WAVE_MAX_GEOMS, n_cols, lights)) == "windows"
+        alone = {31: 1723, 32: 1669}[n_cols]
+        assert W.stages_table(sized(alone, n_cols, 1))
+        assert not W.stages_table(sized(alone + 1, n_cols, 1))
 
-    for n, variant in ((1722, "staged"), (1723, "wide")):
+    lights = models.get("sphere_field", n=8, res=(8, 6), device="cpu").n_lights
+    cap = W.wave_cap_geoms(31, lights)
+    assert cap == 1130
+    for n, variant in ((cap - 1, "staged"), (cap, "wide")):
         tables = W.wave_tables(models.get("sphere_field", n=n, res=(8, 6), device="cpu"))
-        assert W.wave_variant(*tables.table.shape[::-1], tables.n_lights) == variant
+        assert W.package_build(tables) == ("staged_windows" if variant == "staged" else "windows")
 
 
 def test_windowed_smem_layout(host_blocks):
-    """The windowed build's shared memory is the unculled wide build's plus
-    its window records (WIN_REC floats a window); at the gate's edge it
+    """The wide windowed build's shared memory is the unculled wide build's
+    plus its window records (WIN_REC floats a window); at the gate's edge it
     still leaves room for three blocks of the level an SM (227 KB of 256 KB
-    with 1 KB reserved a block)."""
+    with 1 KB reserved a block).  The staged windowed build's is the staged
+    build's plus the window records and the permuted rows (WIN_COLS floats a
+    row), at the same capacities; on the flagship's table (141 geoms,
+    textured, two lights) it also leaves room for three blocks an SM."""
     for g, n_cols, lights in [(1724, 31, 2), (3001, 32, 2), (6144, 32, 8)]:
         n_win = -(-g // W.WAVE_WINDOW) + 1
-        wide = host_blocks.plan(g, n_cols, lights, wide=True)
-        win = host_blocks.plan(g, n_cols, lights, wide=True, n_win=n_win)
+        wide = host_blocks.plan(g, n_cols, lights, build="unculled")
+        win = host_blocks.plan(g, n_cols, lights, build="windows", n_win=n_win)
         assert win["list_cap"] == wide["list_cap"] and win["queue_cap"] == wide["queue_cap"]
         assert win["bytes"] == wide["bytes"] + 4 * W.WIN_REC * n_win
         assert 3 * (win["bytes"] + 1024) <= 228 * 1024
-        least = host_blocks.plan(g, n_cols, lights, limit=0, wide=True, n_win=n_win)
+        least = host_blocks.plan(g, n_cols, lights, limit=0, build="windows", n_win=n_win)
         assert least["bytes"] == W.wave_smem_bytes(0, n_cols, lights) + 4 * W.WIN_REC * n_win
+    for g, n_cols, lights, n_win in [(141, 32, 2, 6), (1000, 31, 8, 33)]:
+        staged = host_blocks.plan(g, n_cols, lights)
+        both = host_blocks.plan(g, n_cols, lights, build="staged_windows", n_win=n_win)
+        assert both["list_cap"] == staged["list_cap"] and both["queue_cap"] == staged["queue_cap"]
+        assert both["bytes"] == staged["bytes"] + 4 * W.WIN_REC * n_win + 4 * W.WIN_COLS * g
+        if g == 141:
+            assert 3 * (both["bytes"] + 1024) <= 228 * 1024
 
 
 def test_block_schedule_wide_table_equals_plain_on_every_level(host_blocks):
@@ -839,7 +913,6 @@ def test_block_schedule_wide_table_equals_plain_on_every_level(host_blocks):
     scene = models.get("sphere_field", n=1800, res=(48, 27), device="cpu")
     tables = W.wave_tables(scene)
     assert tables.table.shape == (31, 1801)
-    assert W.wave_variant(1801, 31, tables.n_lights) == "wide"
     assert W.package_build(tables) == "windows" and tables.windows.shape[0] == 57 + 1
     o, d, tm = tile_rays(scene.camera, 6, 2, 48, 1, generator=torch.Generator().manual_seed(0))
     common = dict(device="cpu", return_levels=True, tables=tables)
@@ -867,7 +940,7 @@ def test_block_schedule_wide_edge_splits_short_chunks(host_blocks):
     scene = models.get("sphere_field", n=6143, res=(40, 27), device="cpu")
     tables = W.wave_tables(scene)
     assert tables.table.shape[1] == W.WAVE_MAX_GEOMS
-    assert W.wave_variant(*tables.table.shape[::-1], tables.n_lights) == "wide"
+    assert W.package_build(tables) == "windows"
     o, d, tm = tile_rays(scene.camera, 8, 1, 40, 1, generator=torch.Generator().manual_seed(0))
     n = o.shape[0]
     boot = torch.cat([o.T, d.T, tm[None], torch.ones((2, n))]).contiguous()
@@ -910,7 +983,7 @@ def test_window_build_is_the_kernels(host_blocks):
     cube_city's floor is a window of its own); a window's box is the union
     of its members' `geom_aabbs` boxes (a moving sphere's time-1 extent
     included) and its graze their largest `row_graze`.  A table a block
-    stages gets none."""
+    stages gets its windows too (the package's build culls by them)."""
     from ray_tracying_tpu_torch import models
     from ray_tracying_tpu_torch.accel.lbvh import geom_aabbs, row_graze
 
@@ -919,8 +992,8 @@ def test_window_build_is_the_kernels(host_blocks):
         W.WAVE_WINDOW, W.WIN_COLS, W.WIN_REC, W.WAVE_MAX_WINDOWS, len(W.WINDOW_WORK))
     assert {b: k[b] for b in W.WAVE_BUILDS} == W.WAVE_BUILDS
     assert W.WAVE_WINDOW in (32, 64)
-    assert W.wave_tables(models.get("sphere_field", n=1000, res=(8, 6), device="cpu")).windows \
-        is None
+    small = W.wave_tables(models.get("sphere_field", n=1000, res=(8, 6), device="cpu"))
+    assert small.windows is not None and W.package_build(small) == "staged_windows"
     moving = moving_field(1800)
     for scene in (models.get("cube_city", n=2048, res=(8, 6), device="cpu"), moving,
                   models.get("sphere_field", n=6143, res=(8, 6), device="cpu")):
@@ -964,7 +1037,7 @@ def test_windows_refuse_another_table():
     passes the table the windows were built from and a detached view of it
     (what `WaveLevelFn` hands the kernel, a differentiable table too), and
     refuses another table, the same table edited in place since, and a
-    table without windows."""
+    table without windows (every table of `wave_tables` has them)."""
     import dataclasses
 
     from ray_tracying_tpu_torch import models
@@ -977,9 +1050,10 @@ def test_windows_refuse_another_table():
     W.check_windows(dataclasses.replace(diff, table=diff.table.detach()))
     with pytest.raises(ValueError, match="another table"):
         W.check_windows(dataclasses.replace(tables, table=tables.table.clone()))
+    small = W.wave_tables(models.get("sphere_field", n=100, res=(8, 6), device="cpu"))
+    W.check_windows(small)
     with pytest.raises(ValueError, match="with_windows"):
-        W.check_windows(W.wave_tables(models.get("sphere_field", n=100, res=(8, 6),
-                                                 device="cpu")))
+        W.check_windows(dataclasses.replace(small, windows=None))
     tables.table[0, 0] += 1.0
     with pytest.raises(ValueError, match="changed since"):
         W.check_windows(tables)
@@ -1134,6 +1208,155 @@ def test_windowed_keeps_the_fuzzy_grazing_hits_of_far_spheres(host_blocks):
     bare[:, 6] = 0.0
     lost = host_blocks(boot, None, dataclasses.replace(tables, windows=bare), build="windows")
     assert int((lost[12, n:] < a[12, n:]).sum()) > 100
+
+
+def test_windowed_legacy_planes_keep_their_hits_past_the_edge(host_blocks, monkeypatch):
+    """A legacy plane's test (csrc/geom.cuh::plane_t_x) takes points up to
+    1e-6 / |edge| outside its triangles: on a plane 0.004 wide, 2.5e-4
+    past its edge, where the reference's box (`geom_aabbs`: the corners
+    +- 1e-4) no longer reaches.  Thirty-two copies of such a plane fill one
+    window of their own; rays from the camera aim at a strip across the
+    plane's right edge, and grazing rays (0.06-1.7 degrees off the plane)
+    cross that edge.  The window cull (the package's build, its boxes grown
+    by `plane_boxes`) keeps every hit: the schedule equals the plain
+    version and is torch.equal to the unculled staged one; some kept hits
+    lie past the reference's box.  Built from the reference's boxes alone,
+    the same windows lose those hits (the rays sorted by how far past the
+    edge they aim, so that whole warps miss the box)."""
+    import dataclasses
+
+    x0, y0, z0, h = 0.3, 4.5, 0.2, 0.002
+    tiny = {"corners": [[x0 - h, y0, z0 - h], [x0 + h, y0, z0 - h], [x0 + h, y0, z0 + h],
+                        [x0 - h, y0, z0 + h]]}
+    spheres = [{"location": [0.0, 9.0, 0.0], "radius": 3.0}]
+    lights = [{"location": [0.0, 2.0, 3.0], "intensity": 300.0, "color": [1.0, 1.0, 1.0],
+               "radius": 0.0}]
+    scene = rt.load_scene_dict(camera_dict(planes=[tiny] * 32, spheres=spheres, lights=lights),
+                               device="cpu")
+    tables = W.wave_tables(scene)
+    assert W.package_build(tables) == "staged_windows"
+    assert [k for k, _, _ in tables.ranges] == [CH.KIND_SPHERE, W.KIND_PLANE]
+    assert tables.window_ranges == (0, 1, 2)   # the planes' window holds nothing else
+    plane_ids = set(range(1, 33))
+    rng = np.random.default_rng(11)
+    n = 3000
+    # past the right edge (x = x0 + h), in order: a warp runs a window when
+    # one of its lanes wants it, so a lost hit shows only where a whole warp
+    # misses the box
+    past = np.sort(rng.uniform(-3e-4, 4e-4, n))
+    target = np.stack([x0 + h + past, np.full(n, y0), z0 + rng.uniform(-h, h, n)], axis=1)
+    d1 = target / np.linalg.norm(target, axis=1, keepdims=True)
+    o1 = np.zeros((n, 3))
+    ang = rng.uniform(1e-3, 3e-2, n)           # grazing: toward -x, rising through y0
+    d2 = np.stack([-np.cos(ang), np.sin(ang), np.zeros(n)], axis=1)
+    cross = np.stack([x0 + h + np.sort(rng.uniform(-3e-4, 4e-4, n)), np.full(n, y0),
+                      z0 + rng.uniform(-h, h, n)], axis=1)
+    o2 = cross - 0.5 * d2
+    o = torch.from_numpy(np.concatenate([o1, o2]).astype(np.float32))
+    d = torch.from_numpy(np.concatenate([d1, d2]).astype(np.float32))
+    boot = wide_boot(o, d, torch.zeros(2 * n))
+    a = host_blocks(boot, None, tables)
+    assert not torch.isnan(a).any()
+    assert torch.equal(a, host_blocks(boot, None, tables, build="staged"))
+    b = W.wave_level_plain(boot, None, tables, record=True)
+    assert_same(a, b[:13])
+    won = np.isin(b[13].numpy(), list(plane_ids))
+    beyond = np.concatenate([past, cross[:, 0] - x0 - h]) > 1.5e-4
+    assert int((won & beyond)[:n].sum()) > 50 and int((won & beyond)[n:].sum()) > 50
+    assert int(won[n:].sum()) > 500
+    # the same windows from the reference's boxes alone
+    monkeypatch.setattr(W, "plane_boxes", lambda rows, boxes: boxes)
+    bare = W.with_windows(tables, scene)
+    assert (bare.windows[1, 3:6] <= tables.windows[1, 3:6]).all()
+    assert bare.windows[1, 3] < tables.windows[1, 3]   # past the right edge
+    lost = host_blocks(boot, None, bare)
+    assert int((lost[:, :n] != a[:, :n]).any(dim=0).sum()) > 50
+
+
+def _off_plane_quad(rng, n):
+    """A quad whose corner e is off the plane of a, b, c (the reference's
+    test takes triangle (b, e', c), e' = e projected onto that plane, which
+    reaches past the corners' box); targets in that triangle, the farthest
+    from the box first, each from 0.25 below it, upward (the corners' box
+    is 1 deep in y: a ray from the camera would cross it)."""
+    o0 = np.array([-0.5, 4.5, -0.5])
+    a, b, c, e = (o0 + v for v in ([0, 0, 0], [1, 1, 0], [0, 0, 1], [3, 0, 0]))
+    e_p = o0 + np.array([1.5, 1.5, 0.0])
+    lam = rng.dirichlet((1.0, 1.0, 1.0), n)
+    target = lam[:, :1] * b + lam[:, 1:2] * e_p + lam[:, 2:] * c
+    target = target[np.argsort(-target[:, 1])]
+    return [a, b, c, e], target, target - np.array([0.0, 0.25, 0.0])
+
+
+def _sliver_quad(rng, n):
+    """A sheared sliver (a parallelogram 3 long and 1e-3 high): its test
+    takes points up to about 3e-3 past the sharp corner a, 3 / (the
+    triangle's doubled area) times 1e-6; targets around and past a, the
+    farthest first."""
+    o0, h = np.array([-1.5, 4.5, 0.2]), 1e-3
+    a, b, c, e = (o0 + v for v in ([0, 0, 0], [1, 0, 0], [2, 0, h], [3, 0, h]))
+    lam = rng.uniform(-2e-3, 2e-4, (n, 2))
+    target = a + lam[:, :1] * (b - a) + lam[:, 1:] * (c - a)
+    return [a, b, c, e], target[np.argsort(target[:, 0])], np.zeros((n, 3))
+
+
+def _repeated_corner_quad(rng, n):
+    """A triangle written as a quad (e = c): the test's triangle (b, c, c)
+    has no area and takes a strip 5e-4 wide along the whole line through b
+    and c; targets on that strip up to 0.3 past c."""
+    x0, y0, z0, h = 0.3, 4.5, 0.2, 0.002
+    a, b, c = (np.array(v) for v in ([x0 - h, y0, z0 - h], [x0 + h, y0, z0 - h],
+                                     [x0 + h, y0, z0 + h]))
+    s = np.sort(rng.uniform(1e-3, 0.3, n))[::-1]
+    target = np.stack([x0 + h + rng.uniform(-3e-4, 3e-4, n), np.full(n, y0), z0 + h + s], axis=1)
+    return [a, b, c, c], target, np.zeros((n, 3))
+
+
+@pytest.mark.parametrize("quad", [_off_plane_quad, _sliver_quad, _repeated_corner_quad],
+                         ids=["off_plane", "sliver", "repeated_corner"])
+def test_windowed_legacy_quads_keep_every_hit_their_test_takes(host_blocks, monkeypatch, quad):
+    """Quads whose test (csrc/geom.cuh::plane_t_x) takes points outside
+    their corners' box: a fourth corner off the plane of the other three, a
+    sliver with a sharp corner, a repeated corner.  Thirty-two copies of
+    the quad fill one window; rays from the camera aim at points the test
+    takes outside the reference's box (`geom_aabbs`).  The window cull (the
+    package's build, the box from `plane_boxes`: the test's own plane and
+    triangles, their edge slack, or for the repeated corner a box every ray
+    starts in) keeps every hit: the schedule equals the plain version and
+    is torch.equal to the unculled staged one, and the plane wins lanes
+    past the reference's box.  Built from the reference's boxes alone, the
+    same windows lose some of those hits (the rays ordered so that whole
+    warps miss that box)."""
+    rng = np.random.default_rng(23)
+    n = 2048
+    corners, target, origin = quad(rng, n)
+    plane = {"corners": [[float(x) for x in v] for v in corners]}
+    spheres = [{"location": [0.0, 30.0, 10.0], "radius": 1.0}]
+    lights = [{"location": [0.0, 2.0, 3.0], "intensity": 300.0, "color": [1.0, 1.0, 1.0],
+               "radius": 0.0}]
+    scene = rt.load_scene_dict(camera_dict(planes=[plane] * 32, spheres=spheres, lights=lights),
+                               device="cpu")
+    tables = W.wave_tables(scene)
+    assert W.package_build(tables) == "staged_windows"
+    assert tables.window_ranges == (0, 1, 2)
+    d = (target - origin) / np.linalg.norm(target - origin, axis=1, keepdims=True)
+    boot = wide_boot(torch.from_numpy(origin.astype(np.float32)),
+                     torch.from_numpy(d.astype(np.float32)), torch.zeros(n))
+    a = host_blocks(boot, None, tables)
+    assert not torch.isnan(a).any()
+    assert torch.equal(a, host_blocks(boot, None, tables, build="staged"))
+    b = W.wave_level_plain(boot, None, tables, record=True)
+    assert_same(a, b[:13])
+    won = np.isin(b[13].numpy(), list(range(1, 33)))
+    k = np.array(corners, np.float32)
+    lo, hi = k.min(axis=0) - 1e-4, k.max(axis=0) + 1e-4
+    outside = ((target < lo) | (target > hi)).any(axis=1)   # a ray meets the plane there
+    assert int((won & outside).sum()) > 100
+    monkeypatch.setattr(W, "plane_boxes", lambda rows, boxes: boxes)
+    bare = W.with_windows(tables, scene)
+    assert (bare.windows[1, :3] >= tables.windows[1, :3]).all()
+    lost = host_blocks(boot, None, bare)
+    assert int((lost != a).any(dim=0).sum()) > 20
 
 
 def test_windowed_record_rows_equal_plain_on_cube_city(host_blocks):

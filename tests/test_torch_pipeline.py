@@ -373,9 +373,9 @@ def test_oversize_fused_scene_takes_the_general_path(monkeypatch):
     fused = rt.render_to_srgb_u8(scene, opts, device="cpu")
     assert len(levels) == 11
     with monkeypatch.context() as m:
-        small = wf.wave_smem_bytes(scene.n_geoms, 31, scene.n_lights) - 4
+        small = wf.staged_smem_bytes(scene.n_geoms, 31, scene.n_lights) - 4
         m.setattr(wf, "WAVE_MAX_SMEM_BYTES", small)
-        assert wf.wave_variant(scene.n_geoms, 31, scene.n_lights) == "wide"
+        assert wf.package_build(wf.wave_tables(scene)) == "windows"
         assert wf.wave_refusal(scene) is None
         assert np.array_equal(rt.render_to_srgb_u8(scene, opts, device="cpu"), fused)
         assert len(levels) == 22

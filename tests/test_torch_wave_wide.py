@@ -1,18 +1,21 @@
 """The fused level on tables over what a block's shared memory stages
-(1,670-6,144 geoms: the kernel's wide build), against the JAX package,
+(1,107-6,144 geoms: the kernel's wide build), against the JAX package,
 whose fused level takes any table up to WAVE_MAX_GEOMS = 6,144.
 
 The gate: the port's `wave_refusal(...) is None` exactly where JAX's
 `wave_supported` is True, textured and untextured, around both packages'
-caps.  One level: `wave_level` on the CPU (the plain version, which is
+caps; every table it takes, from 1 geom to 6,144, routed to a window
+cull.  One level: `wave_level` on the CPU (the plain version, which is
 the wide kernel's plain version too) against `wave_level_call` in
 interpret mode on cube_city(n=2048) (2,049 geoms, cubes and a rect) and a
 textured sphere_field(n=3000) (3,001 geoms, spherical UV), levels 0 and 1
 on the same rays, and the g++ build of the kernel's windowed block
 schedule (tests/test_torch_kernel_source.py's `host_blocks`: the table's
 rows in Morton windows culled per warp by box) on the same rays against
-the same reference.  The whole fused trace of cube_city against JAX's
-`trace_wavefront(..., shrink=())`: radiance and per-level counts; it runs
+the same reference; the same for a table a block stages, the flagship's,
+through the staged windowed schedule and the staged one.  The whole fused
+trace of cube_city against JAX's `trace_wavefront(..., shrink=())`:
+radiance and per-level counts; it runs
 through `wave_level` and never the general path.  Differentiable mode
 takes the same scene fused, with the general path's gradients.
 
@@ -51,6 +54,10 @@ CASES = {
 }
 N_ROWS = 4
 KEY_TRACE = 21
+# A table a block stages: the flagship's (141 geoms: cubes and a rect,
+# textured, glossy, two lights) at RES, four rows from this one, its glossy
+# fuzz fed to both packages.
+FLAGSHIP = ("golden/ASCII/scene.json", 30)
 
 torch.set_num_threads(1)
 
@@ -113,11 +120,35 @@ def port_case(case):
     return st, o, d, tm, boot
 
 
+def flagship_case():
+    """(port scene at RES, bootstrap (13, BLOCK) f32 as port_case makes it,
+    (3, BLOCK) unit-ball fuzz rows)."""
+    import ray_tracying_tpu_torch as rt
+    from ray_tracying_tpu_torch.core.sampling import uniform_in_unit_sphere
+    from ray_tracying_tpu_torch.render.pipeline import tile_rays
+
+    st = rt.load_scene(os.path.join(REPO, FLAGSHIP[0]), textures_dir=TEX, device="cpu")
+    st = dataclasses.replace(st, camera=dataclasses.replace(st.camera, resolution=RES))
+    gen = torch.Generator().manual_seed(3)
+    o, d, tm = tile_rays(st.camera, FLAGSHIP[1], N_ROWS, RES[0], 1, generator=gen)
+    r = o.shape[0]
+    rng = np.random.default_rng(6)
+    boot = np.zeros((13, BLOCK), np.float32)
+    boot[0:3, :r] = o.numpy().T
+    boot[3:6, :r] = d.numpy().T
+    boot[6, :r] = tm.numpy()
+    boot[7, :r] = (rng.random(r) < 0.8).astype(np.float32)
+    boot[8, :r] = (0.2 + 0.8 * rng.random(r)).astype(np.float32)
+    fuzz = uniform_in_unit_sphere(gen, (BLOCK,), device="cpu").T.contiguous().numpy()
+    return st, boot, fuzz
+
+
 def write_jax_refs(what, inp, out):
     """what = a case of CASES: levels 0 and 1 of wave_level_call (level 1
     fed by JAX's level 0), as the port's 13 rows: a textured sphere scene's
     level leaves the texel to the glue (_wave_tex_modulate), whose
-    contribution stands in rows 9..11 here.  what = "trace": cube_city's
+    contribution stands in rows 9..11 here.  what = "flagship": the same of
+    the flagship's table, with its fuzz rows.  what = "trace": cube_city's
     whole fused trace."""
     import jax
     import jax.numpy as jnp
@@ -130,9 +161,15 @@ def write_jax_refs(what, inp, out):
 
     data = np.load(inp)
     res = {}
-    if what in CASES:
-        name, n, textured, _ = CASES[what]
-        sj = jax_scene(name, n, textured)
+    if what in CASES or what == "flagship":
+        if what == "flagship":
+            import ray_tracying_tpu as rt_jax
+
+            sj = rt_jax.load_scene(os.path.join(REPO, FLAGSHIP[0]), textures_dir=TEX)
+        else:
+            sj = jax_scene(*CASES[what][:3])
+        fz = jnp.asarray(data[f"{what}_fuzz"]) if f"{what}_fuzz" in data \
+            else jnp.zeros((1, BLOCK), jnp.float32)
         table, ranges, lights = wf_jax.wave_tables(sj)
         ktex = wf_jax.tex_kernel_supported(sj)
         glue = sj.has_textures and not ktex
@@ -145,7 +182,7 @@ def write_jax_refs(what, inp, out):
         # one compilation for both levels (interpret mode runs op by op
         # outside jit)
         level = jax.jit(lambda prev: wf_jax.wave_level_call(
-            prev, jnp.zeros((1, BLOCK), jnp.float32), table, lights, tex_m, twh, ranges,
+            prev, fz, table, lights, tex_m, twh, ranges,
             sj.has_motion, sj.n_lights, sj.has_glossy, sj.has_refraction, 0.0,
             sj.has_textures, uv_kinds, tuple(sj.lights.is_area), 1, ktex, 0))
         # the bootstrap padded to the level's rows, as _trace_wave pads it
@@ -175,13 +212,14 @@ def jax_refs(tmp_path_factory):
     so the tests compute their port side meanwhile."""
     tmp = tmp_path_factory.mktemp("wave_wide")
     inp = str(tmp / "rays.npz")
-    outs = {what: str(tmp / f"jax_{what}.npz") for what in (*CASES, "trace")}
+    outs = {what: str(tmp / f"jax_{what}.npz") for what in (*CASES, "flagship", "trace")}
     arrays = {}
     for case in CASES:
         _, o, d, tm, boot = port_case(case)
         arrays[f"{case}_boot"] = boot
         if case == "cube_city":
             arrays.update(o=o.numpy(), d=d.numpy(), tm=tm.numpy())
+    _, arrays["flagship_boot"], arrays["flagship_fuzz"] = flagship_case()
     np.savez(inp, **arrays)
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
                XLA_FLAGS="--xla_cpu_max_isa=SSE4_2")
@@ -231,15 +269,19 @@ def live_lanes_only(plain, calls):
 
 @pytest.mark.parametrize("textured", [False, True], ids=["untextured", "textured"])
 def test_gate_equals_the_jax_gate_on_the_geom_count(textured):
-    """Around the staged build's caps (1,669 textured, 1,723 untextured)
-    and the JAX package's WAVE_MAX_GEOMS, and at no geoms: the port takes a
-    table exactly where `wave_supported` does, names the count where it
-    refuses, and takes the wide build past the staged cap."""
+    """Around the staged tables' caps (1,106 textured, 1,130 untextured:
+    the table, its window records and its permuted rows in a block's shared
+    memory), the caps of the staged build before it culled (1,669 and
+    1,723), and the JAX package's WAVE_MAX_GEOMS, and at no geoms: the port
+    takes a table exactly where `wave_supported` does, names the count
+    where it refuses, and the package's build is the wide one ("windows")
+    past the staged cap."""
     from ray_tracying_tpu.kernels import wavefront as wf_jax
     from ray_tracying_tpu_torch.kernels import wavefront as wf
 
     assert wf.WAVE_MAX_GEOMS == wf_jax.WAVE_MAX_GEOMS == 6144
-    for n_geoms in (1669, 1670, 1723, 1724, 2049, 3001, 6144, 6145):
+    base = wf.wave_tables(port_scene("sphere_field", 8, textured, res=(8, 6)))
+    for n_geoms in (1106, 1107, 1130, 1131, 1669, 1670, 1723, 1724, 2049, 3001, 6144, 6145):
         st = port_scene("sphere_field", n_geoms - 1, textured, res=(8, 6))
         sj = jax_scene("sphere_field", n_geoms - 1, textured, res=(8, 6))
         assert st.n_geoms == sj.n_geoms == n_geoms
@@ -249,13 +291,42 @@ def test_gate_equals_the_jax_gate_on_the_geom_count(textured):
         if refusal is not None:
             assert f"shaded table of {n_geoms} geoms" in refusal
         cap = wf.wave_cap_geoms(31 + int(textured), st.n_lights)
-        assert cap == (1669 if textured else 1723)
-        variant = wf.wave_variant(n_geoms, 31 + int(textured), st.n_lights)
-        assert variant == ("wide" if n_geoms > cap else "staged"), n_geoms
+        assert cap == (1106 if textured else 1130)
+        sized = dataclasses.replace(base, table=torch.zeros((31 + int(textured), n_geoms)))
+        assert wf.package_build(sized) == ("windows" if n_geoms > cap else "staged_windows")
     # no geoms: both refuse (the trace answers an empty scene with the background)
     empty = dataclasses.replace(st, n_prims=0, n_planes=0)
     assert "empty table" in wf.wave_refusal(empty)
     assert not wf_jax.wave_supported(sj.replace(n_prims=0, n_planes=0))
+
+
+@pytest.mark.parametrize("textured", [False, True], ids=["untextured", "textured"])
+def test_every_table_the_gate_takes_is_culled_by_window(textured):
+    """From one geom to the gate's 6,144: every table `wave_refusal` takes
+    gets its windows from `wave_tables` (built from this very table:
+    `check_windows` passes), and the package launches a window-culled build
+    for it: the staged windowed build while the table, its window records
+    and its permuted rows fit a block's shared memory beside the rest (at
+    the most windows a table of that size can have), the wide windowed
+    build past that; never the unculled staged build."""
+    from ray_tracying_tpu_torch.kernels import wavefront as wf
+
+    n_cols = 31 + int(textured)
+    for n_geoms in (1, 2, 33, 141, 1106, 1107, 1130, 1131, 1669, 2049, 6144):
+        st = port_scene("sphere_field", n_geoms - 1, textured, res=(8, 6))
+        assert st.n_geoms == n_geoms and wf.wave_refusal(st) is None
+        tables = wf.wave_tables(st)
+        wf.check_windows(tables)
+        build = wf.package_build(tables)
+        fits = wf.staged_smem_bytes(n_geoms, n_cols, st.n_lights) <= wf.WAVE_MAX_SMEM_BYTES
+        assert build == ("staged_windows" if fits else "windows"), n_geoms
+        assert fits == (n_geoms <= wf.wave_cap_geoms(n_cols, st.n_lights))
+        n_win = sum(-(-(e - s_) // wf.WAVE_WINDOW) for _, s_, e in tables.ranges)
+        assert tables.windows.shape == (n_win, wf.WIN_REC)
+        assert n_win <= wf.max_windows(n_geoms)
+        assert tables.perm_rows.shape == (n_geoms, wf.WIN_COLS)
+        assert wf.wave_smem_bytes(n_geoms, n_cols, st.n_lights, n_win, n_geoms) \
+            <= wf.staged_smem_bytes(n_geoms, n_cols, st.n_lights)
 
 
 @pytest.mark.parametrize("level", [0, 1])
@@ -272,7 +343,6 @@ def test_wide_level_matches_jax_kernel(jax_refs, host_blocks, case, level):
 
     st, _, _, _, boot = port_case(case)
     tables = wf.wave_tables(st)
-    assert wf.wave_variant(*tables.table.shape[::-1], st.n_lights) == "wide"
     assert tables.has_tex == CASES[case][2]
     if level == 0:
         prev = torch.from_numpy(boot)
@@ -287,6 +357,37 @@ def test_wide_level_matches_jax_kernel(jax_refs, host_blocks, case, level):
     assert got[12].sum() > 20
     windowed = host_blocks(prev, None, tables).numpy()
     assert_level_close(windowed, ref, prev.numpy()[7] > 0)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_staged_table_level_matches_jax_kernel(jax_refs, host_blocks, level):
+    """A table a block stages (the flagship's: 141 geoms, cubes and a rect,
+    textured, glossy) through the package's build, the window cull over the
+    staged table, windows and rows: the g++ build of its block schedule
+    against wave_level_call in interpret mode on the same rays and fuzz
+    (level 0, and level 1 fed by JAX's level 0), and so is the plain
+    version and the unculled staged schedule."""
+    from test_torch_wavefront import assert_level_close
+
+    from ray_tracying_tpu_torch.kernels import wavefront as wf
+
+    st, boot, fuzz = flagship_case()
+    tables = wf.wave_tables(st)
+    assert wf.package_build(tables) == "staged_windows" and tables.windows.shape[0] == 6
+    if level == 0:
+        prev = torch.from_numpy(boot)
+    else:
+        prev = torch.from_numpy(np.ascontiguousarray(jax_refs("flagship")["flagship_level0"][:9]))
+        assert int((prev[7] > 0).sum()) > 20
+    fz = torch.from_numpy(fuzz)
+    ref = jax_refs("flagship")[f"flagship_level{level}"]
+    live = prev.numpy()[7] > 0
+    windowed = host_blocks(prev, fz, tables).numpy()
+    assert windowed.shape == ref.shape == (13, BLOCK)
+    assert_level_close(windowed, ref, live)
+    assert windowed[12].sum() > 20
+    assert_level_close(host_blocks(prev, fz, tables, build="staged").numpy(), ref, live)
+    assert_level_close(wf.wave_level(prev, fz, tables).numpy(), ref, live)
 
 
 def test_wide_trace_matches_jax_fused_path(jax_refs, monkeypatch):

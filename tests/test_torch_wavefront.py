@@ -479,8 +479,9 @@ def test_gate_keeps_every_fused_scene_under_the_kernels_shared_memory():
     (cube_city(2048), over what a block stages, is taken by the level's
     wide build; sphere_field(20000) is over WAVE_MAX_GEOMS).  The largest
     table a block stages (the level kernel's own shared memory: table,
-    lights, the staging list, a chunk's bits and the shadow queue) stays
-    within 10 % of what the table and the lights alone would allow."""
+    lights, the staging list, a chunk's bits, the shadow queue, the window
+    records and the permuted rows) stays within 10 % of what the table, its
+    permuted rows, its window records and the lights alone would allow."""
     from ray_tracying_tpu import models as models_jax
     from ray_tracying_tpu_torch import models
 
@@ -499,7 +500,9 @@ def test_gate_keeps_every_fused_scene_under_the_kernels_shared_memory():
     assert "shaded table of 20001 geoms" in new["sphere_field"]
     for n_cols in (31, 32):
         for lights in (1, 2, 8):
-            old_cap = (wf.WAVE_MAX_SMEM_BYTES // 4 - 8 * lights) // n_cols
+            old_cap = (wf.WAVE_MAX_SMEM_BYTES // 4 - 8 * lights
+                       - wf.WIN_REC * wf.WAVE_MAX_RANGES) \
+                // (n_cols + wf.WIN_COLS + wf.WIN_REC / wf.WAVE_WINDOW)
             cap = wf.wave_cap_geoms(n_cols, lights)
             assert 0.9 * old_cap <= cap < old_cap
 
