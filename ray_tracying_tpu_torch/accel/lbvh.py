@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ray_tracying_tpu_torch import native
+from ray_tracying_tpu_torch import native, spans
 from ray_tracying_tpu_torch.kernels import closest_hit as CH
 from ray_tracying_tpu_torch.kernels.geom_table import pack_geom_table
 from ray_tracying_tpu_torch.scene.types import KIND_RECT, KIND_SPHERE, Scene
@@ -54,17 +54,19 @@ BVH_STACK_MAX = 64
 GRAZE_SLACK = 1.2e-7
 
 
-def _np(x: torch.Tensor) -> np.ndarray:
-    return x.detach().cpu().numpy()
+def _np(x: torch.Tensor, what: str) -> np.ndarray:
+    """x on the host: one device-to-host read, named `what` (spans.read)."""
+    with spans.read(what):
+        return x.detach().cpu().numpy()
 
 
 def geom_aabbs(scene: Scene) -> np.ndarray:
     """(G, 6) [min xyz | max xyz] with reference AABB semantics."""
     boxes = []
     if scene.n_prims:
-        o2w = _np(scene.prims.o2w)         # (P, 3, 4)
-        kind = _np(scene.prims.kind)
-        vel = _np(scene.prims.velocity)
+        o2w = _np(scene.prims.o2w, "prim transforms")   # (P, 3, 4)
+        kind = _np(scene.prims.kind, "prim kinds")
+        vel = _np(scene.prims.velocity, "prim velocities")
         # Unit-cube corners; spheres use +-1 (shapes.cpp:267-270), cubes and
         # rects +-0.5 (rects flat in z, shapes.cpp:337-340,427-430).
         signs = np.array(
@@ -85,7 +87,7 @@ def geom_aabbs(scene: Scene) -> np.ndarray:
             np.concatenate([allc.min(axis=1), allc.max(axis=1)], axis=1)
         )
     if scene.n_planes:
-        c = _np(scene.planes.corners)  # (Q, 4, 3)
+        c = _np(scene.planes.corners, "plane corners")  # (Q, 4, 3)
         pad = 1e-4  # shapes.cpp:498
         boxes.append(
             np.concatenate([c.min(axis=1) - pad, c.max(axis=1) + pad], axis=1)
@@ -260,7 +262,7 @@ def build_chunks(scene: Scene, chunk: Optional[int] = None):
     chunk = CHUNK if chunk is None else chunk
     aabbs = geom_aabbs(scene)
     order = _morton_order(aabbs)
-    table = _np(pack_geom_table(scene))[order]
+    table = _np(pack_geom_table(scene), "geom table")[order]
     sb = aabbs[order]
     g = table.shape[0]
     nc = -(-g // chunk)
@@ -364,7 +366,7 @@ def with_bvh(scene: Scene) -> Scene:
     if scene.n_geoms == 0:
         return scene
     boxes, topo, order = native.lbvh_build(geom_aabbs(scene), LEAF_SIZE)
-    table = np.ascontiguousarray(_np(pack_geom_table(scene))[order])
+    table = np.ascontiguousarray(_np(pack_geom_table(scene), "geom table")[order])
     dev = scene.device
     scene = dataclasses.replace(
         scene,

@@ -11,6 +11,7 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
+from ray_tracying_tpu_torch import spans
 from ray_tracying_tpu_torch.diff import params as P
 from ray_tracying_tpu_torch.diff.render import fold_in, mse_loss, mse_loss_and_grad_tiled
 from ray_tracying_tpu_torch.render.pipeline import RenderOptions
@@ -74,18 +75,25 @@ def fit(
             optimizer.load_state_dict(opt_state)
 
     history = []
+    width, height = scene.camera.resolution
+    spp = opts.samples_sqrt * opts.samples_sqrt if opts.samples_sqrt > 1 else 1
     for i in range(start, steps):
-        s_i = fold_in(seed, i) if resample_noise else seed
-        optimizer.zero_grad(set_to_none=True)
-        if tiled:
-            loss, grads = mse_loss_and_grad_tiled(scene, theta, target_linear, s_i, opts, dev)
-            for k, v in theta.items():
-                v.grad = grads[k]
-        else:
-            loss = mse_loss(P.apply(scene, theta), target_linear, s_i, opts, dev)
-            loss.backward()
-        optimizer.step()
-        history.append(float(loss.detach()))
+        with spans.span("rtt.step", rays=width * height * spp):
+            s_i = fold_in(seed, i) if resample_noise else seed
+            optimizer.zero_grad(set_to_none=True)
+            if tiled:
+                loss, grads = mse_loss_and_grad_tiled(scene, theta, target_linear, s_i, opts, dev)
+                for k, v in theta.items():
+                    v.grad = grads[k]
+            else:
+                with spans.span("rtt.forward"):
+                    loss = mse_loss(P.apply(scene, theta), target_linear, s_i, opts, dev)
+                with spans.span("rtt.backward"):
+                    loss.backward()
+            with spans.span("rtt.adam"):
+                optimizer.step()
+            with spans.read("loss"):
+                history.append(float(loss.detach()))
         if checkpoint_dir is not None and (i + 1) % checkpoint_every == 0:
             ckpt.save(checkpoint_dir, i + 1, theta, optimizer.state_dict())
     fitted = {k: v.detach() for k, v in theta.items()}

@@ -31,6 +31,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ray_tracying_tpu_torch import spans
 from ray_tracying_tpu_torch.diff import params as P
 from ray_tracying_tpu_torch.render.pipeline import RenderOptions, _render_tile
 from ray_tracying_tpu_torch.scene.types import Scene
@@ -53,7 +54,8 @@ def _warn_dropped(counts) -> None:
     path's queue shrink or a compacted queue's overflow is surfaced (one
     host read, after all is enqueued; the JAX package's differentiable
     render discards this count)."""
-    dropped = int(torch.stack(counts).sum()) if counts else 0
+    with spans.read("dropped"):
+        dropped = int(torch.stack(counts).sum()) if counts else 0
     if dropped:
         warnings.warn(
             f"differentiable render dropped {dropped} live continuation rays "
@@ -152,11 +154,13 @@ def mse_loss_and_grad_tiled(
     grads = [torch.zeros_like(v) for v in leaves]
     drops = []
     for idx, start, offset, take in tiles:
-        term, dropped = _tile_term(
-            sc, target, start, offset, take, rows, opts,
-            _generator(dev, fold_in(seed, idx)), True,
-        )
-        g = torch.autograd.grad(term, leaves, allow_unused=True)
+        with spans.span("rtt.forward"):
+            term, dropped = _tile_term(
+                sc, target, start, offset, take, rows, opts,
+                _generator(dev, fold_in(seed, idx)), True,
+            )
+        with spans.span("rtt.backward"):
+            g = torch.autograd.grad(term, leaves, allow_unused=True)
         for acc, gi in zip(grads, g):
             if gi is not None:
                 acc += gi.to(acc.device)

@@ -82,6 +82,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ray_tracying_tpu_torch import spans
 from ray_tracying_tpu_torch.accel.lbvh import geom_aabbs, morton_codes, row_graze
 from ray_tracying_tpu_torch.core import constants as C
 from ray_tracying_tpu_torch.kernels import _build, _coop
@@ -418,7 +419,8 @@ def with_windows(tables: WaveTables, scene: Scene) -> WaveTables:
     """`tables` with the windowed build's operands (`window_arrays`), built
     on the host in numpy from the detached table and `scene`'s geom boxes,
     on the table's device.  They never carry a gradient."""
-    table_t = tables.table.detach().cpu().numpy()
+    with spans.read("windows table"):
+        table_t = tables.table.detach().cpu().numpy()
     ids = np.rint(table_t[16]).astype(np.int64)
     perm_rows, windows, bounds = window_arrays(table_t, tables.ranges, geom_aabbs(scene)[ids])
     dev = tables.table.device
@@ -1147,8 +1149,7 @@ def wave_level_lane(
     (csrc/wavefront.cu::wave_level_lane_kernel: every block stages the whole
     table, one thread runs one lane's three stages).  Only for measuring the
     package's kernel against it (chip_smoke.py); CUDA tensors and tables a
-    block stages only.  `wave_level_lane.launches` counts its launches apart
-    from `wave_level.launches`."""
+    block stages only."""
     if not out_prev.is_cuda:
         raise ValueError("wave_level_lane runs on the card only")
     _check_level_args(out_prev, fuzz, tables)
@@ -1162,11 +1163,7 @@ def wave_level_lane(
         err = lib.wave_level_lane_launch(
             *args, WAVE_THREADS, torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "wave_level_lane kernel launch")
-    wave_level_lane.launches += 1
     return out
-
-
-wave_level_lane.launches = 0
 
 
 def wave_level(
@@ -1225,19 +1222,21 @@ class WaveLevelFn(torch.autograd.Function):
         ranges, n_lights, glossy, has_tex, min_tp, motion, refraction = ctx.static
         best_id, vis, texel = split_record(out, n_lights, has_tex)
         wanted = ctx.needs_input_grad
-        with torch.enable_grad():
+        with spans.span("rtt.level_backward", lanes=out_prev.shape[1]), torch.enable_grad():
             xs = [
                 t.detach().requires_grad_(bool(w))
                 for t, w in ((out_prev, wanted[0]), (table, wanted[2]), (lights, wanted[3]))
             ]
-            recon = wave_level_ref(
-                xs[0], fuzz, xs[1], xs[2], best_id, vis, texel,
-                kinds=[k for k, _, _ in ranges], n_lights=n_lights,
-                glossy=glossy, min_tp=min_tp, motion=motion, refraction=refraction,
-            )
+            with spans.span("rtt.level_backward.recompute"):
+                recon = wave_level_ref(
+                    xs[0], fuzz, xs[1], xs[2], best_id, vis, texel,
+                    kinds=[k for k, _, _ in ranges], n_lights=n_lights,
+                    glossy=glossy, min_tp=min_tp, motion=motion, refraction=refraction,
+                )
             need = [x for x in xs if x.requires_grad]
-            grads = iter(torch.autograd.grad(
-                recon, need, g_out[:OUT_ROWS], allow_unused=True
-            ) if need else ())
+            with spans.span("rtt.level_backward.grad"):
+                grads = iter(torch.autograd.grad(
+                    recon, need, g_out[:OUT_ROWS], allow_unused=True
+                ) if need else ())
         g_prev, g_table, g_lights = (next(grads) if x.requires_grad else None for x in xs)
         return g_prev, None, g_table, g_lights, None, None

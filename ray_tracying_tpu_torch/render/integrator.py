@@ -87,6 +87,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 import torch.utils.checkpoint
 
+from ray_tracying_tpu_torch import spans
 from ray_tracying_tpu_torch.core import constants as C
 from ray_tracying_tpu_torch.core.sampling import uniform_in_unit_sphere
 from ray_tracying_tpu_torch.core.vecmath import dot, normalize, reflect, refract
@@ -228,7 +229,8 @@ def _shrink(prev, capacity: int, dest):
     Returns (queue (9, capacity), kept slots' dest, dropped count); one
     host read."""
     live = prev[7] > 0
-    idx = torch.nonzero(live).squeeze(1)
+    with spans.read("shrink live lanes"):
+        idx = torch.nonzero(live).squeeze(1)
     dropped = max(0, idx.numel() - capacity)
     if dropped:
         key = torch.where(live, -prev[8].detach(), torch.inf)
@@ -276,38 +278,42 @@ def _trace_wave(
     outs = Levels()
     for depth in range(levels):
         if depth in stage_of:
-            prev, dest, drops[depth] = _shrink(prev, stage_of[depth], dest)
+            with spans.span("rtt.shrink") as sp:
+                prev, dest, drops[depth] = _shrink(prev, stage_of[depth], dest)
+                sp.add(kept=dest.numel(), dropped=drops[depth])
         width = prev.shape[1]
         kept = None if dest is None else dest.numel()
-        jitter = None
-        if light_jitter is not None:
-            jitter = [_gather_draws(j, dest, width, 0) for j in light_jitter[depth]]
-        fz = level_fuzz(
-            tables, generator, width, dev,
-            glossy=None if fuzz is None else _gather_draws(fuzz[depth], dest, width, 1),
-            jitter=jitter,
-        )
-        if differentiable:
-            out = WaveLevelFn.apply(prev, fz, tables.table, tables.lights, tables, min_tp)
-            contrib = out[C_BASE : C_BASE + 3]
-            accum = (accum + contrib if dest is None
-                     else accum.index_add(1, dest, contrib[:, :kept]))
-        else:
-            out = level_fn(prev, fz, tables, min_tp)
-            if dest is None:
-                accum += out[C_BASE : C_BASE + 3]
-            else:
-                accum.index_add_(1, dest, out[C_BASE : C_BASE + 3, :kept])
-        if return_stats:
-            stat_rows.append(
-                torch.stack(
-                    [
-                        (prev[7] > 0).sum(),
-                        (out[HIT_ROW] > 0).sum(),
-                        (out[7] > 0).sum(),
-                    ]
+        with spans.span("rtt.level", depth=depth, lanes=width):
+            jitter = None
+            if light_jitter is not None:
+                jitter = [_gather_draws(j, dest, width, 0) for j in light_jitter[depth]]
+            with spans.span("rtt.fuzz"):
+                fz = level_fuzz(
+                    tables, generator, width, dev,
+                    glossy=None if fuzz is None else _gather_draws(fuzz[depth], dest, width, 1),
+                    jitter=jitter,
                 )
-            )
+            if differentiable:
+                out = WaveLevelFn.apply(prev, fz, tables.table, tables.lights, tables, min_tp)
+                contrib = out[C_BASE : C_BASE + 3]
+                accum = (accum + contrib if dest is None
+                         else accum.index_add(1, dest, contrib[:, :kept]))
+            else:
+                out = level_fn(prev, fz, tables, min_tp)
+                if dest is None:
+                    accum += out[C_BASE : C_BASE + 3]
+                else:
+                    accum.index_add_(1, dest, out[C_BASE : C_BASE + 3, :kept])
+            if return_stats:
+                stat_rows.append(
+                    torch.stack(
+                        [
+                            (prev[7] > 0).sum(),
+                            (out[HIT_ROW] > 0).sum(),
+                            (out[7] > 0).sum(),
+                        ]
+                    )
+                )
         if return_levels:
             outs.append(out)
             outs.dest.append(None if dest is None else torch.cat(
@@ -484,16 +490,19 @@ def _trace_general(
 
     def level(depth, jitter, fz, accum, *fields):
         q = _Queue(*fields)
-        hit = closest_hit(
-            scene, q.o, q.d, q.time, q.active, use_bvh, differentiable=differentiable
-        )
+        with spans.span("rtt.hit"):
+            hit = closest_hit(
+                scene, q.o, q.d, q.time, q.active, use_bvh, differentiable=differentiable
+            )
         act = q.active & hit.valid
         missed = q.active & ~hit.valid
-        mrec = gather_materials(scene, hit.geom_id)
-        local = shade(
-            scene, hit, q.o, generator, light_samples, mrec, act, use_bvh,
-            jitter=jitter, differentiable=differentiable,
-        )
+        with spans.span("rtt.materials"):
+            mrec = gather_materials(scene, hit.geom_id)
+        with spans.span("rtt.shade"):
+            local = shade(
+                scene, hit, q.o, generator, light_samples, mrec, act, use_bvh,
+                jitter=jitter, differentiable=differentiable,
+            )
         local_w = torch.clamp(1.0 - mrec.reflectivity - mrec.transparency, min=0.0)
         w_miss = torch.where(missed, q.tp, 0.0)[:, None]
         w_local = torch.where(act, q.tp * local_w, 0.0)[:, None]
@@ -508,25 +517,26 @@ def _trace_general(
         live_in = q.active.sum()
         n_hit = act.sum()
 
-        if spawn and scene.has_glossy and fz is None:
-            fz = uniform_in_unit_sphere(generator, (capacity,), device=dev)
-        dropped = zero_count
-        if not spawn:
-            spawned = zero_count
-        elif do_compact and two_way:
-            cand = _cat(
-                [
-                    _spawn_reflection(scene, q, hit, mrec, act, fz, min_tp),
-                    _spawn_refraction(scene, q, hit, mrec, act, min_tp),
-                ]
-            )
-            spawned = cand.active.sum()
-            q, dropped = _compact(cand, cand.active, capacity)
-        else:
-            q = _spawn_one_way(scene, q, hit, mrec, act, fz, min_tp)
-            spawned = q.active.sum()
-            if do_compact:
-                q, dropped = _compact(q, q.active, capacity)
+        with spans.span("rtt.spawn"):
+            if spawn and scene.has_glossy and fz is None:
+                fz = uniform_in_unit_sphere(generator, (capacity,), device=dev)
+            dropped = zero_count
+            if not spawn:
+                spawned = zero_count
+            elif do_compact and two_way:
+                cand = _cat(
+                    [
+                        _spawn_reflection(scene, q, hit, mrec, act, fz, min_tp),
+                        _spawn_refraction(scene, q, hit, mrec, act, min_tp),
+                    ]
+                )
+                spawned = cand.active.sum()
+                q, dropped = _compact(cand, cand.active, capacity)
+            else:
+                q = _spawn_one_way(scene, q, hit, mrec, act, fz, min_tp)
+                spawned = q.active.sum()
+                if do_compact:
+                    q, dropped = _compact(q, q.active, capacity)
         return (accum, torch.stack([live_in, n_hit, spawned, dropped])) + tuple(q)
 
     levels = (max_depth + 1) if spawn else 1
@@ -536,20 +546,21 @@ def _trace_general(
         fz = None
         if spawn and scene.has_glossy and fuzz is not None:
             fz = fuzz[depth].T
-        if differentiable:
-            if jitter is None and any(scene.lights.is_area):
-                jitter = [
-                    uniform_in_unit_sphere(generator, (capacity, light_samples), device=dev)
-                    if area else None
-                    for area in scene.lights.is_area
-                ]
-            if spawn and scene.has_glossy and fz is None:
-                fz = uniform_in_unit_sphere(generator, (capacity,), device=dev)
-            res = torch.utils.checkpoint.checkpoint(
-                level, depth, jitter, fz, accum, *q, use_reentrant=False
-            )
-        else:
-            res = level(depth, jitter, fz, accum, *q)
+        with spans.span("rtt.level", depth=depth, lanes=capacity):
+            if differentiable:
+                if jitter is None and any(scene.lights.is_area):
+                    jitter = [
+                        uniform_in_unit_sphere(generator, (capacity, light_samples), device=dev)
+                        if area else None
+                        for area in scene.lights.is_area
+                    ]
+                if spawn and scene.has_glossy and fz is None:
+                    fz = uniform_in_unit_sphere(generator, (capacity,), device=dev)
+                res = torch.utils.checkpoint.checkpoint(
+                    level, depth, jitter, fz, accum, *q, use_reentrant=False
+                )
+            else:
+                res = level(depth, jitter, fz, accum, *q)
         accum, row, q = res[0], res[1], _Queue(*res[2:])
         rows.append(row)
 
@@ -690,8 +701,9 @@ def trace_wavefront(
         and wave_refusal(scene, use_bvh, light_samples) is None
     ):
         if tables is None:
-            tables = wave_tables(scene.to(dev), differentiable=differentiable,
-                                 light_samples=light_samples)
+            with spans.span("rtt.prep"):
+                tables = wave_tables(scene.to(dev), differentiable=differentiable,
+                                     light_samples=light_samples)
         elif any(tables.area) and tables.nss != light_samples:
             raise ValueError(
                 f"tables packed for {tables.nss} samples an area light, "
