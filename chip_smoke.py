@@ -609,6 +609,47 @@ def general_routing():
 
 
 @contextlib.contextmanager
+def level_marks():
+    """Each `rtt.level` span the program opens meanwhile timed by CUDA
+    events, whether or not a profiler records: yields a list that gets a
+    (lanes, start event, end event) per level; `marks_ms` reads it."""
+    from ray_tracying_tpu_torch import spans as S
+
+    real = S.span
+    marks = []
+
+    class Timed:
+        def __init__(self, lanes):
+            self.lanes = lanes
+            self.ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+
+        def add(self, **counts):
+            pass
+
+        def __enter__(self):
+            self.ev[0].record()
+            return self
+
+        def __exit__(self, *exc):
+            self.ev[1].record()
+            marks.append((self.lanes, *self.ev))
+            return False
+
+    S.span = lambda name, **counts: Timed(counts["lanes"]) if name == "rtt.level" \
+        else real(name, **counts)
+    try:
+        yield marks
+    finally:
+        S.span = real
+
+
+def marks_ms(marks):
+    """[[lanes, ms], ...] of `level_marks`' levels."""
+    torch.cuda.synchronize()
+    return [[lanes, a.elapsed_time(b)] for lanes, a, b in marks]
+
+
+@contextlib.contextmanager
 def parent_route(W):
     """The routing before every table was culled by window, for main_path's
     frames: the unculled staged build for a table it takes
@@ -1187,7 +1228,7 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
 
         setattr(I, entry, recording)
         trace_wavefront(full, o, d, tm, generator=gen, fused=False, max_depth=1,
-                        device=dev)
+                        device=dev, shrink=())
         setattr(I, entry, real)
         if len(cast) != 2 * full.n_lights:  # two levels, one launch a light
             fail("two levels of the path did not cast one any-hit launch per light each")
@@ -1323,7 +1364,8 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
         opts_l = rt.RenderOptions(samples_sqrt=2, use_bvh=use_bvh)
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        with general_routing() if general else contextlib.nullcontext():
+        with general_routing() if general else contextlib.nullcontext(), \
+                level_marks() as marks:
             img_w, warm_s = accel_frame(rt, bare, opts_l, 5, dev)
             img_t, timed_s = accel_frame(rt, bare, opts_l, 5, dev)
             _, st = rt.render_image(
@@ -1336,15 +1378,17 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
         frame_seconds[label] = timed_s
         say("accel_path", scene=sname, frame=label, geoms=bare.n_geoms, use_bvh=use_bvh,
             path="general (forced)" if general else "routed", textured=bare.has_textures,
-            width=res_w, height=res_h, spp=4, levels=n_levels, primary_rays=n_rays,
+            width=res_w, height=res_h, spp=4, levels=n_levels, levels_run=len(marks),
+            primary_rays=n_rays,
             warmup_seconds=warm_s, timed_seconds=timed_s,
             primary_rays_per_s=n_rays / timed_s, kernel_launches=got,
             peak_memory_bytes=torch.cuda.max_memory_allocated(),
             two_frames_bytes_equal=bool(np.array_equal(img_w, img_t)),
             dropped=0, dropped_at_1spp=st["total_dropped"],
             live_at_1spp=[lv["live"] for lv in st["levels"]])
-        # Two frames at 4 spp and one at 1 spp, one tile each.
-        per = n_levels * 3
+        # Two frames at 4 spp and one at 1 spp, one tile each; one launch a
+        # level they ran (the general path ends a tile where no lane is live).
+        per = len(marks)
         if sname == "sphere_field":
             expect = dict(chunk_closest_n=per, chunk_occlusion=per * bare.n_lights)
         elif sname == "sphere_field_textured":
@@ -1439,7 +1483,8 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
     o, d, tm = tile_rays(bare.camera, (res_h * 3) // 5, sizes["strip_rows"], res_w, 2, generator=gen)
     torch.cuda.synchronize()
     t0 = time.time()
-    rad_chunked = trace_wavefront(bare, o, d, tm, generator=gen, fused=False, device=dev)
+    with level_marks() as marks:
+        rad_chunked = trace_wavefront(bare, o, d, tm, generator=gen, fused=False, device=dev)
     torch.cuda.synchronize()
     chunked_s = time.time() - t0
     got = read_counts()
@@ -1453,7 +1498,7 @@ def accel_phases(rt, dev, sizes, kinds, k_table, k_ranges, k_n, n_levels):
         lanes=o.shape[0], seconds=chunked_s, kernel_launches=got, rtol=1e-3, atol=1e-3,
         lanes_out_of_tolerance=int(off.sum()), max_share=1e-2,
         max_abs_diff=float((rad_chunked - rad_chunks).abs().max()))
-    if got != dict(brute_closest_chunked=n_levels * (1 + bare.n_lights)):
+    if got != dict(brute_closest_chunked=len(marks) * (1 + bare.n_lights)):
         fail(f"the chunkless large scene launched {got}")
     if float(off.float().mean()) > 1e-2:
         fail("the chunked brute path and the chunk path disagree")
@@ -3736,27 +3781,47 @@ def main():
         fuzz_draw_ms=cuda_ms(lambda: uniform_in_unit_sphere(gen, (n,)), 3),
         level0_ms=cuda_ms(lambda: trace_wavefront(
             scene, o, d, tm, fused=False, max_depth=0, fuzz=fuzz0), 3),
-        trace_ms=cuda_ms(lambda: trace_wavefront(
-            scene, o, d, tm, fused=False, fuzz=fuzz), 2),
     )
+    # The whole trace of the tile at its live width (the default schedule)
+    # and at full width (shrink=()), in turns, its draws from one seed: the
+    # same radiance, and each level's width and ms by CUDA events.
+    widths = {"live_width": "auto", "full_width": ()}
+
+    def general_trace(shrink):
+        return trace_wavefront(scene, o, d, tm, fused=False, shrink=shrink,
+                               generator=torch.Generator(device=dev).manual_seed(77))
+
+    rads, general_tile["levels"] = {}, {}
+    for label, shrink in widths.items():
+        with level_marks() as marks:
+            rads[label] = general_trace(shrink)
+        general_tile["levels"][label] = marks_ms(marks)
+    general_tile["radiance_equal"] = torch.equal(rads["live_width"], rads["full_width"])
+    del rads
+    general_tile["trace_ms"] = in_turns(
+        {label: functools.partial(general_trace, shrink) for label, shrink in widths.items()}, 2)
     say("general_tile_breakdown", **general_tile)
+    if not general_tile["radiance_equal"]:
+        fail("the general path's tile at its live width is not the full width's, draws from one seed")
     del hit, mrec, q0, cast, rays_w, act
 
-    # ---- phase 8: the general path at full width: the flagship frame with
+    # ---- phase 8: the general path at full resolution: the flagship frame with
     # fused=False, one warm-up and one timed frame, counts set to 0 just
     # before.
     CH.brute_closest.launches = CH.brute_closest_n.launches = 0
     CH.occlusion_any.launches = W.wave_level.launches = 0
     torch.cuda.reset_peak_memory_stats()
     g_seconds = []
+    g_levels = 0
     for i in range(2):
         gen_i = torch.Generator(device=dev).manual_seed(10 + i)
         torch.cuda.synchronize()
         t0 = time.time()
-        with general_routing():
+        with general_routing(), level_marks() as marks:
             g_img, g_dropped = srgb_frame(rt, scene, opts, gen_i, device=dev)
         torch.cuda.synchronize()
         g_seconds.append(time.time() - t0)
+        g_levels += len(marks)
     general_launches = dict(
         brute_closest=CH.brute_closest.launches,
         brute_closest_n=CH.brute_closest_n.launches,
@@ -3769,11 +3834,12 @@ def main():
         spp=spp, levels=n_levels, tiles=n_tiles, primary_rays=n_rays,
         warmup_seconds=g_seconds[0], timed_seconds=g_seconds[1],
         primary_rays_per_s=n_rays / g_seconds[1],
-        fused_path_mean_seconds=mean_s, kernel_launches=general_launches,
+        fused_path_mean_seconds=mean_s, kernel_launches=general_launches, levels_run=g_levels,
         dropped=g_dropped, peak_memory_bytes=torch.cuda.max_memory_allocated(),
         golden="bvh_s4_textured_r4.ppm", golden_mean_diff=g_mean, golden_p99=g_p99)
-    expect = dict(brute_closest=n_levels * n_tiles * 2, brute_closest_n=0,
-                  occlusion_any=n_levels * n_tiles * scene.n_lights * 2, wave_level=0)
+    # One launch a level the tiles ran (a tile ends where no lane is live).
+    expect = dict(brute_closest=g_levels, brute_closest_n=0,
+                  occlusion_any=g_levels * scene.n_lights, wave_level=0)
     if general_launches != expect:
         fail(f"general path launched {general_launches}, expected {expect}")
     if g_dropped:

@@ -22,8 +22,8 @@ The general path has two queue disciplines, chosen statically:
 
   IN-SLOT (branching factor 1 — no material both reflects and refracts):
     each ray has at most one continuation, which overwrites its own queue
-    slot.  No compaction, no scatters: radiance accumulates elementwise
-    into accum[slot].
+    slot (`dest`, its primary sample).  At full width radiance accumulates
+    elementwise into accum[slot]; a narrowed level (below) adds at `dest`.
 
   COMPACTED (some material reflects AND refracts, or compact="always"):
     slots carry an explicit dest index; both children are emitted and
@@ -34,6 +34,24 @@ The general path has two queue disciplines, chosen statically:
     a documented deviation that only triggers on mirror+glass scenes
     deeper than log2(queue_mult) simultaneous branchings — and counted in
     TraceStats.dropped.
+
+Live width (general path, whenever `shrink` is not empty): after each
+level but the last, one host read finds the live lanes, and the next level
+runs over them alone, so pass 2, materials, shading, the shadow launches
+and spawn cost what the rays cost, not what the queue holds.  In-slot the
+live lanes are gathered in slot order and keep `dest`, unique within a
+level, so the adds by `dest` give every slot what it got at full width.
+Compacted, `_compact` leaves them as the queue's first lanes: the level
+takes that prefix, its candidates number twice the live count, and
+overflow and `dropped` are what they were.  Draws from a generator are
+still made at the full width and each lane takes its full-width slot's row
+(`dest` in-slot, its queue position compacted), as do draws given as
+tensors: one seed gives the same image bytes narrowed or not.  A queue
+with no live lane ends the loop (the rest of TraceStats is zero; the levels
+left still make their draws, so the generator ends where it would).  No lane
+is ever dropped by it: the shrink pairs' levels and factors are the fused
+path's and mean nothing here, and `shrink=()` keeps every level at full
+width.
 
 Level semantics (identical in all paths, all cited):
   - miss -> background 0.1 gray weighted by path throughput
@@ -336,10 +354,11 @@ def _trace_wave(
 
 def _compact(cands: _Queue, keep: torch.Tensor, capacity: int):
     """Stream-compact candidate slots where keep is True into a queue of
-    `capacity` slots, keeping their order; overflow beyond capacity is
-    dropped in order.  Returns (queue, dropped) where dropped counts the
-    lost continuations (always surfaced through TraceStats so the loss
-    cannot be silent).  One stable sort on the dead flag; no host read."""
+    `capacity` slots (fewer when there are fewer candidates), keeping their
+    order; overflow beyond capacity is dropped in order.  Returns (queue,
+    dropped) where dropped counts the lost continuations (always surfaced
+    through TraceStats so the loss cannot be silent).  One stable sort on
+    the dead flag; no host read."""
     n_keep = keep.sum()
     count = torch.clamp(n_keep, max=capacity)
     dropped = n_keep - count
@@ -350,13 +369,30 @@ def _compact(cands: _Queue, keep: torch.Tensor, capacity: int):
         time=cands.time[order],
         tp=cands.tp[order],
         dest=cands.dest[order],
-        active=torch.arange(capacity, device=keep.device) < count,
+        active=torch.arange(order.numel(), device=keep.device) < count,
     )
     return q, dropped
 
 
 def _cat(queues) -> _Queue:
     return _Queue(*(torch.cat(f, dim=0) for f in zip(*queues)))
+
+
+def _live_lanes(q: _Queue, prefix: bool) -> _Queue:
+    """The queue narrowed to its live lanes, in slot order.  prefix: they
+    are its first lanes (a compacted queue), read their count and slice;
+    else read their slots and gather.  One host read."""
+    with spans.read("general live lanes"):
+        if prefix:
+            n = int(q.active.sum())
+        else:
+            idx = torch.nonzero(q.active).squeeze(1)
+    return _Queue(*(f[:n] if prefix else f.index_select(0, idx) for f in q))
+
+
+def _take(x, slots):
+    """The rows `slots` of the full-width draws x (x itself at full width)."""
+    return x if x is None or slots is None else x.index_select(0, slots)
 
 
 def _accumulate_by_dest(accum, contrib, dest, active, max_run: int):
@@ -457,14 +493,16 @@ def _spawn_one_way(scene, q, hit, mrec, act, fuzz, min_tp):
 def _trace_general(
     scene: Scene, o, d, times, generator, fuzz, light_jitter, light_samples,
     queue_mult, do_compact, min_tp, max_depth, return_stats, return_dropped,
-    use_bvh=False, differentiable=False,
+    use_bvh=False, differentiable=False, narrow=False,
 ):
     """General path: closest hit -> materials -> shade -> spawn, level by
-    level, in-slot or compacted (module docstring).  No host read inside
-    the level loop.  differentiable: pass 2 and shading keep their graph,
-    each level runs under torch.utils.checkpoint, and its draws are made
-    before it (area-light jitter in light order, then the glossy fuzz: the
-    order in which the inference level draws them)."""
+    level, in-slot or compacted (module docstring).  narrow: every level
+    after the first runs at its live width (module docstring), one host read
+    before it; else no host read inside the level loop.  differentiable:
+    pass 2 and shading keep their graph, each level runs under
+    torch.utils.checkpoint, and its draws are made before it (area-light
+    jitter in light order, then the glossy fuzz: the order in which the
+    inference level draws them)."""
     r = o.shape[0]
     dev = o.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -488,7 +526,7 @@ def _trace_general(
     accum = torch.zeros((r + 1 if do_compact else r, 3), **f32)
     zero_count = torch.zeros((), dtype=torch.int64, device=dev)
 
-    def level(depth, jitter, fz, accum, *fields):
+    def level(depth, jitter, fz, narrowed, accum, *fields):
         q = _Queue(*fields)
         with spans.span("rtt.hit"):
             hit = closest_hit(
@@ -512,6 +550,10 @@ def _trace_general(
         if do_compact:
             max_run = min(2 ** depth, capacity) if two_way else 1
             accum = _accumulate_by_dest(accum, contrib, q.dest, q.active, max_run)
+        elif narrowed:
+            # In-slot, each dest once a level: every slot adds what it
+            # added at full width.
+            accum = accum.index_add(0, q.dest, contrib)
         else:
             accum = accum + contrib
         live_in = q.active.sum()
@@ -540,28 +582,61 @@ def _trace_general(
         return (accum, torch.stack([live_in, n_hit, spawned, dropped])) + tuple(q)
 
     levels = (max_depth + 1) if spawn else 1
+    is_area = scene.lights.is_area
+
+    def generator_draws(slots):
+        """(area-light jitter, glossy fuzz) of a level that `generator`
+        supplies, made at the full width in the order in which the level
+        makes them, each lane taking the rows `slots`."""
+        jitter = fz = None
+        if light_jitter is None and any(is_area):
+            jitter = [
+                _take(uniform_in_unit_sphere(
+                    generator, (capacity, light_samples), device=dev), slots)
+                if area else None
+                for area in is_area
+            ]
+        if spawn and scene.has_glossy and fuzz is None:
+            fz = _take(uniform_in_unit_sphere(generator, (capacity,), device=dev), slots)
+        return jitter, fz
+
     rows = []
+    slots = None  # each lane's row of the full-width draws; None at full width
     for depth in range(levels):
-        jitter = None if light_jitter is None else light_jitter[depth]
+        if depth and narrow:
+            q = _live_lanes(q, do_compact)
+            if q.o.shape[0] == 0:
+                # The levels left still draw, so that the generator ends
+                # where a full-width trace leaves it (a frame's next tile
+                # draws on from there).
+                for _ in range(depth, levels):
+                    generator_draws(None)
+                rows += [torch.zeros(4, dtype=torch.int64, device=dev)] * (levels - depth)
+                break
+            slots = torch.arange(q.o.shape[0], device=dev) if do_compact else q.dest
+        jitter = None
+        if light_jitter is not None:
+            jitter = [_take(j, slots) if a else None for j, a in zip(light_jitter[depth], is_area)]
         fz = None
         if spawn and scene.has_glossy and fuzz is not None:
-            fz = fuzz[depth].T
-        with spans.span("rtt.level", depth=depth, lanes=capacity):
+            fz = _take(fuzz[depth].T, slots)
+        with spans.span("rtt.level", depth=depth, lanes=q.o.shape[0]):
+            if differentiable or slots is not None:
+                # Draws made before the level: the recompute of a
+                # checkpointed level sees the same ones, and a narrowed
+                # level takes its lanes' rows.
+                drawn = generator_draws(slots)
+                jitter = drawn[0] if jitter is None else jitter
+                fz = drawn[1] if fz is None else fz
             if differentiable:
-                if jitter is None and any(scene.lights.is_area):
-                    jitter = [
-                        uniform_in_unit_sphere(generator, (capacity, light_samples), device=dev)
-                        if area else None
-                        for area in scene.lights.is_area
-                    ]
-                if spawn and scene.has_glossy and fz is None:
-                    fz = uniform_in_unit_sphere(generator, (capacity,), device=dev)
                 res = torch.utils.checkpoint.checkpoint(
-                    level, depth, jitter, fz, accum, *q, use_reentrant=False
+                    level, depth, jitter, fz, slots is not None, accum, *q,
+                    use_reentrant=False,
                 )
             else:
-                res = level(depth, jitter, fz, accum, *q)
+                res = level(depth, jitter, fz, slots is not None, accum, *q)
         accum, row, q = res[0], res[1], _Queue(*res[2:])
+        del res  # else the full-width queue outlives its narrowing
         rows.append(row)
 
     st = torch.stack(rows, dim=1).to(torch.int32)  # (4, L)
@@ -640,8 +715,10 @@ def trace_wavefront(
     ((level, factor), ...) pairs.  With nothing dropped the radiance is the
     unshrunk one bit for bit (draws given as tensors; from a generator the
     shrunk levels draw at their width); a live lane past a stage's width is
-    dropped dimmest first and counted in TraceStats.dropped.  The general
-    path does not shrink.
+    dropped dimmest first and counted in TraceStats.dropped.  On the
+    general path any non-empty schedule runs every level after the first
+    at its live width, losing nothing, and () keeps the full width: the
+    same image either way, for one seed too (module docstring).
 
     max_depth: recursion depth cutoff; None = the reference's
     MAX_RECURSION_DEPTH (10 -> 11 levels, Code/raytracer.hpp:11).
@@ -724,5 +801,5 @@ def trace_wavefront(
     return _trace_general(
         scene.to(dev), origins, directions, times, generator, fuzz,
         light_jitter, light_samples, queue_mult, do_compact, min_throughput,
-        max_depth, return_stats, return_dropped, use_bvh, differentiable,
+        max_depth, return_stats, return_dropped, use_bvh, differentiable, bool(shrink),
     )
