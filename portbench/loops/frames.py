@@ -9,6 +9,7 @@ Parameters come from the traffic mix's file:
                pan_degrees * sin(2 pi i / pan_period) at frame i, so that
                consecutive frames differ (a frame returned twice is wrong)
                and every seed renders the same views in the same order;
+               the window ends on a whole number of pan periods;
   names        {a metric's name here: the name its cells report it under}
                (a mix whose cells keep a bound of their own);
   warmup       frames rendered in set-up (every view the window renders is
@@ -126,7 +127,7 @@ class Session:
                 self.kept[i] = pix
             return err
 
-        w = closed_loop(unit, seconds, tracer)
+        w = closed_loop(unit, seconds, tracer, period=self.traffic["pan_period"])
         self.traced = w["traced"]
         return w
 

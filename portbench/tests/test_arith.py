@@ -11,7 +11,7 @@ import torch
 
 from yardstick import bytes as B
 from yardstick import compare, manifest, seeds, stats
-from yardstick.profile import UNIT, WINDOW, Trace, is_torch_kernel
+from yardstick.profile import MARKER, UNIT, WINDOW, Trace, is_torch_kernel
 
 
 def test_rate_and_percentile():
@@ -39,8 +39,41 @@ def _trace():
     ])
 
 
+SPIN = "at::cuda::(anonymous namespace)::spin_kernel(long)"
+FILL = "void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>(int)"
+ADD = "void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctorOnSelf_add<float>>(int)"
+LEVEL = "void rtt::wave_level_blocks_kernel<4>(rtt::WaveParams, int)"
+
+
+def test_marker_is_the_spin_kernel():
+    assert MARKER in SPIN and MARKER not in FILL + ADD + LEVEL
+
+
+@pytest.mark.parametrize("case", ["leading_fill", "trailing_copy", "program_add_at_the_edges"])
+def test_marked_span_is_bounded_by_the_markers_name(case):
+    """Device operations outside the two markers (a fill still in flight
+    as the profiler opens, a copy read after the last marker) are left
+    out, and a program kernel of another name at either edge is kept."""
+    body = [_ev("kernel", ADD, 20, 10), _ev("kernel", LEVEL, 40, 100), _ev("kernel", ADD, 150, 10)]
+    before = [_ev("kernel", FILL, -5, 6)] if case == "leading_fill" else []
+    after = [_ev("gpu_memcpy", "Memcpy DtoH (Device -> Pageable)", 203, 4)] if case == "trailing_copy" else []
+    t = Trace.marked(before + [_ev("kernel", SPIN, 0, 2)] + body + [_ev("kernel", SPIN, 200, 2)] + after,
+                     units=1)
+    assert (t.t0, t.t1) == (2.0, 200.0)
+    assert [n for _, n, _, _ in t.device] == [ADD, LEVEL, ADD]
+    assert t.busy_s() == pytest.approx(120e-6)
+
+
+@pytest.mark.parametrize("markers", [0, 1])
+def test_marked_span_without_both_markers_raises(markers):
+    ev = [_ev("kernel", FILL, 0, 2), _ev("kernel", LEVEL, 5, 100), _ev("gpu_memcpy", "Memcpy DtoH", 110, 2)]
+    ev += [_ev("kernel", SPIN, 120, 2)] * markers
+    with pytest.raises(ValueError, match="markers"):
+        Trace.marked(ev, units=1)
+
+
 def test_marked_span_leaves_out_its_markers_and_takes_host_gaps_apart():
-    mark = "void at::native::vectorized_elementwise_kernel<4, AddFunctor>(int)"
+    mark = SPIN
     t = Trace.marked([
         _ev("kernel", mark, 0, 2),
         _ev("kernel", "void rtt::wave_level_blocks_kernel<4>(rtt::WaveParams, int)", 52, 100),

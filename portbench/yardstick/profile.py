@@ -8,13 +8,18 @@ CUDA activity alone (CUPTI: kernels, copies and sets): the device
 metrics, `busy_s` and `window_s` read this stretch.  Tracing still costs
 the host time a launch, so a unit of many small launches runs slower
 traced (a fit step about twice as long), and a share of the unit's time
-is taken against the untraced pace, not the traced span.  It is bounded on the device by two marker operations, one
-launched just before its first unit and one just after its last (each
-after a synchronize), so that the host's time before the first kernel
-and after the last one counts as idle.  Then one more unit under CPU and
-CUDA activity, whose host operations name what the host was doing in each
-idle gap (`breakdown`'s idle_gaps); recording every host operation slows
-that unit, so no metric reads it.  An annotation, `portbench.window`,
+is taken against the untraced pace, not the traced span.  It is bounded
+on the device by two marker kernels, one launched just before its first
+unit and one just after its last (each after a synchronize), so that the
+host's time before the first kernel and after the last one counts as
+idle.  The marker is PyTorch's spin kernel (`torch.cuda._sleep`), which
+the program never launches and which needs no tensor made for it; the
+span runs between the first and last kernels of that name, and a device
+operation outside them (one still in flight as the profiler opens, a copy
+recorded after the last marker) is left out.  Then one more unit under
+CPU and CUDA activity, whose host operations name what the host was doing
+in each idle gap (`breakdown`'s idle_gaps); recording every host
+operation slows that unit, so no metric reads it.  An annotation, `portbench.window`,
 marks that unit's span, and `portbench.unit` the unit.
 
 Each chrome trace is written to a temporary directory (under TMPDIR),
@@ -33,6 +38,8 @@ import tempfile
 WINDOW = "portbench.window"
 UNIT = "portbench.unit"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+MARKER = "spin_kernel"  # the name of torch.cuda._sleep's kernel
+MARKER_CYCLES = 1000
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 # PyTorch's own kernels: its namespaces and the libraries it links (cub,
 # thrust).  The port's kernels live in other namespaces (rtt, anonymous)
@@ -62,7 +69,7 @@ class Tracer:
         self.device_units = list(range(skip, skip + units))
         self.host_unit = skip + units
         self.end = skip + units + 1  # the first unit after the traced ones
-        self._prof = self._ann = self._mark = self._device = None
+        self._prof = self._ann = self._device = None
 
     def before(self, i: int):
         import torch
@@ -70,10 +77,9 @@ class Tracer:
 
         if i == self.device_units[0]:
             torch.cuda.synchronize()
-            self._mark = torch.zeros(1, device="cuda")
             self._prof = profile(activities=[ProfilerActivity.CUDA])
             self._prof.__enter__()
-            self._mark.add_(1.0)
+            torch.cuda._sleep(MARKER_CYCLES)
         elif i == self.host_unit:
             torch.cuda.synchronize()
             self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -91,7 +97,7 @@ class Tracer:
 
         if i == self.device_units[-1]:
             torch.cuda.synchronize()
-            self._mark.add_(1.0)
+            torch.cuda._sleep(MARKER_CYCLES)
             torch.cuda.synchronize()
             self._prof.__exit__(None, None, None)
             # read before the next session starts: a profile exported after
@@ -149,16 +155,19 @@ class Trace:
 
     @classmethod
     def marked(cls, events: list, units: int) -> "Trace":
-        """A span of CUDA activity alone, bounded by its first and last
-        device operations, the two markers (the same operation), which are
-        left out: it runs from the first one's end to the last one's start."""
+        """A span of CUDA activity alone, bounded by the first and last
+        kernels named as the marker (MARKER), which are left out: it runs
+        from the first one's end to the last one's start, and holds the
+        device operations that start between them."""
         device = sorted(((e["cat"], e["name"], float(e["ts"]), float(e["dur"]))
                          for e in cls._spans(events) if e.get("cat") in DEVICE_CATS),
                         key=lambda d: d[2])
-        if len(device) < 2 or device[0][1] != device[-1][1]:
-            raise ValueError("the device trace is not bounded by its two markers")
-        first, last = device[0], device[-1]
-        return cls(first[2] + first[3], last[2], device[1:-1], [], units)
+        marks = [d for d in device if d[0] == "kernel" and MARKER in d[1]]
+        if len(marks) < 2:
+            raise ValueError(f"the device trace holds {len(marks)} of its two markers")
+        first, last = marks[0], marks[-1]
+        inside = [d for d in device if first[2] < d[2] < last[2]]
+        return cls(first[2] + first[3], last[2], inside, [], units)
 
     @property
     def window_s(self) -> float:

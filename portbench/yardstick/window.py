@@ -7,13 +7,16 @@ import contextlib
 import time
 
 
-def closed_loop(unit, seconds: float, tracer=None) -> dict:
-    """Call unit(i) for i = 0, 1, ... until `seconds` have passed (and the
-    traced units are done); unit(i) returns a failure's text or None.
-    A tracer (yardstick.profile.Tracer) starts and stops around the units
-    it traces, outside their times.  Returns attempted, failed, the first
-    failures, the window's seconds, each unit's seconds and the indices of
-    the units traced for the device metrics."""
+def closed_loop(unit, seconds: float, tracer=None, period: int = 1) -> dict:
+    """Call unit(i) for i = 0, 1, ... until `seconds` have passed, the
+    traced units are done and the units make whole periods (a loop whose
+    units cycle through `period` kinds of work ends on a whole cycle, so
+    the kinds in a window's tail do not follow the host's pace); unit(i)
+    returns a failure's text or None.  A tracer (yardstick.profile.Tracer)
+    starts and stops around the units it traces, outside their times.
+    Returns attempted, failed, the first failures, the window's seconds,
+    each unit's seconds and the indices of the units traced for the device
+    metrics."""
     end = tracer.end if tracer else 0
     times, failures = [], []
     start = time.perf_counter()
@@ -32,7 +35,7 @@ def closed_loop(unit, seconds: float, tracer=None) -> dict:
         if err:
             failures.append(err)
         i += 1
-        if b - start >= seconds and i >= end:
+        if b - start >= seconds and i >= end and i % period == 0:
             break
     return dict(attempted=i, failed=len(failures), failures=failures[:5], window_s=b - start,
                 times=times, traced=tracer.device_units if tracer else [])
